@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``), one H100.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Drives the port's main path on the card and checks it, phase by phase:
+
+1. card check — a CUDA device is present; prints the card's name and power
+   limit (``nvidia-smi``); float32 matmuls must not run in TF32;
+2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together) into ``build/kernels`` and
+   prints each one's ``-Xptxas -v`` report;
+3. kernels — each kernel against its plain PyTorch version on the card at the
+   main path's shapes, with the stated tolerance, plus an all-zero batch that
+   must come back bitwise zero; times kernel, plain version and the library
+   call that computes the same function;
+4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
+   four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
+   sample against the plain ``"reference"`` backend;
+5. dense — ``ggr_lstsq`` on an (8192, 1024) f32 system (the blocked tree
+   path) against ``torch.linalg.lstsq`` in f64, and ``ggr_qr_blocked`` of a
+   4096 x 4096 f32 matrix against ``torch.linalg.qr``;
+6. every (shape, dtype) the kernels were launched at by phases 4-5 is held
+   against the plain version once more;
+7. a JSON line of per-kernel numbers, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Launch counts are set to 0 just before the serving run and the dense run and
+read just after; a kernel of the path with no launch fails the run.  Any
+failed check exits non-zero without printing the last line.  The script
+imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
+# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# kernel vs plain version: the repo's kernel-test tolerances, scaled by
+# max(1, rows // 16) and by the output's magnitude (summation orders differ)
+TOL = {"float32": 5e-5, "float64": 1e-11}
+SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chunk
+FAILURES: list[str] = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
+    if not ok:
+        FAILURES.append(what)
+
+
+def phase(name: str) -> None:
+    print(f"\n== {name}", flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ----------------------------------------------------------- kernel models
+def _sweep_flops(rows: int, cols: int) -> int:
+    """One column step: the coefficient chain (~8 per active row), the pivot
+    row's division (1 per swept column) and the DET2 sweep (5 per active
+    element of the swept columns)."""
+    return 5 * rows * cols + cols + 8 * rows
+
+
+def update_flops(shape, n_piv: int) -> float:
+    """Operations the row-append sweep needs on these inputs.  Column c has
+    p+1 active rows; columns j < c of those rows are already zero and column
+    c is written as constants, so only the w-c-1 columns right of it are
+    swept."""
+    B, m, w = shape
+    a = m - n_piv + 1
+    return float(B * sum(_sweep_flops(a, w - c - 1) for c in range(n_piv)))
+
+
+def geqrt_flops(shape, n_piv: int) -> float:
+    """Operations the GEQRT sweep needs: column c sweeps its t-c active rows
+    over the w-c-1 columns right of it (the rest are zero or constants)."""
+    B, t, w = shape
+    return float(B * sum(_sweep_flops(t - c, w - c - 1)
+                         for c in range(min(n_piv, t))))
+
+
+def bound(shape, dtype_name: str, flops: float):
+    """(bound_ms, bound_by): each input byte read once and each output byte
+    written once over HBM bandwidth, vs the operations over the peak rate."""
+    B, m, w = shape
+    nbytes = 2.0 * B * m * w * (4 if dtype_name == "float32" else 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class KernelCase:
+    """One kernel at one shape: inputs, kernel, plain version, library call."""
+
+    def __init__(self, name, shape, n_piv, dtype, gen):
+        import torch
+
+        from repro_torch.kernels import ggr_panel, ggr_update
+
+        self.name, self.shape, self.n_piv, self.dtype = name, shape, n_piv, dtype
+        self.dname = str(dtype).removeprefix("torch.")
+        m = shape[1]
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+        if name == "batched_update":
+            # the kernel's contract: the top n_piv rows are upper triangular
+            x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
+            self.kernel = lambda: ggr_update.batched_update(x, n_piv)
+            self.plain = lambda: ggr_update.batched_update_plain(x, n_piv)
+            # R of the stacked matrix (same top n_piv rows up to signs; at the
+            # tree-coupling shape it also triangularizes the riding columns)
+            self.library = lambda: torch.linalg.qr(x, mode="r")
+            self.flops = update_flops(shape, n_piv)
+        else:
+            self.kernel = lambda: ggr_panel.batched_geqrt(x, n_piv)
+            self.plain = lambda: ggr_panel.batched_geqrt_plain(x, n_piv)
+            # Q and R of the tile's pivot columns: [R | Qt] up to signs
+            self.library = lambda: torch.linalg.qr(x[:, :, :n_piv])
+            self.flops = geqrt_flops(shape, n_piv)
+        self.tol_scale = TOL[self.dname] * max(1, m // 16)
+
+    def compare(self) -> float:
+        out, ref = self.kernel(), self.plain()
+        err = float((out - ref).abs().max())
+        tol = self.tol_scale * max(1.0, float(ref.abs().max()))
+        check(err <= tol and bool(out.isfinite().all()),
+              f"{self.name} {self.shape} {self.dname} n_piv={self.n_piv}: "
+              f"max_abs_err {err:.3e} <= tol {tol:.3e}")
+        return err
+
+    def zero_batch(self) -> None:
+        import torch
+
+        from repro_torch.kernels import ggr_panel, ggr_update
+
+        fn = (ggr_update.batched_update if self.name == "batched_update"
+              else ggr_panel.batched_geqrt)
+        z = torch.zeros((8,) + self.shape[1:], device="cuda", dtype=self.dtype)
+        out = fn(z, self.n_piv)
+        torch.cuda.synchronize()
+        bits = out.view(torch.int32 if self.dtype == torch.float32 else torch.int64)
+        check(bool((bits == 0).all()),
+              f"{self.name} all-zero batch {tuple(z.shape)} {self.dname} "
+              "comes back bitwise zero")
+
+    def times(self) -> dict:
+        ms = cuda_ms(self.kernel, reps=20, warmup=2)
+        plain_ms = cuda_ms(self.plain, reps=3)
+        library_ms = cuda_ms(self.library, reps=5)
+        bound_ms, bound_by = bound(self.shape, self.dname, self.flops)
+        print(f"  {self.name} {self.shape} {self.dname}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.linalg.qr {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+
+
+def profile_top(fn, label: str, rows: int = 8) -> None:
+    """One traced call of ``fn``: device time by kernel name (self time,
+    top ``rows``), the device's busy share of the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side entries only: an operator's row repeats its kernels' time
+    events = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in events)
+    print(f"  trace of {label}: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}% of wall)")
+    for key, t, count in sorted(events, key=lambda e: -e[1])[:rows]:
+        print(f"    {100 * t / max(busy, 1e-9):5.1f}%  {t / 1e3:9.3f} ms  "
+              f"x{count:<6d} {key[:90]}")
+
+
+def recheck_shapes(recorded: dict, gen) -> dict:
+    """Hold every (shape, n_piv, dtype) a kernel was launched at by the main
+    path against the plain version on fresh inputs of that shape; returns
+    each kernel's worst error."""
+    worst = {}
+    for name, shapes in recorded.items():
+        worst[name] = 0.0
+        for shape, n_piv, dtype in sorted(shapes, key=str):
+            err = KernelCase(name, shape, n_piv, dtype, gen).compare()
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run from the root of a checkout (src/repro_torch "
+              "not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    # ------------------------------------------------------------ phase 1
+    phase("1. card check")
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "float32 matmuls run in full float32 (allow_tf32 is False)")
+
+    from repro_torch.core import ggr_qr_blocked
+    from repro_torch.kernels import _cuda, ggr_panel, ggr_update
+    from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all, make_workload
+    from repro_torch.serve import KINDS
+    from repro_torch.solvers import ggr_lstsq
+
+    kernels = {"batched_update": ggr_update.batched_update,
+               "batched_geqrt": ggr_panel.batched_geqrt}
+
+    # ------------------------------------------------------------ phase 2
+    phase("2. build")
+    t0 = time.perf_counter()
+    logs = _cuda.build()
+    print(f"  built {sorted(logs)} into {_cuda.build_dir()} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        print(f"  --- {name}.cu ptxas:")
+        for line in log.strip().splitlines():
+            print(f"    {line}")
+
+    # ------------------------------------------------------------ phase 3
+    phase("3. kernels vs plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32, f64 = torch.float32, torch.float64
+    cases = [
+        KernelCase("batched_update", (8192, 40, 33), 32, f32, gen),    # serving append
+        KernelCase("batched_update", (8192, 104, 65), 64, f32, gen),   # serving kalman
+        KernelCase("batched_update", (64, 128, 192), 64, f32, gen),    # tree coupling
+        KernelCase("batched_update", (64, 128, 192), 64, f64, gen),
+        KernelCase("batched_geqrt", (128, 64, 128), 64, f32, gen),     # tree level 0
+        KernelCase("batched_geqrt", (128, 64, 128), 64, f64, gen),
+    ]
+    worst = {name: 0.0 for name in kernels}
+    timed = {}
+    for case in cases:
+        worst[case.name] = max(worst[case.name], case.compare())
+        case.zero_batch()
+        timed[(case.name, case.shape, case.dname)] = case.times()
+
+    # ------------------------------------------------------------ phase 4
+    phase("4. serving")
+    n, rows, nrhs, num = 32, 8, 1, 8192
+    server = QRServer(device="cuda", max_batch=SERVE_MAX_BATCH)
+    reqs = make_workload(num=num, n=n, rows=rows, k=nrhs, device="cuda")
+    _submit_all(server, reqs)  # warm-up flush
+    server.flush()
+    server.drain()
+    tickets = _submit_all(server, reqs)
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    t0 = time.perf_counter()
+    served = server.flush()
+    server.drain()
+    dt = time.perf_counter() - t0
+    serve_launches = {name: fn.launches for name, fn in kernels.items()}
+    recorded = {name: set(fn.shapes) for name, fn in kernels.items()}
+    req_s = served / dt
+    print(f"  served {served} requests (n={n}, rows={rows}, nrhs={nrhs}, "
+          f"max_batch={SERVE_MAX_BATCH}) in {dt * 1e3:.2f} ms: "
+          f"{req_s:.1f} req/s on {card}")
+    print(f"  launches in the timed flush: {serve_launches}")
+    check(served == num, f"served all {num} requests")
+    check(serve_launches["batched_update"] > 0,
+          "serving launched batched_update (append + kalman kinds)")
+
+    ref = QRServer(backend="reference", device="cuda", max_batch=SERVE_MAX_BATCH)
+    rticks = _submit_all(ref, reqs)
+    ref.flush()
+    ref.drain()
+    errs: dict[str, float] = {}
+    # every 7th ticket: the stride is coprime to the mix's period of 8, so
+    # the sample covers all four kinds
+    for r, tk, rt in list(zip(reqs, tickets, rticks))[::7]:
+        a, b = _as_tuple(server.result(tk)), _as_tuple(ref.result(rt))
+        scale = max(1.0, max(float(y.abs().max()) for y in b))
+        e = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+        if not all(bool(x.isfinite().all()) for x in a):
+            e = float("inf")
+        errs[r[0]] = max(errs.get(r[0], 0.0), e / scale)
+    check(sorted(errs) == sorted(KINDS), f"cross-check sampled every kind: {sorted(errs)}")
+    for kind, e in sorted(errs.items()):
+        check(e <= 2e-4, f"serving {kind} vs reference backend: max error "
+                         f"{e:.3e} (relative to max(1, |ref|)) <= 2e-4")
+    _submit_all(server, reqs)
+    profile_top(lambda: (server.flush(), server.drain()), "one serving flush")
+    for kind in KINDS:  # where the flush time goes: each kind flushed alone
+        sub = [r for r in reqs if r[0] == kind]
+        _submit_all(server, sub)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.flush(kind)
+        server.drain()
+        print(f"  {kind}: {len(sub)} requests flushed alone in "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+
+    # ------------------------------------------------------------ phase 5
+    phase("5. dense")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    A = torch.randn((8192, 1024), generator=g, device="cuda", dtype=f32)
+    b = torch.randn((8192, 4), generator=g, device="cuda", dtype=f32)
+    M = torch.randn((4096, 4096), generator=g, device="cuda", dtype=f32)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = ggr_lstsq(A, b)
+    R = ggr_qr_blocked(M)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    dense_launches = {name: fn.launches for name, fn in kernels.items()}
+    for name, fn in kernels.items():
+        recorded[name] |= fn.shapes
+    print(f"  launches in ggr_lstsq + ggr_qr_blocked ({dense_wall * 1e3:.1f} ms "
+          f"wall, first call): {dense_launches}")
+    check(all(v > 0 for v in dense_launches.values()),
+          "the blocked tree path launched batched_geqrt and batched_update")
+
+    A64, b64 = A.double(), b.double()
+    x_ref = torch.linalg.lstsq(A64, b64, driver="gels").solution
+    r_ref = torch.linalg.norm(A64 @ x_ref - b64, dim=0)
+    r_ours = torch.linalg.norm(A64 @ fit.x.double() - b64, dim=0)
+    res_gap = float(((r_ours - r_ref) / r_ref).abs().max())
+    x_err = float(torch.linalg.norm(fit.x.double() - x_ref) / torch.linalg.norm(x_ref))
+    rep_gap = float(((fit.resid.double() - r_ref) / r_ref).abs().max())
+    check(res_gap <= 1e-4, f"ggr_lstsq (8192, 1024) f32: residual within "
+                           f"{res_gap:.3e} of torch.linalg.lstsq f64 (<= 1e-4)")
+    check(x_err <= 1e-3, f"ggr_lstsq solution relative error {x_err:.3e} (<= 1e-3)")
+    check(rep_gap <= 1e-3, f"ggr_lstsq reported residual within {rep_gap:.3e} "
+                           "of the f64 residual (<= 1e-3)")
+
+    R_lib = torch.linalg.qr(M, mode="r").R
+    r_gap = float(torch.linalg.norm(R.abs() - R_lib.abs()) / torch.linalg.norm(R_lib))
+    check(r_gap <= 1e-3, f"ggr_qr_blocked 4096^2 f32: |R| within {r_gap:.3e} of "
+                         "torch.linalg.qr's |R| (relative Frobenius, <= 1e-3)")
+    M64, R64 = M.double(), R.double()
+    gram = float(torch.linalg.norm(R64.T @ R64 - M64.T @ M64)
+                 / torch.linalg.norm(M64) ** 2)
+    check(gram <= 1e-5, f"ggr_qr_blocked Gram residual ||R^T R - A^T A|| / ||A||^2 "
+                        f"= {gram:.3e} (<= 1e-5)")
+    profile_top(lambda: ggr_qr_blocked(M), "ggr_qr_blocked 4096^2 f32")
+    qr_ms = cuda_ms(lambda: ggr_qr_blocked(M), reps=3)
+    lib_qr_ms = cuda_ms(lambda: torch.linalg.qr(M), reps=3)
+    lstsq_ms = cuda_ms(lambda: ggr_lstsq(A, b), reps=3)
+    lib_lstsq_ms = cuda_ms(lambda: torch.linalg.lstsq(A, b).solution, reps=3)
+    print(f"  ggr_qr_blocked 4096x4096 f32: {qr_ms:.2f} ms; torch.linalg.qr "
+          f"{lib_qr_ms:.2f} ms ({card})")
+    print(f"  ggr_lstsq (8192, 1024) + 4 rhs f32: {lstsq_ms:.2f} ms; "
+          f"torch.linalg.lstsq {lib_lstsq_ms:.2f} ms ({card})")
+
+    # ------------------------------------------------------------ phase 6
+    phase("6. kernels vs plain versions at every main-path shape")
+    n_shapes = sum(len(s) for s in recorded.values())
+    recheck_worst = recheck_shapes(recorded, gen)
+    print(f"  {n_shapes} (shape, dtype) launches rechecked; worst errors "
+          f"{recheck_worst}")
+
+    # ------------------------------------------------------------ phase 7
+    phase("7. summary")
+    headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
+                "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32")}
+    meta = {"batched_update": ("src/repro_torch/kernels/csrc/ggr_update.cu",
+                               "src/repro/kernels/ggr_update.py:91"),
+            "batched_geqrt": ("src/repro_torch/kernels/csrc/ggr_panel.cu",
+                              "src/repro/kernels/ggr_panel.py:211")}
+    rows_out = []
+    for name in kernels:
+        t = timed[headline[name]]
+        rows_out.append({
+            "name": name, "route": "cuda", "source": meta[name][0],
+            "replaces": meta[name][1],
+            "launches": serve_launches[name] + dense_launches[name],
+            "max_abs_err": max(worst[name], recheck_worst[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": list(headline[name][1]), "dtype": headline[name][2],
+        })
+    for (name, shape, dname), t in timed.items():
+        print(f"  {name} {shape} {dname}: " + ", ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in t.items()))
+    print(f"  serving: {req_s:.1f} req/s; dense: ggr_qr_blocked {qr_ms:.2f} ms vs "
+          f"torch.linalg.qr {lib_qr_ms:.2f} ms; card {card}")
+    if FAILURES:
+        print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
+        for f in FAILURES:
+            print(f"  {f}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": rows_out}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

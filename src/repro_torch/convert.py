@@ -1,0 +1,76 @@
+"""Carry state across packages: numpy-array trees <-> the port's tensor trees.
+
+This system has no model weights; its state is the ``(R, d)`` factor pairs
+and the model matrices of the requests.  ``from_numpy`` and ``to_numpy``
+convert whole trees of them — ``KalmanState``, ``RLSState``,
+``LstsqResult``, ``PivotedLstsq``, the request tuples of ``make_workload``,
+and any tuple/list/dict nesting of arrays — so the same inputs can be handed
+to the JAX package (as numpy) and to the port (as tensors), and results
+compared.
+
+A named tuple converts to the port's class of the same name when there is
+one (a JAX ``KalmanState`` becomes ``repro_torch.solvers.KalmanState``);
+other values (strings, ints, None) pass through.  Within one conversion an
+array that appears several times becomes ONE tensor, so a fleet-shared model
+matrix stays shared and the kalman executor still broadcasts it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.ranks import PivotedLstsq, PivotedQR
+from repro_torch.solvers import KalmanState, LstsqResult, RLSState
+
+__all__ = ["from_numpy", "to_numpy"]
+
+_PORT_TYPES = {cls.__name__: cls for cls in
+               (KalmanState, LstsqResult, PivotedLstsq, PivotedQR, RLSState)}
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _convert(tree, leaf, types, memo):
+    if id(tree) in memo:
+        return memo[id(tree)]
+    if _is_namedtuple(tree):
+        cls = types.get(type(tree).__name__, type(tree))
+        out = cls(*(_convert(v, leaf, types, memo) for v in tree))
+    elif isinstance(tree, (tuple, list)):
+        out = type(tree)(_convert(v, leaf, types, memo) for v in tree)
+    elif isinstance(tree, dict):
+        out = {k: _convert(v, leaf, types, memo) for k, v in tree.items()}
+    else:
+        out = leaf(tree)
+    memo[id(tree)] = out
+    return out
+
+
+def from_numpy(tree, device="cuda"):
+    """Every array leaf (numpy, or anything ``np.asarray`` takes, such as a
+    JAX array) becomes a tensor on ``device`` — the card unless the caller
+    asks for the CPU.  Tensors move to ``device``."""
+    dev = torch.device(device)
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, np.ndarray) or hasattr(x, "__array__"):
+            return torch.as_tensor(np.array(x), device=dev)
+        return x
+
+    return _convert(tree, leaf, _PORT_TYPES, {})
+
+
+def to_numpy(tree):
+    """Every tensor leaf becomes a numpy array on the host; numpy arrays and
+    other leaves pass through.  Named tuples keep their class."""
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return x
+
+    return _convert(tree, leaf, {}, {})

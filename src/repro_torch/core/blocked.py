@@ -1,0 +1,260 @@
+"""Blocked GGR QR — ``dgeqrfggr`` as a panel pipeline over the GGR kernels.
+
+The driver (``ggr_qr_blocked`` / ``ggr_triangularize_blocked``) is a
+right-looking panel algorithm, a Python loop over panels.  This port runs the
+**tree** schedule:
+
+    Per panel: every row tile of the panel is factored independently by one
+    batched GEQRT launch (``kernels.batched_geqrt``, identity riding along so
+    each tile also emits its explicit b x b transform Qt); the per-tile R
+    factors are then coupled through a TSQR-style *binary tree* — log2(p)
+    rounds of batched triangular-vs-triangular couplings via
+    ``kernels.batched_update`` (the compact (b+1)-row active-set sweep) — and
+    every transform is replayed onto the trailing matrix as batched GEMMs with
+    the small Qt tiles.  GGR's per-column transform is Hessenberg-structured,
+    so there is no rank-b compact WY form; at tile size 64 an explicit Qt is
+    small and turns every trailing update into a plain ``torch.bmm``.
+
+The ``"fused"`` schedule (monolithic panel kernel + one full-width DET2 apply
+launch) needs the ``panel_factor`` / ``apply_factors`` kernels, which are not
+ported yet; ``schedule="auto"`` resolves to ``"tree"``.
+
+Panel k works on a *frame*: the rows from its first pivot row down, a plain
+slice.  Frame heights halve across O(log) phases as rows finalize
+(``_phase_schedule``), exactly as the reference's static frames do, and
+``kernels.pad_to_tile`` rounds arbitrary (m, n) up to the tile grid (zero
+rows/cols are exact fixed points of the eps-guarded sweeps).
+
+Every entry point takes an optional leading batch dimension: B problems x p
+row tiles fold into ONE ``batched_geqrt`` launch per panel, and B x npair
+pairs into ONE ``batched_update`` launch per tree round.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.backend import Precision, dtype_name, resolve_precision
+from repro_torch.kernels.backend import forced_schedule as backend_forced_schedule
+from repro_torch.kernels.ggr_panel import batched_geqrt
+from repro_torch.kernels.ggr_update import batched_update, pad_to_tile
+
+__all__ = [
+    "ggr_qr_blocked",
+    "ggr_triangularize_blocked",
+    "suffix_col_norms",
+]
+
+
+def suffix_col_norms(X: torch.Tensor) -> torch.Tensor:
+    """Squared suffix column norms ``t2[..., i, j] = sum_{r>=i} X[..., r, j]^2``.
+
+    The matrix-wide form of the paper's eq. 3 DOT_k macro-op: one reverse
+    cumulative sum yields every candidate column's trailing norm at every
+    elimination depth (what ``ranks.ggr_qr_pivoted`` reads to pick pivots).
+    f32-promoted accumulation, matching ``core.ggr.suffix_norms``.
+    """
+    acc = X.to(torch.promote_types(X.dtype, torch.float32))
+    return (acc * acc).flip(-2).cumsum(-2).flip(-2)
+
+
+def _tree_levels(p: int):
+    """Static binary-tree pairing over p row tiles: [(ai, bi), ...] per round.
+
+    Round r couples nodes ``ai[j]`` (survivor, receives the coupled R) with
+    ``bi[j]``; node 0 — the tile holding the pivot rows — survives every
+    round, so the final panel R lands in tile 0.  Odd leftovers propagate to
+    the next round: log2(p) depth instead of the serial chain's p - 1.
+    """
+    levels = []
+    nodes = list(range(p))
+    while len(nodes) > 1:
+        pairs = list(zip(nodes[0::2], nodes[1::2]))
+        levels.append((np.asarray([a for a, _ in pairs]),
+                       np.asarray([b for _, b in pairs])))
+        nodes = sorted([a for a, _ in pairs]
+                       + (nodes[-1:] if len(nodes) % 2 else []))
+    return levels
+
+
+def _phase_schedule(m: int, b: int, nk: int):
+    """[(k_start, k_end, F)]: frame heights shrink by halves as rows finalize.
+
+    Panel k only involves rows >= k*b; one frame tall enough for panel 0
+    would waste ~2x on the later panels, so the panel loop is split into
+    O(log) phases whose frame height F halves once the active height fits in
+    F/2.  F is always a tile multiple and at least 2b.
+    """
+    phases = []
+    F = -(-max(m, b) // b) * b
+    k = 0
+    while k < nk:
+        if F <= 2 * b:
+            k_end = nk
+        else:
+            k_end = min(nk, max(k + 1, -(-(m - F // 2) // b)))
+        phases.append((k, k_end, F))
+        k = k_end
+        F = max(2 * b, -(-(F // 2) // b) * b)
+    return phases
+
+
+def _gemm(lhs: torch.Tensor, rhs: torch.Tensor, accum_dtype) -> torch.Tensor:
+    """Batched tile GEMM; low-precision operands accumulate at accum_dtype.
+
+    ``accum_dtype=None`` multiplies at operand dtype.  With an accumulation
+    dtype the operands are widened, multiplied, and the result rounded back
+    to tile dtype — the GEMM analogue of the kernels' in-body accumulation.
+    """
+    if accum_dtype is None:
+        return torch.bmm(lhs, rhs)
+    ad = getattr(torch, accum_dtype)
+    return torch.bmm(lhs.to(ad), rhs.to(ad)).to(lhs.dtype)
+
+
+def _panel_step_tree(Xp: torch.Tensor, k: int, *, b: int, F: int, W: int,
+                     block_b, accum_dtype=None) -> None:
+    """One tree-scheduled panel, in place on ``Xp`` (B, rows, W): batched tile
+    GEQRT -> log-depth coupling -> GEMM trailing updates, all on the (F, W)
+    frame starting at the pivot row."""
+    B = Xp.shape[0]
+    p = F // b
+    dtype, dev = Xp.dtype, Xp.device
+    prec = (None if accum_dtype is None
+            else Precision(dtype_name(dtype), accum_dtype, dtype_name(dtype)))
+    eye = torch.eye(b, dtype=dtype, device=dev)
+    c0 = k * b
+    frame = Xp[:, c0:c0 + F]  # (B, F, W) view
+    pan = frame[:, :, c0:c0 + b].reshape(B * p, b, b)
+
+    # level 0: factor every row tile of every problem independently, identity
+    # riding -> Qt_i; ONE launch for all B*p tiles
+    tiles = torch.cat([pan, eye.expand(B * p, b, b)], dim=2)
+    out0 = batched_geqrt(tiles, n_pivots=b, block_b=block_b or B * p,
+                         precision=prec)
+    R = out0[:, :, :b].reshape(B, p, b, b)
+    C = _gemm(out0[:, :, b:], frame.reshape(B * p, b, W),
+              accum_dtype).reshape(B, p, b, W)
+
+    # binary-tree coupling of the per-tile R factors (log2(p) rounds); each
+    # round is ONE batched compact-active-set sweep + ONE batched GEMM
+    for ai, bi in _tree_levels(p):
+        npair = len(ai)
+        ai, bi = torch.as_tensor(ai, device=dev), torch.as_tensor(bi, device=dev)
+        E = eye.expand(B, npair, b, b)
+        Z = torch.zeros((B, npair, b, b), dtype=dtype, device=dev)
+        stacked = torch.cat([torch.cat([R[:, ai], E, Z], dim=3),
+                             torch.cat([R[:, bi], Z, E], dim=3)], dim=2)
+        out = batched_update(stacked.reshape(B * npair, 2 * b, 3 * b),
+                             n_pivots=b, block_b=block_b or B * npair,
+                             precision=prec).reshape(B, npair, 2 * b, 3 * b)
+        R[:, ai] = out[:, :, :b, :b]
+        Qt = out[:, :, :, b:].reshape(B * npair, 2 * b, 2 * b)  # node transform
+        Ct = torch.cat([C[:, ai], C[:, bi]], dim=2).reshape(B * npair, 2 * b, W)
+        Ct = _gemm(Qt, Ct, accum_dtype).reshape(B, npair, 2 * b, W)
+        C[:, ai] = Ct[:, :, :b]
+        C[:, bi] = Ct[:, :, b:]
+
+    frame[:] = C.reshape(B, F, W)
+    # exact panel-column write: [R; 0] (keeps finalized columns exactly zero
+    # below their pivots, which is what makes later frames' GEMMs exact
+    # no-ops on them)
+    frame[:, :b, c0:c0 + b] = torch.triu(R[:, 0])
+    frame[:, b:, c0:c0 + b] = 0
+
+
+def _triangularize_blocked_impl(X: torch.Tensor, n_pivots: int, tile: int,
+                                block_b, accum_dtype=None) -> torch.Tensor:
+    B, m, w = X.shape
+    b = min(tile, -(-n_pivots // 8) * 8)
+    np_pad = -(-n_pivots // b) * b
+    nk = np_pad // b
+
+    # pad the pivot block up to a tile multiple (zero columns between the
+    # pivots and any trailing rhs columns — exact no-op sweeps)
+    if np_pad != n_pivots:
+        if n_pivots == w:
+            X = pad_to_tile(X, (b,), axes=(2,))
+        else:
+            X = torch.cat([X[:, :, :n_pivots],
+                           X.new_zeros((B, m, np_pad - n_pivots)),
+                           X[:, :, n_pivots:]], dim=2)
+    W = X.shape[2]
+
+    phases = _phase_schedule(m, b, nk)
+    # rows: frames slide down b per panel, so the tail needs zero rows out to
+    # the last frame's bottom edge (zero rows are exact sweep fixed points)
+    total = max(F + (e - 1) * b for (_, e, F) in phases)
+    Xp = torch.cat([X, X.new_zeros((B, total - m, W))], dim=1)
+
+    for s, e, F in phases:
+        for k in range(s, e):
+            _panel_step_tree(Xp, k, b=b, F=F, W=W, block_b=block_b,
+                             accum_dtype=accum_dtype)
+
+    out = Xp[:, :m]
+    if np_pad != n_pivots:
+        out = torch.cat([out[:, :, :n_pivots], out[:, :, np_pad:]], dim=2)
+    return out
+
+
+def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
+                              tile: int = 64, schedule: str = "auto",
+                              block_b: int | None = None,
+                              precision=None) -> torch.Tensor:
+    """Blocked GGR sweeps annihilating columns 0..n_pivots-1 below their
+    diagonals; trailing columns (rhs) ride along as ``Q^T``-transformed data.
+
+    The blocked sibling of ``core.ggr.ggr_triangularize``: same semantics,
+    panel-pipeline execution (see module docstring).  Accepts arbitrary
+    ``(m, w)`` — tile padding is internal — or a batch ``(B, m, w)``.
+
+    schedule: ``"tree"`` (batched tile GEQRT + log-depth coupling + GEMM
+    trailing) or ``"auto"``, which resolves to ``"tree"``.  ``"fused"`` raises
+    ``NotImplementedError``: its panel/apply kernels are the next slice of the
+    port.  A ``kernels.backend.degraded_mode(schedule=...)`` override outranks
+    the argument.
+
+    precision: mixed-precision policy (``Precision`` / name / None).  The
+    input is cast to the policy's compute dtype at entry; suffix-norm and
+    DET2 accumulation inside the kernels — and the trailing-GEMM partials —
+    run at the policy's (wider) accumulation dtype.  ``None`` keeps
+    everything at the input dtype.
+    """
+    m, w = X.shape[-2:]
+    if n_pivots is None:
+        n_pivots = min(m, w)
+    if not 0 < n_pivots <= w:
+        raise ValueError(f"n_pivots {n_pivots} out of range for width {w}")
+    if schedule not in ("auto", "tree", "fused"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    sched = backend_forced_schedule() or schedule
+    if sched == "fused":
+        raise NotImplementedError(
+            "the fused schedule's panel_factor/apply_factors kernels are not "
+            "ported yet; use schedule='tree' (what 'auto' resolves to)")
+    accum_dtype = None
+    if precision is not None:
+        prec = resolve_precision(precision)
+        X = X.to(prec.compute)
+        accum_dtype = prec.accum_dtype
+    batched = X.ndim == 3
+    out = _triangularize_blocked_impl(X if batched else X[None], n_pivots,
+                                      tile, block_b, accum_dtype=accum_dtype)
+    return out if batched else out[0]
+
+
+def ggr_qr_blocked(A: torch.Tensor, tile: int = 64, schedule: str = "auto",
+                   block_b: int | None = None, precision=None) -> torch.Tensor:
+    """Blocked GGR QR of an arbitrary (m, n) matrix (or a (B, m, n) batch);
+    returns the (m, n) R.
+
+    Panel pipeline over the GEQRT/update kernels with tree-coupled row tiles
+    — see the module docstring.  There is no ``m % tile == 0`` restriction.
+    """
+    m, n = A.shape[-2:]
+    if min(m, n) == 0:
+        return torch.triu(A)
+    R = ggr_triangularize_blocked(A, min(m, n), tile=tile, schedule=schedule,
+                                  block_b=block_b, precision=precision)
+    return torch.triu(R)

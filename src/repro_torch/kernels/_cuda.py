@@ -1,0 +1,132 @@
+"""Build and bind the hand-written CUDA kernels: nvcc -> shared library -> ctypes.
+
+Each source ``csrc/<name>.cu`` compiles on first use into its own shared
+library with a plain C interface, under ``build/kernels/`` at the root of the
+checkout.  The file name carries a hash of the sources and flags, so an edit
+rebuilds and an unchanged checkout reuses its build.  ``build()`` starts one
+``nvcc`` per source, all together, and keeps each one's ``-Xptxas -v`` report
+(registers, shared memory, spills) in ``PTXAS_LOG``.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine-independent part only touches ``nvcc`` when a kernel is launched on a
+CUDA tensor or ``build()`` is called.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
+           "launch"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("ggr_update", "ggr_panel")
+_HEADERS = ("ggr_common.cuh",)
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# An H100 thread block may use at most 227 KB of dynamic shared memory.
+MAX_SMEM_BYTES = 232448
+MAX_THREADS = 1024
+
+PTXAS_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas report of its build
+_LIBS: dict[str, ctypes.CDLL] = {}
+_FN_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def build_dir() -> Path:
+    """``build/kernels`` at the root of the checkout (listed in .gitignore)."""
+    return _CSRC.parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "first use and need the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for f in (f"{name}.cu", *_HEADERS):
+        h.update((_CSRC / f).read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=_SOURCES) -> dict[str, str]:
+    """Compile every named source not built yet, one ``nvcc`` each, in parallel.
+
+    Returns ``{name: ptxas report}``; a source that was already built reports
+    ``"(cached build)"``.  Raises ``RuntimeError`` with the compiler's output
+    when any build fails.
+    """
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.exists():
+            PTXAS_LOG.setdefault(name, "(cached build)")
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        PTXAS_LOG[name] = out
+        if proc.returncode == 0:
+            os.replace(tmp, path)
+        else:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {name: PTXAS_LOG[name] for name in names}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(source: str, fn_prefix: str, x: torch.Tensor, out: torch.Tensor,
+           *dims: int) -> None:
+    """Launch ``<fn_prefix>_<f32|f64>`` of ``source`` on the current stream.
+
+    ``x`` and ``out`` are contiguous CUDA tensors of one float dtype; ``dims``
+    are the kernel's integer shape arguments.  Raises ``RuntimeError`` when
+    the C function reports a CUDA error (a refused launch never runs, and a
+    later synchronize would not report it).
+    """
+    lib = _lib(source)
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
+    fn = getattr(lib, f"{fn_prefix}_{suffix}")
+    fn.argtypes = _FN_ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), out.data_ptr(), *dims, x.device.index, stream)
+    if err != 0:
+        errstr = getattr(lib, f"{source}_error_string")
+        errstr.argtypes = [ctypes.c_int]
+        errstr.restype = ctypes.c_char_p
+        raise RuntimeError(f"{fn_prefix}_{suffix} launch failed: CUDA error "
+                           f"{err} ({errstr(err).decode()})")

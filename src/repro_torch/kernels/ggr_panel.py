@@ -1,0 +1,162 @@
+"""Batched dense GEQRT sweeps — the blocked driver's tile kernel — and the
+helpers shared by the GGR kernels.
+
+``batched_geqrt``
+    A (B, t, w) batch of independent tiles, each triangularized in its first
+    ``n_pivots`` columns while the remaining ``w - n_pivots`` columns ride
+    along through the DET2 grids.  Riding an identity block turns each output
+    into the tile's explicit transform Qt — the building block of the blocked
+    driver's tree schedule, where trailing updates are plain GEMMs with those
+    small Qt tiles.
+
+On a CUDA tensor it launches the hand-written kernel ``csrc/ggr_panel.cu``;
+on a CPU tensor it runs ``batched_geqrt_plain``, the same function in plain
+PyTorch.  ``panel_factor`` (the fused schedule's panel kernel) is not ported
+yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .backend import dtype_name, resolve_precision
+
+__all__ = ["batched_geqrt", "batched_geqrt_plain"]
+
+# 1e-30 at EVERY dtype, f64 included — the kernels' constant, which differs
+# from core.ggr's dtype-keyed table (1e-300 at f64).
+_EPS = 1e-30
+
+
+def _accum_dt(X: torch.Tensor, accum_dtype: str | None) -> torch.dtype:
+    """Accumulation dtype for a kernel body: ``accum_dtype`` or X's own.
+
+    ``None`` keeps everything at tile dtype.
+    """
+    return X.dtype if accum_dtype is None else getattr(torch, accum_dtype)
+
+
+def _revcumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Reverse inclusive cumulative sum along ``dim`` (flip-cumsum-flip)."""
+    return x.flip(dim).cumsum(dim).flip(dim)
+
+
+def _check_stack(x: torch.Tensor, n_pivots: int, block_b: int, what: str):
+    if x.ndim != 3:
+        raise ValueError(f"{what} expects a (B, rows, w) batch, got {tuple(x.shape)}")
+    if block_b <= 0:
+        raise ValueError(f"block_b must be positive, got {block_b}")
+    if n_pivots < 0 or n_pivots > x.shape[2]:
+        raise ValueError(f"n_pivots {n_pivots} out of range for width {x.shape[2]}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous batch")
+
+
+def _kernel_dtype_check(x: torch.Tensor, accum_dtype: str | None, what: str):
+    """The CUDA kernels run f32/f64 tiles accumulating at tile dtype only."""
+    if x.dtype not in (torch.float32, torch.float64) or (
+            accum_dtype is not None and accum_dtype != dtype_name(x.dtype)):
+        raise NotImplementedError(
+            f"{what}: no CUDA kernel for {dtype_name(x.dtype)} tiles with "
+            f"{accum_dtype or dtype_name(x.dtype)} accumulation (the bf16/f16 "
+            "kernels are not ported; their plain versions run on CPU tensors)")
+
+
+def batched_geqrt_plain(tiles: torch.Tensor, n_pivots: int,
+                        accum_dtype: str | None = None) -> torch.Tensor:
+    """Plain-PyTorch GEQRT sweep of a (B, t, w) batch — the kernel's reference."""
+    B, t, w = tiles.shape
+    cd = tiles.dtype
+    ad = _accum_dt(tiles, accum_dtype)
+    rows = torch.arange(t, device=tiles.device)
+    X = tiles
+    for c in range(min(n_pivots, t)):
+        v = torch.where(rows[None, :] >= c, X[:, :, c], 0.0).to(ad)
+        sigma = v.abs().amax(1, keepdim=True)  # safe-Givens scale
+        vs = v / torch.where(sigma > 0, sigma, 1.0)
+        ts = torch.sqrt(_revcumsum(vs * vs, 1))
+
+        P = _revcumsum(vs[:, :, None] * X.to(ad), 1)  # inclusive suffix dots
+        # exclusive suffix via shift (P - prod cancels catastrophically)
+        S = torch.cat([P[:, 1:], torch.zeros_like(P[:, :1])], 1)
+
+        tn = torch.cat([ts[:, 1:], torch.zeros_like(ts[:, :1])], 1)
+        valid = tn > _EPS
+        st = torch.where(ts > _EPS, ts, 1.0)
+        stn = torch.where(valid, tn, 1.0)
+        k = vs / (st * stn)
+        l = stn / st
+
+        t_piv = ts[:, c]
+        do_any = t_piv > _EPS
+        pivot_new = (P[:, c] / torch.where(do_any, t_piv, 1.0)[:, None]).to(cd)
+
+        det2 = k[:, :-1, None] * S[:, :-1] - l[:, :-1, None] * X[:, :-1].to(ad)
+        det2 = torch.where(valid[:, :-1, None], det2.to(cd), X[:, 1:])
+        out = torch.cat([X[:, :c], pivot_new[:, None], det2[:, c:]], 1)
+        out = torch.where(do_any[:, None, None], out, X)
+
+        # annihilated column written exactly: sigma·t at the pivot, 0 below
+        newcol = torch.cat([out[:, :c, c], (sigma[:, 0] * t_piv).to(cd)[:, None],
+                            torch.zeros_like(out[:, c + 1:, c])], 1)
+        out[:, :, c] = torch.where(do_any[:, None], newcol, out[:, :, c])
+        X = out
+    return X
+
+
+def _smem_bytes(t: int, w: int, itemsize: int) -> int:
+    return (t * w + 4 * t + 33) * itemsize  # mirrors smem_bytes in ggr_panel.cu
+
+
+def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
+                        accum_dtype: str | None) -> torch.Tensor:
+    if tiles.device.type != "cuda":
+        raise ValueError(f"batched_geqrt: unsupported device {tiles.device}")
+    _kernel_dtype_check(tiles, accum_dtype, "batched_geqrt")
+    B, t, w = tiles.shape
+    smem = _smem_bytes(t, w, tiles.element_size())
+    if smem > _cuda.MAX_SMEM_BYTES or w > _cuda.MAX_THREADS:
+        raise ValueError(
+            f"batched_geqrt: a ({t}, {w}) {dtype_name(tiles.dtype)} tile needs "
+            f"{smem} bytes of shared memory and {w} threads; the kernel takes at "
+            f"most {_cuda.MAX_SMEM_BYTES} bytes and {_cuda.MAX_THREADS} threads")
+    out = torch.empty_like(tiles)
+    if B == 0:
+        return out
+    _cuda.launch("ggr_panel", "ggr_batched_geqrt", tiles, out, B, t, w, n_pivots)
+    batched_geqrt.launches += 1
+    batched_geqrt.shapes.add((tuple(tiles.shape), n_pivots, tiles.dtype))
+    return out
+
+
+def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
+                  precision=None) -> torch.Tensor:
+    """Dense GEQRT sweep of a (B, t, w) tile batch, one fused launch.
+
+    Each tile's first ``n_pivots`` columns are triangularized (pivot row c for
+    column c); columns >= ``n_pivots`` ride along through the DET2 grids.
+    Riding an identity block yields the explicit tile transform: for
+    ``tiles = [T | I]`` the output is ``[R | Qt]`` with ``Qt @ T = R`` and
+    ``Qt`` orthogonal.  All-zero tiles are exact fixed points (every divisor
+    is eps-guarded), so padding tiles come back bit-identical with ``Qt = I``.
+
+    The CUDA kernel runs one thread block per tile over the whole batch, so
+    ``block_b`` (kept for parity with the JAX signature) sets no tiling; it
+    must be positive.  ``precision`` selects tile compute dtype + in-kernel
+    accumulation dtype (``None`` = tiles at their own dtype, same-width
+    accumulation); on CUDA tensors only the uniform f32/f64 policies have a
+    kernel.  The launch count is ``batched_geqrt.launches``.
+    """
+    _check_stack(tiles, n_pivots, block_b, "batched_geqrt")
+    accum = None
+    if precision is not None:
+        prec = resolve_precision(precision)
+        tiles = tiles.to(prec.compute)
+        accum = prec.accum_dtype
+    if tiles.device.type == "cpu":
+        return batched_geqrt_plain(tiles, n_pivots, accum)
+    return _batched_geqrt_cuda(tiles, n_pivots, accum)
+
+
+batched_geqrt.launches = 0  # kernel launches, for tests and chip_smoke.py
+batched_geqrt.shapes = set()  # (shape, n_pivots, dtype) of every launch
