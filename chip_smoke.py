@@ -10,23 +10,29 @@ Drives the port's main path on the card and checks it, phase by phase:
 2. build — compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) into ``build/kernels`` and
    prints each one's ``-Xptxas -v`` report;
-3. kernels — each kernel against its plain PyTorch version on the card at the
-   main path's shapes, with the stated tolerance, plus an all-zero batch that
-   must come back bitwise zero; times kernel, plain version and the library
-   call that computes the same function;
+3. kernels — each of the four kernels (batched_update, batched_geqrt,
+   panel_factor, apply_factors) against its plain PyTorch version on the card
+   at the main path's shapes, with the stated tolerance, plus an all-zero
+   batch that must come back bitwise zero; times kernel, plain version and
+   the library call that computes the same function (for apply_factors
+   ``torch.ormqr`` with ``torch.geqrf``'s factors of the same panel: the same
+   work in Householder's basis, timed only);
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
-5. dense — ``ggr_lstsq`` on an (8192, 1024) f32 system (the blocked tree
-   path) against ``torch.linalg.lstsq`` in f64, and ``ggr_qr_blocked`` of a
-   4096 x 4096 f32 matrix against ``torch.linalg.qr``;
+5. dense — ``ggr_lstsq`` on an (8192, 1024) f32 system against
+   ``torch.linalg.lstsq`` in f64, through the blocked tree schedule and, under
+   ``degraded_mode(schedule="fused")``, the fused one; ``ggr_qr_blocked`` of
+   a 4096 x 4096 f32 matrix with each schedule and ``ggr_qr_pallas`` (panel
+   32) against ``torch.linalg.qr``; traces of both schedules' QR and the
+   times of every route beside the library calls;
 6. every (shape, dtype) the kernels were launched at by phases 4-5 is held
    against the plain version once more;
 7. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the serving run and the dense run and
-read just after; a kernel of the path with no launch fails the run.  Any
+read just after; a route that does not launch its kernels fails the run.  Any
 failed check exits non-zero without printing the last line.  The script
 imports nothing of the JAX package.
 """
@@ -52,8 +58,9 @@ SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chun
 FAILURES: list[str] = []
 
 
-def check(ok: bool, what: str) -> None:
-    print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
+def check(ok: bool, what: str, quiet: bool = False) -> None:
+    if not (ok and quiet):
+        print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
     if not ok:
         FAILURES.append(what)
 
@@ -79,6 +86,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 # ----------------------------------------------------------- kernel models
+def _itemsize(dtype_name: str) -> int:
+    return 4 if dtype_name == "float32" else 8
+
+
 def _sweep_flops(rows: int, cols: int) -> int:
     """One column step: the coefficient chain (~8 per active row), the pivot
     row's division (1 per swept column) and the DET2 sweep (5 per active
@@ -104,66 +115,124 @@ def geqrt_flops(shape, n_piv: int) -> float:
                          for c in range(min(n_piv, t))))
 
 
-def bound(shape, dtype_name: str, flops: float):
-    """(bound_ms, bound_by): each input byte read once and each output byte
-    written once over HBM bandwidth, vs the operations over the peak rate."""
+def panel_flops(shape, pivot0: int) -> float:
+    """Operations the fused panel factorization needs: column c sweeps its
+    m - p active rows (p = pivot0 + c) over the b-c-1 columns right of it."""
+    B, m, b = shape
+    return float(B * sum(_sweep_flops(m - pivot0 - c, b - c - 1)
+                         for c in range(b) if pivot0 + c < m))
+
+
+def apply_flops(shape, b: int, pivot0: int) -> float:
+    """Operations the trailing apply needs: step c sweeps the m - p active
+    rows of all w columns at ~5 flops per element (the coefficients, ~8 per
+    row, are shared by all columns)."""
     B, m, w = shape
-    nbytes = 2.0 * B * m * w * (4 if dtype_name == "float32" else 8)
+    return float(B * sum(5 * (m - pivot0 - c) * w + 8 * (m - pivot0 - c)
+                         for c in range(b) if pivot0 + c < m))
+
+
+def bound(nbytes: float, dtype_name: str, flops: float):
+    """(bound_ms, bound_by): the bytes the function must move (each input
+    read once, each output written once) over HBM bandwidth, vs the
+    operations over the peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 class KernelCase:
-    """One kernel at one shape: inputs, kernel, plain version, library call."""
+    """One kernel at one shape: inputs, kernel, plain version, library call.
 
-    def __init__(self, name, shape, n_piv, dtype, gen):
+    ``param`` is ``n_piv`` for batched_update / batched_geqrt, ``pivot0`` for
+    panel_factor (shape (B, m, b)) and ``(b, pivot0)`` for apply_factors
+    (shape of C, (B, m, w))."""
+
+    def __init__(self, name, shape, param, dtype, gen):
         import torch
 
-        from repro_torch.kernels import ggr_panel, ggr_update
+        from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
 
-        self.name, self.shape, self.n_piv, self.dtype = name, shape, n_piv, dtype
+        self.name, self.shape, self.param, self.dtype = name, shape, param, dtype
         self.dname = str(dtype).removeprefix("torch.")
-        m = shape[1]
+        size = _itemsize(self.dname)
+        B, m, w = shape
         x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
         if name == "batched_update":
+            n_piv = param
             # the kernel's contract: the top n_piv rows are upper triangular
             x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
-            self.kernel = lambda: ggr_update.batched_update(x, n_piv)
+            self.fn = lambda z: ggr_update.batched_update(z, n_piv)
             self.plain = lambda: ggr_update.batched_update_plain(x, n_piv)
             # R of the stacked matrix (same top n_piv rows up to signs; at the
             # tree-coupling shape it also triangularizes the riding columns)
             self.library = lambda: torch.linalg.qr(x, mode="r")
             self.flops = update_flops(shape, n_piv)
-        else:
-            self.kernel = lambda: ggr_panel.batched_geqrt(x, n_piv)
+            self.nbytes = 2.0 * B * m * w * size
+        elif name == "batched_geqrt":
+            n_piv = param
+            self.fn = lambda z: ggr_panel.batched_geqrt(z, n_piv)
             self.plain = lambda: ggr_panel.batched_geqrt_plain(x, n_piv)
             # Q and R of the tile's pivot columns: [R | Qt] up to signs
             self.library = lambda: torch.linalg.qr(x[:, :, :n_piv])
             self.flops = geqrt_flops(shape, n_piv)
+            self.nbytes = 2.0 * B * m * w * size
+        elif name == "panel_factor":
+            pivot0 = param
+            self.fn = lambda z: ggr_panel.panel_factor(z, pivot0)
+            self.plain = lambda: ggr_panel.panel_factor_plain(x, pivot0)
+            # Householder QR of the same panel (Q and R)
+            self.library = lambda: torch.linalg.qr(x)
+            self.flops = panel_flops(shape, pivot0)
+            self.nbytes = 4.0 * B * m * w * size  # panel in; R, V, T out
+        else:  # apply_factors
+            b, pivot0 = param
+            pans = torch.randn((B, m, b), generator=gen, device="cuda", dtype=dtype)
+            _, V, T = ggr_panel.panel_factor_plain(pans, pivot0)
+            self.fn = lambda z: ggr_apply.apply_factors(V, T, z, pivot0)
+            self.plain = lambda: ggr_apply.apply_factors_plain(V, T, x, pivot0)
+            # the same work in Householder's basis: Q^T C from geqrf's factors
+            a, tau = torch.geqrf(pans)
+            self.library = lambda: torch.ormqr(a, tau, x, left=True, transpose=True)
+            self.flops = apply_flops(shape, b, pivot0)
+            self.nbytes = (2.0 * m * w + 2.0 * m * b) * B * size  # C in/out, V, T
+        self.x = x
+        self.kernel = lambda: self.fn(x)
         self.tol_scale = TOL[self.dname] * max(1, m // 16)
 
-    def compare(self) -> float:
+    def label(self) -> str:
+        return f"{self.name} {self.shape} {self.dname} param={self.param}"
+
+    def compare(self, quiet: bool = False) -> float:
         out, ref = self.kernel(), self.plain()
-        err = float((out - ref).abs().max())
-        tol = self.tol_scale * max(1.0, float(ref.abs().max()))
-        check(err <= tol and bool(out.isfinite().all()),
-              f"{self.name} {self.shape} {self.dname} n_piv={self.n_piv}: "
-              f"max_abs_err {err:.3e} <= tol {tol:.3e}")
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err, ok = 0.0, True
+        for o, r in zip(outs, refs):
+            e = float((o - r).abs().max()) if o.numel() else 0.0
+            tol = self.tol_scale * max(1.0, float(r.abs().max()) if r.numel() else 1.0)
+            ok = ok and e <= tol and bool(o.isfinite().all())
+            err = max(err, e)
+        check(ok, f"{self.label()}: max_abs_err {err:.3e} within "
+                  f"{self.tol_scale:.1e} x max(1, |out|)", quiet)
         return err
 
     def zero_batch(self) -> None:
         import torch
 
-        from repro_torch.kernels import ggr_panel, ggr_update
+        from repro_torch.kernels import ggr_apply
 
-        fn = (ggr_update.batched_update if self.name == "batched_update"
-              else ggr_panel.batched_geqrt)
         z = torch.zeros((8,) + self.shape[1:], device="cuda", dtype=self.dtype)
-        out = fn(z, self.n_piv)
+        if self.name == "apply_factors":  # a zero panel's factors over zeros
+            b, pivot0 = self.param
+            VT = torch.zeros((8, self.shape[1], b), device="cuda", dtype=self.dtype)
+            out = ggr_apply.apply_factors(VT, VT, z, pivot0)
+        else:
+            out = self.fn(z)
         torch.cuda.synchronize()
-        bits = out.view(torch.int32 if self.dtype == torch.float32 else torch.int64)
-        check(bool((bits == 0).all()),
+        outs = out if isinstance(out, tuple) else (out,)
+        itype = torch.int32 if self.dtype == torch.float32 else torch.int64
+        check(all(bool((o.view(itype) == 0).all()) for o in outs),
               f"{self.name} all-zero batch {tuple(z.shape)} {self.dname} "
               "comes back bitwise zero")
 
@@ -171,10 +240,10 @@ class KernelCase:
         ms = cuda_ms(self.kernel, reps=20, warmup=2)
         plain_ms = cuda_ms(self.plain, reps=3)
         library_ms = cuda_ms(self.library, reps=5)
-        bound_ms, bound_by = bound(self.shape, self.dname, self.flops)
-        print(f"  {self.name} {self.shape} {self.dname}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, torch.linalg.qr {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        bound_ms, bound_by = bound(self.nbytes, self.dname, self.flops)
+        print(f"  {self.label()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
 
@@ -204,14 +273,14 @@ def profile_top(fn, label: str, rows: int = 8) -> None:
 
 
 def recheck_shapes(recorded: dict, gen) -> dict:
-    """Hold every (shape, n_piv, dtype) a kernel was launched at by the main
-    path against the plain version on fresh inputs of that shape; returns
-    each kernel's worst error."""
+    """Hold every (shape, param, dtype) a kernel was launched at by the main
+    path against the plain version on fresh inputs of that shape (printing
+    only failures); returns each kernel's worst error."""
     worst = {}
     for name, shapes in recorded.items():
         worst[name] = 0.0
-        for shape, n_piv, dtype in sorted(shapes, key=str):
-            err = KernelCase(name, shape, n_piv, dtype, gen).compare()
+        for shape, param, dtype in sorted(shapes, key=str):
+            err = KernelCase(name, shape, param, dtype, gen).compare(quiet=True)
             worst[name] = max(worst[name], err)
     return worst
 
@@ -241,13 +310,16 @@ def main() -> int:
           "float32 matmuls run in full float32 (allow_tf32 is False)")
 
     from repro_torch.core import ggr_qr_blocked
-    from repro_torch.kernels import _cuda, ggr_panel, ggr_update
+    from repro_torch.kernels import _cuda, ggr_apply, ggr_panel, ggr_qr_pallas, ggr_update
+    from repro_torch.kernels.backend import degraded_mode
     from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all, make_workload
     from repro_torch.serve import KINDS
     from repro_torch.solvers import ggr_lstsq
 
     kernels = {"batched_update": ggr_update.batched_update,
-               "batched_geqrt": ggr_panel.batched_geqrt}
+               "batched_geqrt": ggr_panel.batched_geqrt,
+               "panel_factor": ggr_panel.panel_factor,
+               "apply_factors": ggr_apply.apply_factors}
 
     # ------------------------------------------------------------ phase 2
     phase("2. build")
@@ -271,6 +343,14 @@ def main() -> int:
         KernelCase("batched_update", (64, 128, 192), 64, f64, gen),
         KernelCase("batched_geqrt", (128, 64, 128), 64, f32, gen),     # tree level 0
         KernelCase("batched_geqrt", (128, 64, 128), 64, f64, gen),
+        KernelCase("panel_factor", (1, 4096, 64), 0, f32, gen),        # fused QR frame
+        KernelCase("panel_factor", (1, 8192, 64), 0, f32, gen),        # fused lstsq frame
+        KernelCase("panel_factor", (1, 4096, 64), 0, f64, gen),
+        KernelCase("panel_factor", (1, 4096, 32), 1024, f32, gen),     # ggr_qr_pallas
+        KernelCase("apply_factors", (1, 4096, 4032), (64, 0), f32, gen),  # fused QR
+        KernelCase("apply_factors", (1, 8192, 964), (64, 0), f32, gen),   # fused lstsq
+        KernelCase("apply_factors", (1, 4096, 1024), (64, 0), f64, gen),
+        KernelCase("apply_factors", (1, 4096, 2048), (32, 2048), f32, gen),  # ggr_qr_pallas
     ]
     worst = {name: 0.0 for name in kernels}
     timed = {}
@@ -342,53 +422,84 @@ def main() -> int:
     A = torch.randn((8192, 1024), generator=g, device="cuda", dtype=f32)
     b = torch.randn((8192, 4), generator=g, device="cuda", dtype=f32)
     M = torch.randn((4096, 4096), generator=g, device="cuda", dtype=f32)
+
+    def fused_lstsq():
+        with degraded_mode(schedule="fused"):
+            return ggr_lstsq(A, b)
+
+    routes = {  # name -> (call, kernels it must launch)
+        "tree lstsq": (lambda: ggr_lstsq(A, b), ("batched_geqrt", "batched_update")),
+        "tree qr": (lambda: ggr_qr_blocked(M), ("batched_geqrt", "batched_update")),
+        "fused qr": (lambda: ggr_qr_blocked(M, schedule="fused"),
+                     ("panel_factor", "apply_factors")),
+        "fused lstsq": (fused_lstsq, ("panel_factor", "apply_factors")),
+        "pallas qr": (lambda: ggr_qr_pallas(M, panel=32),
+                      ("panel_factor", "apply_factors")),
+    }
     for fn in kernels.values():
         fn.launches = 0
+    results, route_launches = {}, {}
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit = ggr_lstsq(A, b)
-    R = ggr_qr_blocked(M)
-    torch.cuda.synchronize()
-    dense_wall = time.perf_counter() - t0
+    t_dense = time.perf_counter()
+    for name, (call, _) in routes.items():
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        results[name] = call()
+        torch.cuda.synchronize()
+        route_launches[name] = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        print(f"  {name}: first call {(time.perf_counter() - t0) * 1e3:.1f} ms wall, "
+              f"launches {route_launches[name]}")
+    dense_wall = time.perf_counter() - t_dense
     dense_launches = {name: fn.launches for name, fn in kernels.items()}
     for name, fn in kernels.items():
         recorded[name] |= fn.shapes
-    print(f"  launches in ggr_lstsq + ggr_qr_blocked ({dense_wall * 1e3:.1f} ms "
-          f"wall, first call): {dense_launches}")
+    print(f"  launches in the dense run ({dense_wall * 1e3:.1f} ms wall): "
+          f"{dense_launches}")
+    for name, (_, needs) in routes.items():
+        check(all(route_launches[name][k] > 0 for k in needs),
+              f"{name} launched {' and '.join(needs)}")
     check(all(v > 0 for v in dense_launches.values()),
-          "the blocked tree path launched batched_geqrt and batched_update")
+          "the dense run launched every kernel")
 
     A64, b64 = A.double(), b.double()
     x_ref = torch.linalg.lstsq(A64, b64, driver="gels").solution
     r_ref = torch.linalg.norm(A64 @ x_ref - b64, dim=0)
-    r_ours = torch.linalg.norm(A64 @ fit.x.double() - b64, dim=0)
-    res_gap = float(((r_ours - r_ref) / r_ref).abs().max())
-    x_err = float(torch.linalg.norm(fit.x.double() - x_ref) / torch.linalg.norm(x_ref))
-    rep_gap = float(((fit.resid.double() - r_ref) / r_ref).abs().max())
-    check(res_gap <= 1e-4, f"ggr_lstsq (8192, 1024) f32: residual within "
-                           f"{res_gap:.3e} of torch.linalg.lstsq f64 (<= 1e-4)")
-    check(x_err <= 1e-3, f"ggr_lstsq solution relative error {x_err:.3e} (<= 1e-3)")
-    check(rep_gap <= 1e-3, f"ggr_lstsq reported residual within {rep_gap:.3e} "
-                           "of the f64 residual (<= 1e-3)")
+    for name in ("tree lstsq", "fused lstsq"):
+        fit = results[name]
+        r_ours = torch.linalg.norm(A64 @ fit.x.double() - b64, dim=0)
+        res_gap = float(((r_ours - r_ref) / r_ref).abs().max())
+        x_err = float(torch.linalg.norm(fit.x.double() - x_ref)
+                      / torch.linalg.norm(x_ref))
+        rep_gap = float(((fit.resid.double() - r_ref) / r_ref).abs().max())
+        check(res_gap <= 1e-4, f"{name} (8192, 1024) f32: residual within "
+                               f"{res_gap:.3e} of torch.linalg.lstsq f64 (<= 1e-4)")
+        check(x_err <= 1e-3, f"{name} solution relative error {x_err:.3e} (<= 1e-3)")
+        check(rep_gap <= 1e-3, f"{name} reported residual within {rep_gap:.3e} "
+                               "of the f64 residual (<= 1e-3)")
 
     R_lib = torch.linalg.qr(M, mode="r").R
-    r_gap = float(torch.linalg.norm(R.abs() - R_lib.abs()) / torch.linalg.norm(R_lib))
-    check(r_gap <= 1e-3, f"ggr_qr_blocked 4096^2 f32: |R| within {r_gap:.3e} of "
-                         "torch.linalg.qr's |R| (relative Frobenius, <= 1e-3)")
-    M64, R64 = M.double(), R.double()
-    gram = float(torch.linalg.norm(R64.T @ R64 - M64.T @ M64)
-                 / torch.linalg.norm(M64) ** 2)
-    check(gram <= 1e-5, f"ggr_qr_blocked Gram residual ||R^T R - A^T A|| / ||A||^2 "
-                        f"= {gram:.3e} (<= 1e-5)")
-    profile_top(lambda: ggr_qr_blocked(M), "ggr_qr_blocked 4096^2 f32")
-    qr_ms = cuda_ms(lambda: ggr_qr_blocked(M), reps=3)
-    lib_qr_ms = cuda_ms(lambda: torch.linalg.qr(M), reps=3)
-    lstsq_ms = cuda_ms(lambda: ggr_lstsq(A, b), reps=3)
-    lib_lstsq_ms = cuda_ms(lambda: torch.linalg.lstsq(A, b).solution, reps=3)
-    print(f"  ggr_qr_blocked 4096x4096 f32: {qr_ms:.2f} ms; torch.linalg.qr "
-          f"{lib_qr_ms:.2f} ms ({card})")
-    print(f"  ggr_lstsq (8192, 1024) + 4 rhs f32: {lstsq_ms:.2f} ms; "
-          f"torch.linalg.lstsq {lib_lstsq_ms:.2f} ms ({card})")
+    M64 = M.double()
+    for name in ("tree qr", "fused qr", "pallas qr"):
+        R = results[name]
+        r_gap = float(torch.linalg.norm(R.abs() - R_lib.abs()) / torch.linalg.norm(R_lib))
+        check(r_gap <= 1e-3, f"{name} 4096^2 f32: |R| within {r_gap:.3e} of "
+                             "torch.linalg.qr's |R| (relative Frobenius, <= 1e-3)")
+        R64 = R.double()
+        gram = float(torch.linalg.norm(R64.T @ R64 - M64.T @ M64)
+                     / torch.linalg.norm(M64) ** 2)
+        check(gram <= 1e-5, f"{name} Gram residual ||R^T R - A^T A|| / ||A||^2 "
+                            f"= {gram:.3e} (<= 1e-5)")
+    del results
+    profile_top(lambda: ggr_qr_blocked(M), "ggr_qr_blocked 4096^2 f32 (tree)")
+    profile_top(lambda: ggr_qr_blocked(M, schedule="fused"),
+                "ggr_qr_blocked 4096^2 f32 (fused)")
+    dense_ms = {name: cuda_ms(call, reps=3) for name, (call, _) in routes.items()}
+    dense_ms["torch.linalg.qr"] = cuda_ms(lambda: torch.linalg.qr(M), reps=3)
+    dense_ms["torch.linalg.lstsq"] = cuda_ms(
+        lambda: torch.linalg.lstsq(A, b).solution, reps=3)
+    for name, ms in dense_ms.items():
+        shape = "(8192, 1024) + 4 rhs" if "lstsq" in name else "4096x4096"
+        print(f"  {name} {shape} f32: {ms:.2f} ms ({card})")
 
     # ------------------------------------------------------------ phase 6
     phase("6. kernels vs plain versions at every main-path shape")
@@ -400,11 +511,17 @@ def main() -> int:
     # ------------------------------------------------------------ phase 7
     phase("7. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
-                "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32")}
+                "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
+                "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
+                "apply_factors": ("apply_factors", (1, 4096, 4032), "float32")}
     meta = {"batched_update": ("src/repro_torch/kernels/csrc/ggr_update.cu",
                                "src/repro/kernels/ggr_update.py:91"),
             "batched_geqrt": ("src/repro_torch/kernels/csrc/ggr_panel.cu",
-                              "src/repro/kernels/ggr_panel.py:211")}
+                              "src/repro/kernels/ggr_panel.py:211"),
+            "panel_factor": ("src/repro_torch/kernels/csrc/ggr_panel_factor.cu",
+                             "src/repro/kernels/ggr_panel.py:135"),
+            "apply_factors": ("src/repro_torch/kernels/csrc/ggr_apply.cu",
+                              "src/repro/kernels/ggr_apply.py:28")}
     rows_out = []
     for name in kernels:
         t = timed[headline[name]]
@@ -421,8 +538,8 @@ def main() -> int:
         print(f"  {name} {shape} {dname}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in t.items()))
-    print(f"  serving: {req_s:.1f} req/s; dense: ggr_qr_blocked {qr_ms:.2f} ms vs "
-          f"torch.linalg.qr {lib_qr_ms:.2f} ms; card {card}")
+    print(f"  serving: {req_s:.1f} req/s; dense ms: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in dense_ms.items()) + f"; card {card}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -1,5 +1,12 @@
 """Core GGR library — closed-form column steps and the blocked driver."""
-from .blocked import ggr_qr_blocked, ggr_triangularize_blocked, suffix_col_norms
+from .blocked import (
+    ggr_geqrt,
+    ggr_qr_blocked,
+    ggr_qr_blocked_reference,
+    ggr_triangularize_blocked,
+    ggr_tsqrt,
+    suffix_col_norms,
+)
 from .ggr import (
     GGRFactors,
     apply_ggr_factors,
@@ -17,10 +24,13 @@ __all__ = [
     "ggr_column_step",
     "ggr_column_step_at",
     "ggr_factor_column",
+    "ggr_geqrt",
     "ggr_qr2",
     "ggr_qr_blocked",
+    "ggr_qr_blocked_reference",
     "ggr_triangularize",
     "ggr_triangularize_blocked",
+    "ggr_tsqrt",
     "suffix_col_norms",
     "suffix_norms",
 ]

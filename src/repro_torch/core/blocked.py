@@ -1,9 +1,10 @@
 """Blocked GGR QR — ``dgeqrfggr`` as a panel pipeline over the GGR kernels.
 
 The driver (``ggr_qr_blocked`` / ``ggr_triangularize_blocked``) is a
-right-looking panel algorithm, a Python loop over panels.  This port runs the
-**tree** schedule:
+right-looking panel algorithm, a Python loop over panels.  Two schedules
+share that loop:
 
+``schedule="tree"`` — the batched-GEMM schedule (what ``"auto"`` runs)
     Per panel: every row tile of the panel is factored independently by one
     batched GEQRT launch (``kernels.batched_geqrt``, identity riding along so
     each tile also emits its explicit b x b transform Qt); the per-tile R
@@ -15,9 +16,17 @@ right-looking panel algorithm, a Python loop over panels.  This port runs the
     so there is no rank-b compact WY form; at tile size 64 an explicit Qt is
     small and turns every trailing update into a plain ``torch.bmm``.
 
-The ``"fused"`` schedule (monolithic panel kernel + one full-width DET2 apply
-launch) needs the ``panel_factor`` / ``apply_factors`` kernels, which are not
-ported yet; ``schedule="auto"`` resolves to ``"tree"``.
+``schedule="fused"`` — the paper's merged UPDATE_ROW1/UPDATE schedule
+    Per panel: one ``kernels.ggr_panel.panel_factor`` launch factors the whole
+    (F, b) panel and stores its compact (V, T) factors, then ONE
+    ``kernels.ggr_apply.apply_factors`` launch replays all b transforms over
+    the trailing columns while each chunk of columns stays resident in shared
+    memory — b-fold reuse instead of per-tile GEMMs.  Only the columns right
+    of the panel are updated, in place: columns left of it are exact zeros in
+    the frame's rows, and the panel's own columns are overwritten by its R.
+
+``"auto"`` resolves to ``"tree"``: which schedule is faster on the card is
+for a benchmark to decide.
 
 Panel k works on a *frame*: the rows from its first pivot row down, a plain
 slice.  Frame heights halve across O(log) phases as rows finalize
@@ -26,8 +35,14 @@ slice.  Frame heights halve across O(log) phases as rows finalize
 rows/cols are exact fixed points of the eps-guarded sweeps).
 
 Every entry point takes an optional leading batch dimension: B problems x p
-row tiles fold into ONE ``batched_geqrt`` launch per panel, and B x npair
-pairs into ONE ``batched_update`` launch per tree round.
+row tiles fold into ONE ``batched_geqrt`` launch per panel and B x npair
+pairs into ONE ``batched_update`` launch per tree round; the fused schedule
+makes one ``panel_factor`` and one ``apply_factors`` launch per panel for the
+whole batch.
+
+``ggr_geqrt`` / ``ggr_tsqrt`` are the explicit-Q tile primitives, and
+``ggr_qr_blocked_reference`` is the Python-unrolled PLASMA-style tile
+algorithm with its serial TSQRT chain — plain PyTorch over ``core.ggr``.
 """
 from __future__ import annotations
 
@@ -36,14 +51,80 @@ import torch
 
 from repro_torch.kernels.backend import Precision, dtype_name, resolve_precision
 from repro_torch.kernels.backend import forced_schedule as backend_forced_schedule
-from repro_torch.kernels.ggr_panel import batched_geqrt
+from repro_torch.kernels.ggr_apply import apply_factors
+from repro_torch.kernels.ggr_panel import batched_geqrt, panel_factor
 from repro_torch.kernels.ggr_update import batched_update, pad_to_tile
 
+from .ggr import apply_ggr_factors, ggr_column_step_at, ggr_factor_column
+
 __all__ = [
+    "ggr_geqrt",
+    "ggr_tsqrt",
     "ggr_qr_blocked",
+    "ggr_qr_blocked_reference",
     "ggr_triangularize_blocked",
     "suffix_col_norms",
 ]
+
+
+def ggr_geqrt(tile: torch.Tensor):
+    """Factor one (m x b) tile (or a (..., m, b) batch); returns (R_tile, Qt)
+    with Qt @ tile = R."""
+    m, b = tile.shape[-2:]
+    R = tile
+    Qt = torch.eye(m, dtype=tile.dtype, device=tile.device).expand(
+        *tile.shape[:-2], m, m).contiguous()
+    for c in range(min(m - 1, b)):
+        f = ggr_factor_column(R, c)
+        R = ggr_column_step_at(R, c)
+        Qt = apply_ggr_factors(f, Qt, c)
+    return torch.triu(R), Qt
+
+
+def ggr_tsqrt(R_top: torch.Tensor, B: torch.Tensor):
+    """Stacked factorization of [R_top; B] (R_top upper-triangular b x b).
+
+    Returns (R_new, Qt_stacked) with Qt_stacked @ [R_top; B] = [R_new; 0].
+    """
+    b = R_top.shape[-1]
+    R, Qt = ggr_geqrt(torch.cat([R_top, B], dim=-2))
+    return R[..., :b, :], Qt
+
+
+def ggr_qr_blocked_reference(A: torch.Tensor, tile: int = 128) -> torch.Tensor:
+    """The PLASMA-style tile algorithm (§4.1.1), unrolled: (p x q) tile loops
+    with a serial per-row-tile TSQRT chain and one small GEMM per (i, j) tile.
+
+    A compact executable statement of the tile algorithm, kept as the
+    baseline the blocked driver is measured against.  ``m`` and ``n`` must be
+    tile multiples.
+    """
+    m, n = A.shape[-2:]
+    if m % tile or n % tile:
+        raise ValueError(f"ggr_qr_blocked_reference: pad ({m}, {n}) to tile "
+                         f"multiples of {tile} first")
+    p, q, t = m // tile, n // tile, tile
+    R = A.clone()
+
+    def blk(i, j):
+        return R[..., i * t:(i + 1) * t, j * t:(j + 1) * t]
+
+    for k in range(min(p, q)):
+        # 1) diagonal tile factor, 2) row update of the tiles right of it
+        r_kk, Qt = ggr_geqrt(blk(k, k))
+        blk(k, k)[...] = r_kk
+        for j in range(k + 1, q):
+            blk(k, j)[...] = Qt @ blk(k, j)
+        # 3) couple every tile below the diagonal + paired trailing updates
+        for i in range(k + 1, p):
+            r_new, Qt2 = ggr_tsqrt(blk(k, k), blk(i, k))
+            blk(k, k)[...] = r_new
+            blk(i, k)[...] = 0
+            for j in range(k + 1, q):
+                upd = Qt2 @ torch.cat([blk(k, j), blk(i, j)], dim=-2)
+                blk(k, j)[...] = upd[..., :t, :]
+                blk(i, j)[...] = upd[..., t:, :]
+    return torch.triu(R)
 
 
 def suffix_col_norms(X: torch.Tensor) -> torch.Tensor:
@@ -163,8 +244,26 @@ def _panel_step_tree(Xp: torch.Tensor, k: int, *, b: int, F: int, W: int,
     frame[:, b:, c0:c0 + b] = 0
 
 
+def _panel_step_fused(Xp: torch.Tensor, k: int, *, b: int, F: int,
+                      block_w: int, accum_dtype=None) -> None:
+    """One fused-scheduled panel, in place on ``Xp`` (B, rows, W): one panel
+    kernel launch factors the (F, b) panel at the frame's pivot row, one apply
+    launch replays its transforms over the columns right of it."""
+    dtype = Xp.dtype
+    prec = (None if accum_dtype is None
+            else Precision(dtype_name(dtype), accum_dtype, dtype_name(dtype)))
+    c0 = k * b
+    frame = Xp[:, c0:c0 + F]  # (B, F, W) view
+    Rp, V, T = panel_factor(frame[:, :, c0:c0 + b], pivot0=0, precision=prec)
+    C = frame[:, :, c0 + b:]
+    if C.shape[2]:  # a pure QR's last panel has no trailing columns
+        apply_factors(V, T, C, pivot0=0, block_w=block_w, precision=prec, out=C)
+    frame[:, :, c0:c0 + b] = Rp
+
+
 def _triangularize_blocked_impl(X: torch.Tensor, n_pivots: int, tile: int,
-                                block_b, accum_dtype=None) -> torch.Tensor:
+                                schedule: str, block_w, block_b,
+                                accum_dtype=None) -> torch.Tensor:
     B, m, w = X.shape
     b = min(tile, -(-n_pivots // 8) * 8)
     np_pad = -(-n_pivots // b) * b
@@ -189,8 +288,12 @@ def _triangularize_blocked_impl(X: torch.Tensor, n_pivots: int, tile: int,
 
     for s, e, F in phases:
         for k in range(s, e):
-            _panel_step_tree(Xp, k, b=b, F=F, W=W, block_b=block_b,
-                             accum_dtype=accum_dtype)
+            if schedule == "tree":
+                _panel_step_tree(Xp, k, b=b, F=F, W=W, block_b=block_b,
+                                 accum_dtype=accum_dtype)
+            else:
+                _panel_step_fused(Xp, k, b=b, F=F, block_w=block_w or 256,
+                                  accum_dtype=accum_dtype)
 
     out = Xp[:, :m]
     if np_pad != n_pivots:
@@ -200,6 +303,7 @@ def _triangularize_blocked_impl(X: torch.Tensor, n_pivots: int, tile: int,
 
 def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
                               tile: int = 64, schedule: str = "auto",
+                              block_w: int | None = None,
                               block_b: int | None = None,
                               precision=None) -> torch.Tensor:
     """Blocked GGR sweeps annihilating columns 0..n_pivots-1 below their
@@ -210,10 +314,12 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
     ``(m, w)`` — tile padding is internal — or a batch ``(B, m, w)``.
 
     schedule: ``"tree"`` (batched tile GEQRT + log-depth coupling + GEMM
-    trailing) or ``"auto"``, which resolves to ``"tree"``.  ``"fused"`` raises
-    ``NotImplementedError``: its panel/apply kernels are the next slice of the
-    port.  A ``kernels.backend.degraded_mode(schedule=...)`` override outranks
-    the argument.
+    trailing), ``"fused"`` (one panel kernel + one trailing apply launch per
+    panel) or ``"auto"``, which resolves to ``"tree"``.  A
+    ``kernels.backend.degraded_mode(schedule=...)`` override outranks the
+    argument.  ``block_w`` (fused) and ``block_b`` (tree) are kept for the JAX
+    signature and must be positive when given; the CUDA kernels pick their
+    own tiling.
 
     precision: mixed-precision policy (``Precision`` / name / None).  The
     input is cast to the policy's compute dtype at entry; suffix-norm and
@@ -228,11 +334,11 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
         raise ValueError(f"n_pivots {n_pivots} out of range for width {w}")
     if schedule not in ("auto", "tree", "fused"):
         raise ValueError(f"unknown schedule {schedule!r}")
+    if block_w is not None and block_w <= 0:
+        raise ValueError(f"block_w must be positive, got {block_w}")
     sched = backend_forced_schedule() or schedule
-    if sched == "fused":
-        raise NotImplementedError(
-            "the fused schedule's panel_factor/apply_factors kernels are not "
-            "ported yet; use schedule='tree' (what 'auto' resolves to)")
+    if sched == "auto":
+        sched = "tree"
     accum_dtype = None
     if precision is not None:
         prec = resolve_precision(precision)
@@ -240,21 +346,24 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
         accum_dtype = prec.accum_dtype
     batched = X.ndim == 3
     out = _triangularize_blocked_impl(X if batched else X[None], n_pivots,
-                                      tile, block_b, accum_dtype=accum_dtype)
+                                      tile, sched, block_w, block_b,
+                                      accum_dtype=accum_dtype)
     return out if batched else out[0]
 
 
 def ggr_qr_blocked(A: torch.Tensor, tile: int = 64, schedule: str = "auto",
-                   block_b: int | None = None, precision=None) -> torch.Tensor:
+                   block_w: int | None = None, block_b: int | None = None,
+                   precision=None) -> torch.Tensor:
     """Blocked GGR QR of an arbitrary (m, n) matrix (or a (B, m, n) batch);
     returns the (m, n) R.
 
-    Panel pipeline over the GEQRT/update kernels with tree-coupled row tiles
-    — see the module docstring.  There is no ``m % tile == 0`` restriction.
+    Panel pipeline over the GGR kernels — see the module docstring for the
+    two schedules.  There is no ``m % tile == 0`` restriction.
     """
     m, n = A.shape[-2:]
     if min(m, n) == 0:
         return torch.triu(A)
     R = ggr_triangularize_blocked(A, min(m, n), tile=tile, schedule=schedule,
-                                  block_b=block_b, precision=precision)
+                                  block_w=block_w, block_b=block_b,
+                                  precision=precision)
     return torch.triu(R)

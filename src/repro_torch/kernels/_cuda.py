@@ -26,8 +26,8 @@ __all__ = ["MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
            "launch"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("ggr_update", "ggr_panel")
-_HEADERS = ("ggr_common.cuh",)
+_SOURCES = ("ggr_update", "ggr_panel", "ggr_panel_factor", "ggr_apply")
+_HEADERS = ("ggr_common.cuh", "ggr_scan.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +37,7 @@ MAX_THREADS = 1024
 
 PTXAS_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas report of its build
 _LIBS: dict[str, ctypes.CDLL] = {}
-_FN_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_INT_MAX = 2**31 - 1
 
 
 def build_dir() -> Path:
@@ -108,22 +107,27 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(source: str, fn_prefix: str, x: torch.Tensor, out: torch.Tensor,
-           *dims: int) -> None:
+def launch(source: str, fn_prefix: str, tensors, *dims: int) -> None:
     """Launch ``<fn_prefix>_<f32|f64>`` of ``source`` on the current stream.
 
-    ``x`` and ``out`` are contiguous CUDA tensors of one float dtype; ``dims``
-    are the kernel's integer shape arguments.  Raises ``RuntimeError`` when
-    the C function reports a CUDA error (a refused launch never runs, and a
-    later synchronize would not report it).
+    The C function takes one pointer per tensor of ``tensors`` (CUDA tensors
+    of one float dtype, which picks the suffix), then the integer arguments
+    ``dims``, the device index and the stream.  Raises ``ValueError`` for an
+    integer that does not fit a C ``int`` and ``RuntimeError`` when the C
+    function reports a CUDA error (a refused launch never runs, and a later
+    synchronize would not report it).
     """
+    if any(not -_INT_MAX <= d <= _INT_MAX for d in dims):
+        raise ValueError(f"{fn_prefix}: an argument of {dims} exceeds a C int")
     lib = _lib(source)
+    x = tensors[0]
     suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
     fn = getattr(lib, f"{fn_prefix}_{suffix}")
-    fn.argtypes = _FN_ARGTYPES
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(dims)
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), *dims, x.device.index, stream)
+    err = fn(*(t.data_ptr() for t in tensors), *dims, x.device.index, stream)
     if err != 0:
         errstr = getattr(lib, f"{source}_error_string")
         errstr.argtypes = [ctypes.c_int]

@@ -26,17 +26,12 @@ __device__ __forceinline__ T eps() { return T(1e-30); }
 // Shared-memory slots block_absmax needs for its partial maxima.
 constexpr int kReduceSlots = 32;
 
-// sigma = max_i |col_i| over n rows, a block reduction: every thread of the
-// block calls it (blockDim is a multiple of 32) and every thread gets sigma.
-// red: kReduceSlots shared slots.  The max is exact, so the order of the
-// reduction does not matter.
+// The max of every thread's `m` (each >= 0), a block reduction: every thread
+// of the block calls it (blockDim is a multiple of 32) and every thread gets
+// the result.  red: kReduceSlots shared slots.  The max is exact, so the
+// order of the reduction does not matter.
 template <typename T>
-__device__ T block_absmax(const T* col, int stride, int n, T* red) {
-  T m = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T a = fabs(col[(size_t)i * stride]);
-    m = a > m ? a : m;
-  }
+__device__ T block_max(T m, T* red) {
   for (int off = 16; off > 0; off >>= 1) {
     const T o = __shfl_down_sync(0xffffffffu, m, off);
     m = o > m ? o : m;
@@ -53,9 +48,20 @@ __device__ T block_absmax(const T* col, int stride, int n, T* red) {
     if (lane == 0) red[0] = m;
   }
   __syncthreads();
-  const T sigma = red[0];
-  __syncthreads();  // red[0] is reused by the next column's reduction
-  return sigma;
+  const T result = red[0];
+  __syncthreads();  // red[0] is reused by the next reduction
+  return result;
+}
+
+// sigma = max_i |col_i| over n rows (consecutive rows `stride` apart).
+template <typename T>
+__device__ T block_absmax(const T* col, int stride, int n, T* red) {
+  T m = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const T a = fabs(col[(size_t)i * stride]);
+    m = a > m ? a : m;
+  }
+  return block_max(m, red);
 }
 
 // Coefficient chain of one active column, computed by ONE thread, given the

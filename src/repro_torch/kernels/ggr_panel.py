@@ -1,5 +1,12 @@
-"""Batched dense GEQRT sweeps — the blocked driver's tile kernel — and the
-helpers shared by the GGR kernels.
+"""GGR panel kernels — the fused schedule's panel factorization, the tree
+schedule's batched dense GEQRT sweeps — and the helpers shared by the GGR
+kernels.
+
+``panel_factor``
+    (R, V, T) for one (m, b) panel, or a (B, m, b) batch of them: the
+    factored panel plus the compact GGR factors (V the scaled columns, T their
+    suffix norms) that ``ggr_apply.apply_factors`` replays over trailing
+    columns — the fused schedule's panel step.
 
 ``batched_geqrt``
     A (B, t, w) batch of independent tiles, each triangularized in its first
@@ -9,10 +16,10 @@ helpers shared by the GGR kernels.
     driver's tree schedule, where trailing updates are plain GEMMs with those
     small Qt tiles.
 
-On a CUDA tensor it launches the hand-written kernel ``csrc/ggr_panel.cu``;
-on a CPU tensor it runs ``batched_geqrt_plain``, the same function in plain
-PyTorch.  ``panel_factor`` (the fused schedule's panel kernel) is not ported
-yet.
+On a CUDA tensor each launches its hand-written kernel
+(``csrc/ggr_panel_factor.cu``, ``csrc/ggr_panel.cu``); on a CPU tensor it
+runs ``panel_factor_plain`` / ``batched_geqrt_plain``, the same function in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 from . import _cuda
 from .backend import dtype_name, resolve_precision
 
-__all__ = ["batched_geqrt", "batched_geqrt_plain"]
+__all__ = ["batched_geqrt", "batched_geqrt_plain", "panel_factor",
+           "panel_factor_plain"]
 
 # 1e-30 at EVERY dtype, f64 included — the kernels' constant, which differs
 # from core.ggr's dtype-keyed table (1e-300 at f64).
@@ -60,6 +68,60 @@ def _kernel_dtype_check(x: torch.Tensor, accum_dtype: str | None, what: str):
             f"{what}: no CUDA kernel for {dtype_name(x.dtype)} tiles with "
             f"{accum_dtype or dtype_name(x.dtype)} accumulation (the bf16/f16 "
             "kernels are not ported; their plain versions run on CPU tensors)")
+
+
+def panel_factor_plain(panel: torch.Tensor, pivot0: int = 0,
+                       accum_dtype: str | None = None):
+    """Plain-PyTorch fused panel factorization of a (B, m, b) batch — the
+    kernel's reference; returns (R, V, T), each (B, m, b).
+
+    Column c is annihilated below pivot row ``pivot0 + c``.  Every column
+    runs: a pivot on the last row is only sign-normalized, and a pivot past
+    the end (or an all-zero active column) leaves the panel untouched with
+    zero factors.  Only the active rows (from the pivot down) take part in the
+    suffix sums, which equals the masked full-height form exactly.
+    """
+    B, m, b = panel.shape
+    cd = panel.dtype
+    ad = _accum_dt(panel, accum_dtype)
+    X = panel.clone()
+    V = torch.zeros_like(panel)
+    T = torch.zeros_like(panel)
+    for c in range(b):
+        p = pivot0 + c
+        if p >= m:
+            continue  # v = 0, t = 0: no transform, zero factors
+        A = X[:, p:]  # active rows, (B, n, b)
+        v = A[:, :, c].to(ad)
+        sigma = v.abs().amax(1, keepdim=True)  # safe-Givens scale
+        vs = v / torch.where(sigma > 0, sigma, 1.0)
+        ts = torch.sqrt(_revcumsum(vs * vs, 1))
+
+        P = _revcumsum(vs[:, :, None] * A.to(ad), 1)  # inclusive suffix dots
+        # exclusive suffix via shift (P - prod cancels catastrophically)
+        S = torch.cat([P[:, 1:], torch.zeros_like(P[:, :1])], 1)
+        tn = torch.cat([ts[:, 1:], torch.zeros_like(ts[:, :1])], 1)
+        valid = tn > _EPS
+        st = torch.where(ts > _EPS, ts, 1.0)
+        stn = torch.where(valid, tn, 1.0)
+        k = vs / (st * stn)
+        l = stn / st
+
+        t_piv = ts[:, 0]
+        do_any = t_piv > _EPS
+        pivot_new = (P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None]).to(cd)
+        det2 = k[:, :-1, None] * S[:, :-1] - l[:, :-1, None] * A[:, :-1].to(ad)
+        det2 = torch.where(valid[:, :-1, None], det2.to(cd), A[:, 1:])
+        out = torch.cat([pivot_new[:, None], det2], 1)
+        # annihilated column written exactly: sigma·t at the pivot, 0 below
+        out[:, 0, c] = sigma[:, 0].to(cd) * ts[:, 0].to(cd)
+        out[:, 1:, c] = 0
+        X[:, p:] = torch.where(do_any[:, None, None], out, A)
+
+        V[:, p:, c] = vs.to(cd)
+        T[:, :p, c] = ts[:, :1].to(cd)  # the suffix sum runs over v's zeros
+        T[:, p:, c] = ts.to(cd)
+    return X, V, T
 
 
 def batched_geqrt_plain(tiles: torch.Tensor, n_pivots: int,
@@ -123,7 +185,7 @@ def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
     out = torch.empty_like(tiles)
     if B == 0:
         return out
-    _cuda.launch("ggr_panel", "ggr_batched_geqrt", tiles, out, B, t, w, n_pivots)
+    _cuda.launch("ggr_panel", "ggr_batched_geqrt", [tiles, out], B, t, w, n_pivots)
     batched_geqrt.launches += 1
     batched_geqrt.shapes.add((tuple(tiles.shape), n_pivots, tiles.dtype))
     return out
@@ -160,3 +222,80 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
 
 batched_geqrt.launches = 0  # kernel launches, for tests and chip_smoke.py
 batched_geqrt.shapes = set()  # (shape, n_pivots, dtype) of every launch
+
+
+_PANEL_THREADS = 1024  # mirrors kThreads in ggr_panel_factor.cu
+
+
+def _panel_stages(m: int, itemsize: int) -> bool:
+    """Whether the panel kernel keeps a column's v/sigma, k, l (3*m values) in
+    shared memory beside its scan slots (mirrors smem_bytes in
+    ggr_panel_factor.cu); else they live in the device scratch."""
+    return (_PANEL_THREADS + 64 + 3 * m) * itemsize <= _cuda.MAX_SMEM_BYTES
+
+
+def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
+                       accum_dtype: str | None):
+    if panel.device.type != "cuda":
+        raise ValueError(f"panel_factor: unsupported device {panel.device}")
+    _kernel_dtype_check(panel, accum_dtype, "panel_factor")
+    B, m, b = panel.shape
+    if b > _PANEL_THREADS:
+        raise ValueError(f"panel_factor: a panel of width {b} has more columns "
+                         f"than the kernel's {_PANEL_THREADS} threads")
+    if m * b >= 2**31:
+        raise ValueError(f"panel_factor: a ({m}, {b}) panel has 2^31 elements "
+                         "or more; the kernel indexes it with 32-bit offsets")
+    panel = panel.contiguous()
+    R, V, T = (torch.empty_like(panel) for _ in range(3))
+    if panel.numel() == 0:
+        V.zero_()
+        T.zero_()
+        return R.copy_(panel), V, T
+    # per panel: t and v/sigma planes (b, m), sigma (b), one column's v, k, l
+    work = torch.empty((B, 2 * b * m + b + 3 * m), dtype=panel.dtype,
+                       device=panel.device)
+    _cuda.launch("ggr_panel_factor", "ggr_panel_factor", [panel, R, V, T, work],
+                 B, m, b, pivot0, int(_panel_stages(m, panel.element_size())))
+    panel_factor.launches += 1
+    panel_factor.shapes.add((tuple(panel.shape), pivot0, panel.dtype))
+    return R, V, T
+
+
+def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
+    """Fused GGR factorization of an (m, b) panel, or a (B, m, b) batch in
+    one launch; returns (R, V, T) of the panel's shape.
+
+    Column c is annihilated below pivot row ``pivot0 + c``; ``V[:, c]`` is
+    the column scaled by its max-abs (zero above the pivot) and ``T[:, c]``
+    its suffix norms (``t_pivot`` above the pivot) — the compact factors
+    ``ggr_apply.apply_factors`` replays.  All b columns run, so a pivot on the
+    last row is sign-normalized and one past the end is a no-op.  An all-zero
+    panel comes back bitwise as it was.
+
+    ``precision`` selects the panel's compute dtype and the in-kernel
+    accumulation dtype (``None`` = the panel's own dtype throughout); on CUDA
+    tensors only the uniform f32/f64 policies have a kernel.  The launch count
+    is ``panel_factor.launches``.
+    """
+    if panel.ndim not in (2, 3):
+        raise ValueError(f"panel_factor expects (m, b) or (B, m, b), got "
+                         f"{tuple(panel.shape)}")
+    if pivot0 < 0:
+        raise ValueError(f"pivot0 must be non-negative, got {pivot0}")
+    accum = None
+    if precision is not None:
+        prec = resolve_precision(precision)
+        panel = panel.to(prec.compute)
+        accum = prec.accum_dtype
+    batched = panel.ndim == 3
+    x = panel if batched else panel[None]
+    if x.device.type == "cpu":
+        out = panel_factor_plain(x, pivot0, accum)
+    else:
+        out = _panel_factor_cuda(x, pivot0, accum)
+    return out if batched else tuple(o[0] for o in out)
+
+
+panel_factor.launches = 0  # kernel launches, for tests and chip_smoke.py
+panel_factor.shapes = set()  # (shape, pivot0, dtype) of every launch

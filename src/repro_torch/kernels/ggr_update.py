@@ -143,7 +143,7 @@ def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
     out = torch.empty_like(stacked)
     if B == 0:
         return out
-    _cuda.launch("ggr_update", "ggr_batched_update", stacked, out, B, m, w, n_pivots)
+    _cuda.launch("ggr_update", "ggr_batched_update", [stacked, out], B, m, w, n_pivots)
     batched_update.launches += 1
     batched_update.shapes.add((tuple(stacked.shape), n_pivots, stacked.dtype))
     return out

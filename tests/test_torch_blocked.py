@@ -65,19 +65,27 @@ def test_batch_dimension_equals_per_problem_loop_with_one_launch_per_level(monke
 
 
 def test_auto_resolves_to_tree_and_fused_is_not_ported():
-    X = torch.from_numpy(_rand((48, 20), 5, np.float64))
+    """``"auto"`` still means tree in the port (no benchmark has chosen);
+    ``"fused"`` — ported since, the name kept from when it raised — runs as an
+    argument and under ``degraded_mode`` and matches the JAX fused schedule."""
+    Xn = _rand((48, 20), 5, np.float64)
+    X = torch.from_numpy(Xn)
     tree = blocked.ggr_triangularize_blocked(X, 20, tile=8, schedule="tree")
     assert torch.equal(blocked.ggr_triangularize_blocked(X, 20, tile=8), tree)
-    with pytest.raises(NotImplementedError):
-        blocked.ggr_triangularize_blocked(X, 20, schedule="fused")
-    with degraded_mode(schedule="fused"), pytest.raises(NotImplementedError):
-        blocked.ggr_triangularize_blocked(X, 20)
+    want = np.asarray(jblocked.ggr_triangularize_blocked(
+        jnp.asarray(Xn), 20, tile=8, schedule="fused"))
+    fused = blocked.ggr_triangularize_blocked(X, 20, tile=8, schedule="fused")
+    np.testing.assert_allclose(fused.numpy(), want, atol=3e-11, rtol=3e-11)
+    with degraded_mode(schedule="fused"):
+        assert torch.equal(blocked.ggr_triangularize_blocked(X, 20, tile=8), fused)
     with degraded_mode(schedule="tree"):
         assert torch.equal(blocked.ggr_triangularize_blocked(X, 20, tile=8), tree)
     with pytest.raises(ValueError):
         blocked.ggr_triangularize_blocked(X, 20, schedule="bogus")
     with pytest.raises(ValueError):
         blocked.ggr_triangularize_blocked(X, 21)
+    with pytest.raises(ValueError):
+        blocked.ggr_triangularize_blocked(X, 20, schedule="fused", block_w=0)
 
 
 @pytest.mark.parametrize("p", [1, 2, 5, 8])

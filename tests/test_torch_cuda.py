@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _cuda, batched_geqrt, batched_update
-from repro_torch.kernels import ggr_panel, ggr_update
+from repro_torch.core import blocked
+from repro_torch.kernels import _cuda, batched_geqrt, batched_update, ggr_qr_pallas
+from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
 from repro_torch.launch import serve_qr
 
 TOL = {torch.float32: 5e-5, torch.float64: 1e-11}
@@ -28,6 +29,11 @@ def test_cpu_tensors_never_reach_the_cuda_binding(monkeypatch):
     X[:, :4, :4] = torch.triu(X[:, :4, :4])
     assert torch.equal(batched_update(X, 4), ggr_update.batched_update_plain(X, 4))
     assert torch.equal(batched_geqrt(X, 4), ggr_panel.batched_geqrt_plain(X, 4))
+    R, V, T = ggr_panel.panel_factor(X, pivot0=1)
+    for a, b in zip((R, V, T), ggr_panel.panel_factor_plain(X, 1)):
+        assert torch.equal(a, b)
+    assert torch.equal(ggr_apply.apply_factors(V, T, X, pivot0=1),
+                       ggr_apply.apply_factors_plain(V, T, X, 1))
 
 
 @pytest.fixture
@@ -78,6 +84,81 @@ def test_batched_geqrt_kernel_matches_plain(card, dtype, B, t, w, n_piv):
     assert torch.equal(out[0], X[0])
 
 
+def _bits_zero(x):
+    return bool((x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+                 == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,m,b,pivot0", [(1, 8, 4, 0), (3, 48, 8, 13),
+                                          (2, 4096, 64, 0), (1, 1500, 32, 700),
+                                          (2, 40, 8, 36), (1, 10000, 8, 0)])
+def test_panel_factor_kernel_matches_plain(card, dtype, B, m, b, pivot0):
+    """Tall frames span many row chunks (the scan's carries and halos);
+    pivot0 = 36 of 40 rows runs pivots onto the last row and past the end;
+    10000 rows f64 keep the column vectors in device scratch, not shared
+    memory."""
+    g = torch.Generator(device=card).manual_seed(B + m + b)
+    X = torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype)
+    X[0] = 0
+    n0 = ggr_panel.panel_factor.launches
+    got = ggr_panel.panel_factor(X, pivot0=pivot0)
+    assert ggr_panel.panel_factor.launches == n0 + 1
+    want = ggr_panel.panel_factor_plain(X, pivot0)
+    for a, w in zip(got, want):
+        tol = TOL[dtype] * max(1, m // 16) * max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= tol
+        assert _bits_zero(a[0])  # the zero panel comes back bitwise zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,m,b,w,pivot0", [(1, 16, 4, 8, 0), (2, 96, 8, 45, 5),
+                                            (1, 4096, 64, 300, 0),
+                                            (2, 2000, 16, 70, 900),
+                                            (1, 40, 8, 9, 35), (1, 8192, 8, 20, 0)])
+def test_apply_factors_kernel_matches_plain(card, dtype, B, m, b, w, pivot0):
+    """8192 rows f64 read each step's coefficients from the L2 instead of
+    staging them in shared memory."""
+    g = torch.Generator(device=card).manual_seed(B + m + w)
+    pans = torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype)
+    pans[0] = 0
+    _, V, T = ggr_panel.panel_factor_plain(pans, pivot0)
+    C = torch.randn((B + 1, m, w), generator=g, device=card, dtype=dtype)
+    C[0] = 0
+    n0 = ggr_apply.apply_factors.launches
+    got = ggr_apply.apply_factors(V, T, C, pivot0=pivot0)
+    assert ggr_apply.apply_factors.launches == n0 + 1
+    want = ggr_apply.apply_factors_plain(V, T, C, pivot0)
+    tol = TOL[dtype] * max(1, m // 16) * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert _bits_zero(got[0])
+    # in place on a strided view of a wider frame: the same values
+    frame = torch.zeros((B + 1, m, w + 7), device=card, dtype=dtype)
+    frame[:, :, 7:] = C
+    view = frame[:, :, 7:]
+    ggr_apply.apply_factors(V, T, view, pivot0=pivot0, out=view)
+    assert torch.equal(view, got) and not frame[:, :, :7].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["tree", "fused"])
+def test_blocked_qr_on_the_card_matches_the_cpu(card, schedule):
+    A = torch.from_numpy(np.random.default_rng(3).standard_normal((300, 130)))
+    counters = (ggr_panel.panel_factor, ggr_apply.apply_factors)
+    n0 = [f.launches for f in counters]
+    R = blocked.ggr_qr_blocked(A.to(card), tile=32, schedule=schedule)
+    launched = [f.launches - n for f, n in zip(counters, n0)]
+    assert launched == ([5, 4] if schedule == "fused" else [0, 0])
+    Rc = blocked.ggr_qr_blocked(A, tile=32, schedule=schedule)
+    np.testing.assert_allclose(R.cpu().numpy(), Rc.numpy(), atol=1e-10)
+    Rp = ggr_qr_pallas(A[:, :128].to(card), panel=32)
+    np.testing.assert_allclose(np.abs(Rp.cpu().numpy()),
+                               np.abs(ggr_qr_pallas(A[:, :128], panel=32).numpy()),
+                               atol=1e-10)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(card):
     X = torch.zeros((2, 12, 9), device=card)
@@ -91,6 +172,16 @@ def test_kernels_refuse_what_they_do_not_take(card):
         batched_geqrt(big, 64)
     with pytest.raises(ValueError, match="threads"):
         batched_update(torch.zeros((1, 9, 1100), device=card), 8)
+    pan = torch.zeros((64, 8), device=card)
+    with pytest.raises(NotImplementedError):
+        ggr_panel.panel_factor(pan, precision="bf16")
+    with pytest.raises(NotImplementedError):
+        ggr_panel.panel_factor(pan.to(torch.bfloat16))
+    with pytest.raises(NotImplementedError):
+        ggr_apply.apply_factors(pan, pan, pan, precision="mixed_bf16")
+    tall = torch.zeros((60000, 1), device=card)  # over the ~57 k f32 rows
+    with pytest.raises(ValueError, match="shared memory"):
+        ggr_apply.apply_factors(tall, tall, tall)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,327 @@
+"""Port parity for the fused schedule: the plain versions of the panel and
+apply kernels against the JAX Pallas kernels in interpret mode, the fused
+drivers (``tsqrt``, ``ggr_qr_pallas``, ``ggr_triangularize_blocked(schedule=
+"fused")``) against their JAX counterparts, and the explicit-Q tile
+primitives and ``kernels.ref`` oracles against the JAX package — same numpy
+inputs made from a seed.  The CUDA kernels are held against the plain
+versions in tests/test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import blocked as jblocked
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import blocked
+from repro_torch.kernels import apply_panel, ggr_qr_pallas, panel_qr, ref, tsqrt
+from repro_torch.kernels import ggr_apply, ggr_panel
+from repro_torch.kernels.backend import degraded_mode
+
+# the JAX kernel tests' shapes and tolerances (tests/test_kernels.py),
+# scaled by max(1, m // 16)
+SHAPES = [(8, 4), (32, 8), (64, 16), (128, 32), (96, 8)]
+DTYPES = [np.float32, np.float64]
+TOL = {np.float32: 5e-5, np.float64: 1e-11}
+
+
+def _rand(shape, seed, dtype):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _close(out, ref_, tol):
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref_), atol=tol, rtol=tol)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# ------------------------------------------------------------ panel kernel
+@pytest.mark.parametrize("pivot0", [0, 4, 13])
+@pytest.mark.parametrize("m,b", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_panel_factor_plain_matches_jax_kernel(m, b, dtype, pivot0):
+    pan = _rand((m, b), m + b + pivot0, dtype)
+    want = jops.panel_qr(jnp.asarray(pan), pivot0=pivot0, interpret=True)
+    got = panel_qr(_t(pan), pivot0=pivot0)
+    tol = TOL[dtype] * max(1, m // 16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.from_numpy(pan).dtype
+        _close(g.numpy(), w, tol)
+
+
+def test_panel_factor_zero_column_and_pivots_past_the_end():
+    """A zero column leaves the panel as it is at that step; a pivot on the
+    last row is sign-normalized and one past the end is a no-op."""
+    pan = _rand((32, 8), 9, np.float32)
+    pan[:, 3] = 0.0
+    for pivot0 in (0, 28):  # 28: pivots 28..35 of 32 rows
+        want = jops.panel_qr(jnp.asarray(pan), pivot0=pivot0, interpret=True)
+        got = panel_qr(_t(pan), pivot0=pivot0)
+        assert all(bool(g.isfinite().all()) for g in got)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w, 1e-4)
+    R, V, T = panel_qr(torch.zeros((16, 4), dtype=torch.float64))
+    assert not R.any() and not V.any() and not T.any()
+
+
+def test_panel_factor_batch_equals_per_panel_loop():
+    pans = _t(_rand((3, 40, 8), 10, np.float64))
+    R, V, T = ggr_panel.panel_factor(pans, pivot0=5)
+    for i in range(3):
+        for a, b in zip((R[i], V[i], T[i]), ggr_panel.panel_factor(pans[i], pivot0=5)):
+            assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ apply kernel
+@pytest.mark.parametrize("m,b", [(16, 4), (64, 8), (128, 16)])
+@pytest.mark.parametrize("w", [8, 32, 64, 40])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_apply_factors_plain_matches_jax_kernel(m, b, w, dtype):
+    """w = 40 is not a multiple of block_w = 32: the JAX kernel needs a
+    dividing block (8), the port masks."""
+    pan = _rand((m, b), 5, dtype)
+    C = _rand((m, w), 6, dtype)
+    _, V, T = jref.ref_panel_factor(jnp.asarray(pan))
+    jbw = min(32, w) if w % min(32, w) == 0 else 8
+    want = jops.apply_panel(V, T, jnp.asarray(C), block_w=jbw, interpret=True)
+    got = apply_panel(_t(np.asarray(V)), _t(np.asarray(T)), _t(C), block_w=32)
+    _close(got.numpy(), want, TOL[dtype] * max(1, m // 16))
+
+
+@pytest.mark.parametrize("pivot0", [4, 13])
+def test_apply_factors_pivot_offsets_match_jax(pivot0):
+    pan = _rand((48, 8), 7, np.float64)
+    C = _rand((48, 12), 8, np.float64)
+    _, V, T = jops.panel_qr(jnp.asarray(pan), pivot0=pivot0, interpret=True)
+    want = jops.apply_panel(V, T, jnp.asarray(C), pivot0=pivot0, block_w=4,
+                            interpret=True)
+    got = apply_panel(_t(np.asarray(V)), _t(np.asarray(T)), _t(C), pivot0=pivot0)
+    _close(got.numpy(), want, 1e-11 * 3)
+    assert np.array_equal(got.numpy()[:pivot0], C[:pivot0])  # rows above untouched
+
+
+def test_apply_factors_in_place_on_a_strided_view_and_batch():
+    pans = _t(_rand((2, 30, 4), 11, np.float64))
+    frame = _t(_rand((2, 30, 20), 12, np.float64))
+    _, V, T = ggr_panel.panel_factor(pans)
+    want = torch.stack([ggr_apply.apply_factors(V[i], T[i], frame[i, :, 9:])
+                        for i in range(2)])
+    view = frame[:, :, 9:]
+    out = ggr_apply.apply_factors(V, T, view, out=view)
+    assert out.data_ptr() == view.data_ptr()
+    assert torch.equal(frame[:, :, 9:], want)
+    with pytest.raises(ValueError):
+        ggr_apply.apply_factors(V, T, frame, block_w=0)
+    with pytest.raises(ValueError):
+        ggr_apply.apply_factors(V, T, frame[:, :20])
+
+
+# ------------------------------------------------------------ fused drivers
+def test_tsqrt_matches_jax_and_numpy():
+    rng = np.random.default_rng(8)
+    R_top = np.triu(rng.standard_normal((8, 8))).astype(np.float32)
+    B = rng.standard_normal((24, 8)).astype(np.float32)
+    want = jops.tsqrt(jnp.asarray(R_top), jnp.asarray(B), interpret=True)
+    got = tsqrt(_t(R_top), _t(B))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w, 5e-5 * 2)
+    Rnp = np.linalg.qr(np.concatenate([R_top, B]), mode="r")
+    np.testing.assert_allclose(np.abs(got[0].numpy()), np.abs(Rnp), atol=1e-4)
+
+
+@pytest.mark.parametrize("m,n,panel", [(32, 32, 8), (64, 32, 16), (128, 64, 32)])
+def test_ggr_qr_pallas_matches_jax(m, n, panel):
+    A = _rand((m, n), m + n, np.float32)
+    want = np.asarray(jops.ggr_qr_pallas(jnp.asarray(A), panel=panel, interpret=True))
+    got = ggr_qr_pallas(_t(A), panel=panel).numpy()
+    _close(got, want, 5e-5 * max(1, m // 16))
+    Rnp = np.linalg.qr(A.astype(np.float64), mode="r")
+    np.testing.assert_allclose(np.abs(got[:n]), np.abs(Rnp), atol=5e-3)
+    with pytest.raises(ValueError):
+        ggr_qr_pallas(_t(A), panel=panel + 1)
+
+
+FUSED_CASES = [
+    (70, 37, 30, 16, np.float64),   # m != n, non-multiples, 7 rhs columns ride
+    (100, 45, 45, 16, np.float64),  # pure QR of a non-multiple square-ish block
+    (40, 61, 20, 8, np.float64),    # wide: more columns than rows
+    (70, 37, 30, 16, np.float32),
+    (129, 65, 65, 64, np.float64),  # two phases, one row past a tile multiple
+]
+
+
+@pytest.mark.parametrize("m,w,n_piv,tile,dtype", FUSED_CASES)
+def test_fused_schedule_matches_jax(m, w, n_piv, tile, dtype):
+    X = _rand((m, w), m + w, dtype)
+    want = np.asarray(jblocked.ggr_triangularize_blocked(
+        jnp.asarray(X), n_piv, tile=tile, schedule="fused", interpret=True))
+    got = blocked.ggr_triangularize_blocked(_t(X), n_piv, tile=tile,
+                                            schedule="fused")
+    tol = TOL[dtype] * max(1, m // 16)
+    _close(got.numpy(), want, tol)
+
+
+@pytest.mark.parametrize("m,w,n_piv,tile,dtype", FUSED_CASES)
+def test_tree_and_fused_give_the_same_r(m, w, n_piv, tile, dtype):
+    """Two orthogonal reductions of one matrix: |R| agrees to roundoff."""
+    X = _t(_rand((m, w), m + w + 1, dtype))
+    k = min(m, n_piv)
+    tree = blocked.ggr_triangularize_blocked(X, n_piv, tile=tile, schedule="tree")
+    fused = blocked.ggr_triangularize_blocked(X, n_piv, tile=tile, schedule="fused")
+    tol = TOL[dtype] * max(1, m // 16)
+    # the last pivot row's sign is set by roundoff in either schedule
+    _close(torch.triu(fused[:k, :n_piv]).abs().numpy(),
+           torch.triu(tree[:k, :n_piv]).abs().numpy(), tol)
+
+
+def test_fused_batch_equals_per_problem_loop_with_one_launch_per_panel(monkeypatch):
+    """B problems share one panel_factor call and one apply_factors call per
+    panel; the batched result equals a loop of single-problem calls bit for
+    bit.  A pure QR's last panel has no apply."""
+    Xb = _t(_rand((3, 70, 37), 4, np.float64))
+    calls = {"panel": 0, "apply": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(blocked, "panel_factor", counting("panel", ggr_panel.panel_factor))
+    monkeypatch.setattr(blocked, "apply_factors", counting("apply", ggr_apply.apply_factors))
+    out = blocked.ggr_triangularize_blocked(Xb, 30, tile=16, schedule="fused")
+    assert calls == {"panel": 2, "apply": 2}  # 30 pivots -> 2 panels of 16
+    loop = torch.stack([blocked.ggr_triangularize_blocked(x, 30, tile=16,
+                                                          schedule="fused")
+                        for x in Xb])
+    assert torch.equal(out, loop)
+    calls.update(panel=0, apply=0)
+    blocked.ggr_qr_blocked(Xb[:, :64, :32], tile=16, schedule="fused")
+    assert calls == {"panel": 2, "apply": 1}
+
+
+def test_fused_mixed_precision_matches_jax():
+    X = _rand((64, 40), 7, np.float32)
+    got = blocked.ggr_triangularize_blocked(_t(X), 32, tile=16, schedule="fused",
+                                            precision="bf16")
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jblocked.ggr_triangularize_blocked(
+        jnp.asarray(X), 32, tile=16, schedule="fused", interpret=True,
+        precision="bf16").astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=5e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("policy", ["bf16", "mixed_f16"])
+def test_kernel_plain_versions_mixed_precision_match_jax(policy):
+    pan = _rand((64, 16), 31, np.float32)
+    C = _rand((64, 24), 32, np.float32)
+    want = jops.panel_qr(jnp.asarray(pan), interpret=True, precision=policy)
+    got = panel_qr(_t(pan), precision=policy)
+    for g, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, atol=2e-2 * np.abs(w).max())
+    wa = jops.apply_panel(want[1], want[2], jnp.asarray(C), interpret=True,
+                          precision=policy)
+    ga = apply_panel(got[1], got[2], _t(C), precision=policy)
+    wa = np.asarray(wa.astype(jnp.float32))
+    np.testing.assert_allclose(ga.float().numpy(), wa, atol=2e-2 * np.abs(wa).max())
+
+
+# ------------------------------------------------- explicit-Q tile primitives
+@pytest.mark.parametrize("m,b", [(16, 8), (24, 24), (9, 12)])
+def test_ggr_geqrt_matches_jax(m, b):
+    tile = _rand((m, b), m * b, np.float64)
+    Rw, Qw = jblocked.ggr_geqrt(jnp.asarray(tile))
+    R, Qt = blocked.ggr_geqrt(_t(tile))
+    _close(R.numpy(), Rw, 1e-11)
+    _close(Qt.numpy(), Qw, 1e-11)
+    np.testing.assert_allclose((Qt @ _t(tile)).numpy(), R.numpy(), atol=1e-11)
+
+
+def test_ggr_tsqrt_matches_jax():
+    rng = np.random.default_rng(3)
+    R_top = np.triu(rng.standard_normal((8, 8)))
+    B = rng.standard_normal((8, 8))
+    Rw, Qw = jblocked.ggr_tsqrt(jnp.asarray(R_top), jnp.asarray(B))
+    R, Qt = blocked.ggr_tsqrt(_t(R_top), _t(B))
+    _close(R.numpy(), Rw, 1e-11)
+    _close(Qt.numpy(), Qw, 1e-11)
+
+
+@pytest.mark.parametrize("m,n,tile", [(64, 64, 16), (96, 32, 32)])
+def test_qr_blocked_reference_matches_jax(m, n, tile):
+    A = _rand((m, n), m + n, np.float64)
+    want = np.asarray(jblocked.ggr_qr_blocked_reference(jnp.asarray(A), tile=tile))
+    got = blocked.ggr_qr_blocked_reference(_t(A), tile=tile).numpy()
+    _close(got, want, 1e-11 * max(1, m // 16))
+    R = blocked.ggr_qr_blocked(_t(A), tile=tile, schedule="fused").numpy()
+    np.testing.assert_allclose(np.abs(R), np.abs(got), atol=1e-11)
+    with pytest.raises(ValueError):
+        blocked.ggr_qr_blocked_reference(_t(A[:, :n - 1]), tile=tile)
+
+
+# -------------------------------------------------------------- ref oracles
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ref_oracles_match_jax(dtype):
+    rng = np.random.default_rng(21)
+    v = rng.standard_normal(24).astype(dtype)
+    X = rng.standard_normal((24, 6)).astype(dtype)
+    tol = TOL[dtype] * 2
+    for g, w in zip(ref.ref_suffix_stats(_t(v), _t(X)),
+                    jref.ref_suffix_stats(jnp.asarray(v), jnp.asarray(X))):
+        _close(g.numpy(), w, tol)
+    k, l = rng.standard_normal(24).astype(dtype), rng.standard_normal(24).astype(dtype)
+    _close(ref.ref_det2_grid(_t(k), _t(l), _t(X), _t(X)).numpy(),
+           jref.ref_det2_grid(jnp.asarray(k), jnp.asarray(l), jnp.asarray(X),
+                              jnp.asarray(X)), tol)
+    pan = rng.standard_normal((24, 6)).astype(dtype)
+    for pivot0 in (0, 5):
+        got = ref.ref_panel_factor(_t(pan), pivot0)
+        want = jref.ref_panel_factor(jnp.asarray(pan), pivot0)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w, tol)
+        C = rng.standard_normal((24, 10)).astype(dtype)
+        _close(ref.ref_apply_factors(got[1], got[2], _t(C), pivot0).numpy(),
+               jref.ref_apply_factors(want[1], want[2], jnp.asarray(C), pivot0), tol)
+    A = rng.standard_normal((20, 8)).astype(dtype)
+    A[:, 5] = A[:, 2]  # a repeated column: rank 7
+    Rg, pg = ref.ref_pivoted_panel_factor(_t(A))
+    Rw, pw = jref.ref_pivoted_panel_factor(jnp.asarray(A))
+    assert pg.tolist() == np.asarray(pw).tolist()
+    _close(np.abs(Rg.numpy())[:7], np.abs(np.asarray(Rw))[:7], tol * 10)
+
+
+def test_plain_versions_match_the_ref_oracles():
+    """The kernels' plain versions against the core.ggr oracles of this port
+    (1e-11 in f64: two summation orders of one function)."""
+    pan = _t(_rand((40, 8), 22, np.float64))
+    C = _t(_rand((40, 5), 23, np.float64))
+    for pivot0 in (0, 3, 32):
+        got = panel_qr(pan, pivot0=pivot0)
+        want = ref.ref_panel_factor(pan, pivot0)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w.numpy(), 1e-11 * 3)
+        _close(apply_panel(got[1], got[2], C, pivot0=pivot0).numpy(),
+               ref.ref_apply_factors(got[1], got[2], C, pivot0).numpy(), 1e-11 * 3)
+
+
+# ---------------------------------------------------------- schedule routing
+def test_fused_runs_under_degraded_mode_and_matches_jax():
+    X = _rand((48, 20), 5, np.float64)
+    want = np.asarray(jblocked.ggr_triangularize_blocked(
+        jnp.asarray(X), 20, tile=8, schedule="fused", interpret=True))
+    with degraded_mode(schedule="fused"):
+        got = blocked.ggr_triangularize_blocked(_t(X), 20, tile=8)
+    _close(got.numpy(), want, 1e-11 * 3)
+
+
+def test_cpu_calls_launch_nothing():
+    counters = [ggr_panel.panel_factor, ggr_apply.apply_factors,
+                ggr_panel.batched_geqrt]
+    before = [f.launches for f in counters]
+    X = _t(_rand((40, 24), 6, np.float32))
+    blocked.ggr_qr_blocked(X, tile=8, schedule="fused")
+    ggr_qr_pallas(X, panel=8)
+    assert [f.launches for f in counters] == before
