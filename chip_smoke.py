@@ -16,7 +16,8 @@ Drives the port's main path on the card and checks it, phase by phase:
    batch that must come back bitwise zero; times kernel, plain version and
    the library call that computes the same function (for apply_factors
    ``torch.ormqr`` with ``torch.geqrf``'s factors of the same panel: the same
-   work in Householder's basis, timed only);
+   work in Householder's basis, timed only); apply_factors also runs at a
+   65536-row frame, taller than shared memory could stage;
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
@@ -351,6 +352,8 @@ def main() -> int:
         KernelCase("apply_factors", (1, 8192, 964), (64, 0), f32, gen),   # fused lstsq
         KernelCase("apply_factors", (1, 4096, 1024), (64, 0), f64, gen),
         KernelCase("apply_factors", (1, 4096, 2048), (32, 2048), f32, gen),  # ggr_qr_pallas
+        # a frame too tall for one column of it in shared memory
+        KernelCase("apply_factors", (1, 65536, 128), (64, 0), f32, gen),
     ]
     worst = {name: 0.0 for name in kernels}
     timed = {}

@@ -21,149 +21,273 @@
 // first fused frame (4096, 4032) f32 with b = 64 that is 134 MB (0.040 ms at
 // 3.35 TB/s) against 5.2 GFLOP (0.078 ms at 67 TFLOP/s): operations bound it.
 //
-// Design.  The Pallas kernel holds a (m, block_w) tile of C in VMEM and
-// replays all b transforms on it — b-fold reuse.  Here the grid runs over
-// (problem, column chunk of cw columns); each block stages its (m - pivot0) x cw
-// chunk of C in shared memory, replays all b transforms there and writes it
-// back once.  A first pass (coeff_kernel) turns (V, T) into per-row v, k, l
-// vectors, contiguous per transform (3*b*m per problem, at most a few MB,
-// L2-resident and shared by every block); the validity of each rotation rides
-// in the sign of l.  Where they fit beside the chunk, each step's vectors are
-// staged in shared memory first (one coalesced copy), so the walks never wait
-// on the L2.  cw is chosen by the wrapper from the 227 KB budget (about 10
-// columns at 4096 rows f32 with staging; half that in f64) and from the
-// number of blocks the card needs.  Per
-// transform the block runs the row-chunked reverse scan of ggr_scan.cuh: chunk
-// partials of the suffix dots, chunk_carry, and a bottom-up walk carrying P in
-// a register; the old row above a chunk (the DET2 shift's one-row halo) is
-// read in the partial pass, before chunk_carry's barriers.  The walks load 8
-// rows (f32; 4 in f64) at a time.  C and the output
-// take a batch stride and a row stride, so the caller may update a strided
-// view of a frame in place (out == C).
+// Design: a systolic pipeline, one bottom-up pass over each column for all b
+// transforms.  Read a column bottom-up; on reading row r, transform c already
+// holds both inputs of its output row r+1 — P_{r+1} in a register (it adds
+// v_r x_r after the emit) and x_{r+1}, its previous input — so it can emit row
+// r+1 at once: the DET2 value below its pivot, P_p / t_p at the pivot, the old
+// value above it.  Its output stream, bottom-up too, is the input stream of
+// transform c+1, so the b transforms run as a chain of b stages.  A flush
+// token after row pivot0 emits the last row.
+//
+// Mapping.  A segment of W lanes (8, 16 or 32) of a warp runs one column's
+// pipeline: lane s holds NS consecutive stages (transforms s*NS .. s*NS+NS-1)
+// with their state (suffix dot, previous input, last output) in registers.  Every
+// tick each lane takes its stages' steps, last stage first, so each stage
+// reads the value its predecessor emitted on the previous tick (in a register,
+// or from lane s-1 through one __shfl_up_sync): stage q works on the stream's
+// element e = tick - 2q.  Lane 0 reads C, W rows at a time, one load per lane
+// per W ticks, a tile ahead; the lane of stage b-1 writes each output row.  In
+// place (out == C) is safe: a column belongs to one segment, and its row r is
+// written long after it was read.  So every element of C is read from device
+// memory once and written once, and no barrier runs inside the replay.
+//
+// Each stage carries the scaled suffix dot Q = P_{r+1} / t_{r+1} instead of
+// P, which turns its step into a plane rotation with two coefficients,
+// a_r = v_r / t_r and c_r = t_{r+1} / t_r (a^2 + c^2 = 1):
+//   emit row r+1:  a_r Q - c_r x_r   (= k_r P_{r+1} - l_r x_r)
+//   then        Q <- a_r x_r + c_r Q  (= P_r / t_r)
+// and the pivot row is Q itself (a = 1, c = 0 on reading row p-1): no
+// division in the replay.  Where t_{r+1} <= 1e-30 the stage passes its
+// previous input on; that is flagged by c = -0.0 (its sign bit), which
+// leaves Q <- a_r x_r, the right update there (|P_{r+1}| <= t_{r+1} |x|
+// is negligible).
+//
+// Coefficients: a first pass (coeff_kernel) writes, for every tick and stage,
+// the pair (a, c) that the stage uses at that tick — skewed by tick, so the
+// lanes of a warp read consecutive pairs; rows outside a stage's stream
+// store (0, -0.0).  A block of NW warps covers NW*32/W adjacent columns of
+// one problem and stages the coefficients of 32 ticks at a time in shared
+// memory (cp.async, double buffered), shared by all its columns: two
+// __syncthreads per 32 ticks.  Each tick's pairs are loaded one tick ahead.
 #include <cuda_runtime.h>
 
 #include "ggr_common.cuh"
-#include "ggr_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kTicks = 32;  // ticks per staged coefficient tile
 constexpr int kCoeffThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-// coef[(c*3 + {0,1,2})*m + r] = v, k, l of transform c at row r (l = -1 where
-// the rotation is degenerate; see det2_coeffs).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> { using type = float2; };
+template <>
+struct Pair<double> { using type = double2; };
+
+// The pass flag: the sign bit of c (c = -0.0 passes, c >= +0.0 rotates).
+__device__ __forceinline__ bool passes(float c) { return __float_as_int(c) < 0; }
+__device__ __forceinline__ bool passes(double c) { return __double_as_longlong(c) < 0; }
+
+// coef[((prob*nticks + tick)*Qp + pos)*2 + {0,1}] = a, c of stage
+// q = (pos % lanes)*per_lane + pos / lanes at that tick (Qp = lanes*per_lane).
 template <typename T>
 __global__ void __launch_bounds__(kCoeffThreads)
 coeff_kernel(const T* __restrict__ V, const T* __restrict__ Tn,
-             T* __restrict__ coef, int m, int b, int pivot0) {
-  const int c = blockIdx.y;
-  const int p = pivot0 + c;
-  const size_t off = (size_t)blockIdx.x * m * b;
-  V += off;
-  Tn += off;
-  T* vs = coef + ((size_t)blockIdx.x * b + c) * 3 * m;
-  T* kk = vs + m;
-  T* ll = kk + m;
-  for (int r = p + (int)threadIdx.x; r < m; r += blockDim.x) {
-    const T v = V[(size_t)r * b + c];
-    vs[r] = v;
-    ggr::det2_coeffs(v, Tn[(size_t)r * b + c],
-                     r + 1 < m ? Tn[(size_t)(r + 1) * b + c] : T(0), kk[r], ll[r]);
+             T* __restrict__ coef, int B, int m, int b, int pivot0, int lanes,
+             int per_lane, int nticks) {
+  const int Qp = lanes * per_lane;
+  const int r0 = pivot0 < m ? pivot0 : m;
+  const size_t total = (size_t)B * nticks * Qp;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int pos = (int)(i % Qp);
+    const size_t rest = i / Qp;
+    const int tick = (int)(rest % nticks);
+    const size_t prob = rest / nticks;
+    const int q = (pos % lanes) * per_lane + pos / lanes;
+    const int e = tick - 2 * q;  // the stream element stage q reads
+    const int r = m - 1 - e;     // its row; r0 - 1 is the flush token
+    const int p = pivot0 + q;
+    T a = T(0), c = -T(0);  // pass
+    if (q < b && p < m && e >= 0 && r >= r0 - 1) {
+      const T* Vp = V + prob * m * b;
+      const T* Tp = Tn + prob * m * b;
+      if (Tp[(size_t)p * b + q] > ggr::eps<T>()) {
+        if (r >= p) {
+          const T t = Tp[(size_t)r * b + q];
+          const T tn = r + 1 < m ? Tp[(size_t)(r + 1) * b + q] : T(0);
+          const T st = t > ggr::eps<T>() ? t : T(1);
+          a = Vp[(size_t)r * b + q] / st;
+          if (tn > ggr::eps<T>()) c = tn / st;
+        } else if (r == p - 1) {  // emits the pivot row: Q = P_p / t_p
+          a = T(1);
+          c = T(0);
+        }
+      }
+    }
+    T* out = coef + ((prob * nticks + tick) * Qp + pos) * 2;
+    out[0] = a;
+    out[1] = c;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const T* __restrict__ Tn, const T* C, T* out,
-             const T* __restrict__ coef, int m, int b, int w, int pivot0,
-             int cw, int stage, int c_bstride, int c_rstride, int o_bstride,
-             int o_rstride) {
+template <typename T, int W, int NS>
+__global__ void __launch_bounds__(512, 2)
+apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
+             int w, int pivot0, int ntiles, int ncb, int c_bstride,
+             int c_rstride, int o_bstride, int o_rstride) {
+  constexpr int Qp = W * NS;
+  constexpr int kTile = kTicks * Qp * 2;  // elements of one coefficient tile
+  constexpr int XQ = kTicks / W;          // rows of C each lane loads per tile
+  constexpr int kChunks = kTile * (int)sizeof(T) / 16;  // 16-byte copies per tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* part = reinterpret_cast<T*>(smem_raw);  // kThreads scan slots
-  T* cstage = part + kThreads;               // v, k, l of a step (3 x n0, if stage)
+  T* buf = reinterpret_cast<T*>(smem_raw);  // two tiles
 
-  const int j0 = blockIdx.y * cw;
-  const int ncol = w - j0 < cw ? w - j0 : cw;
+  const int lane = threadIdx.x & 31;
+  const int s = lane % W;  // this lane's place in its column's pipeline
+  const size_t prob = blockIdx.x / ncb;
+  const int cb = blockIdx.x - (int)prob * ncb;
+  const int col = (cb * (int)(blockDim.x >> 5) + (int)(threadIdx.x >> 5)) * (32 / W)
+                  + lane / W;
+  const bool has_col = col < w;
+  const T* src = C + prob * c_bstride + col;
+  T* dst = out + prob * o_bstride + col;
+  const T* cf = coef + prob * ntiles * kTile;
   const int r0 = pivot0 < m ? pivot0 : m;  // rows above r0 are untouched
   const int n0 = m - r0;
-  T* X = cstage + (stage ? 3 * (size_t)n0 : 0);  // n0 x ncol chunk of C
-  const T* src = C + (size_t)blockIdx.x * c_bstride + j0;
-  T* dst = out + (size_t)blockIdx.x * o_bstride + j0;
-  Tn += (size_t)blockIdx.x * m * b;
-  const T* cb = coef + (size_t)blockIdx.x * b * 3 * m;
+  const bool writer = has_col && s == (b - 1) / NS;
+  const int wslot = (b - 1) % NS;
 
-  if (src != dst)
-    for (int i = threadIdx.x; i < r0 * ncol; i += blockDim.x)
-      dst[(size_t)(i / ncol) * o_rstride + i % ncol] =
-          src[(size_t)(i / ncol) * c_rstride + i % ncol];
-  for (int i = threadIdx.x; i < n0 * ncol; i += blockDim.x)
-    X[i] = src[(size_t)(r0 + i / ncol) * c_rstride + i % ncol];
-  __syncthreads();
+  if (C != out && has_col)
+    for (int r = s; r < r0; r += W) dst[(size_t)r * o_rstride] = src[(size_t)r * c_rstride];
 
-  for (int c = 0; c < b; ++c) {
-    const int p = pivot0 + c;
-    if (p >= m) break;  // this and every later step is a no-op
-    const T tp = Tn[(size_t)p * b + c];
-    if (!(tp > ggr::eps<T>())) continue;  // do_any (block-uniform)
-    // v, k, l of this step: staged in shared memory when they fit, else
-    // read from the L2-resident coef; row r at vs[r - off]
-    const T* vs = cb + (size_t)c * 3 * m;
-    int off = 0;
-    if (stage) {
-      for (int r = p + threadIdx.x; r < m; r += blockDim.x)
-        for (int a = 0; a < 3; ++a) cstage[a * n0 + r - r0] = vs[(size_t)a * m + r];
-      __syncthreads();
-      vs = cstage;
-      off = r0;
+  auto load_tile = [&](int it) {
+    const char* g = reinterpret_cast<const char*>(cf + (size_t)it * kTile);
+    char* sm = reinterpret_cast<char*>(buf + (it & 1) * kTile);
+    for (int i = threadIdx.x; i < kChunks; i += blockDim.x)
+      cp_async16(sm + 16 * i, g + 16 * i);
+    cp_async_commit();
+  };
+  // stream element e = it*kTicks + kb*W + s: row m-1-e, or 0 past row r0
+  auto load_x = [&](int it, T* xq) {
+#pragma unroll
+    for (int kb = 0; kb < XQ; ++kb) {
+      const int e = it * kTicks + kb * W + s;
+      xq[kb] = has_col && e < n0 ? src[(size_t)(m - 1 - e) * c_rstride] : T(0);
     }
-    const int cm = stage ? n0 : m;  // distance between the v, k, l vectors
-    const T* kk = vs + cm;
-    const T* ll = kk + cm;
+  };
 
-    constexpr int G = ggr::WalkGroup<T>::value;
-    const ggr::Chunking s = ggr::chunking(ncol, p, m);
-    T* col = X + s.jj;  // row r of this column: col[(r - r0) * ncol]
-    auto x = [=](int r) { return col[(r - r0) * ncol]; };  // < 227 KB: int
-    auto v = [=](int r) { return vs[r - off]; };
-    const T acc = ggr::chunk_dot<T, G>(s.lo, s.hi, v, x);
-    const T halo = s.lo < s.hi && s.lo > p ? x(s.lo - 1) : T(0);
-    const T P = ggr::chunk_carry(s, acc, part);
-    ggr::det2_walk<T, G>(
-        s.lo, s.hi, p, P, halo, tp, x,
-        [=](int r, T val) { col[(r - r0) * ncol] = val; }, v,
-        [=](int r) { return kk[r - off]; }, [=](int r) { return ll[r - off]; });
-    __syncthreads();  // the next step's partial pass reads every chunk's rows
+  using T2 = typename Pair<T>::type;
+  T Q[NS], xp[NS], y[NS];  // per stage: scaled suffix dot, previous input, last output
+#pragma unroll
+  for (int j = 0; j < NS; ++j) Q[j] = xp[j] = y[j] = T(0);
+  T xq[XQ];
+  load_tile(0);
+  load_x(0, xq);
+
+  for (int it = 0; it < ntiles; ++it) {
+    T xn[XQ];
+#pragma unroll
+    for (int kb = 0; kb < XQ; ++kb) xn[kb] = T(0);
+    if (it + 1 < ntiles) {
+      load_tile(it + 1);
+      load_x(it + 1, xn);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it is in shared memory for every warp
+    const T2* tile = reinterpret_cast<const T2*>(buf + (it & 1) * kTile) + s;
+    const int ew0 = it * kTicks - 2 * (b - 1);  // stage b-1's element at t = 0
+    T2 next[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) next[j] = tile[j * W];
+#pragma unroll
+    for (int t = 0; t < kTicks; ++t) {
+      T2 cf[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        cf[j] = next[j];
+        if (t + 1 < kTicks) next[j] = tile[(t + 1) * Qp + j * W];
+      }
+      const T x0 = __shfl_sync(kFull, xq[t / W], t % W, W);
+      T in = __shfl_up_sync(kFull, y[NS - 1], 1, W);
+      if (s == 0) in = x0;
+#pragma unroll
+      for (int j = NS - 1; j >= 0; --j) {
+        const T x = j > 0 ? y[j > 0 ? j - 1 : 0] : in;
+        const T a = cf[j].x, c = cf[j].y;
+        const T d = fma(a, Q[j], -c * x);
+        y[j] = passes(c) ? xp[j] : d;
+        Q[j] = fma(a, x, c * Q[j]);
+        xp[j] = x;
+      }
+      const int ew = ew0 + t;  // stage b-1 emits row m - ew
+      if (writer && ew >= 1 && ew <= n0) {
+        T o = y[0];
+#pragma unroll
+        for (int j = 1; j < NS; ++j)
+          if (j == wslot) o = y[j];
+        __stcg(dst + (size_t)(m - ew) * o_rstride, o);  // a global store: no smem alias
+      }
+    }
+    __syncthreads();  // every warp is done with tile it before it is reloaded
+#pragma unroll
+    for (int kb = 0; kb < XQ; ++kb) xq[kb] = xn[kb];
   }
-
-  for (int i = threadIdx.x; i < n0 * ncol; i += blockDim.x)
-    dst[(size_t)(r0 + i / ncol) * o_rstride + i % ncol] = X[i];
 }
 
-template <typename T>
-size_t smem_bytes(int m, int pivot0, int cw, int stage) {
-  const size_t n0 = m - (pivot0 < m ? pivot0 : m);
-  return ((size_t)kThreads + n0 * (cw + (stage ? 3 : 0))) * sizeof(T);
+template <typename T, int W, int NS>
+int run_apply(const T* C, T* out, const T* coef, int B, int m, int b, int w,
+              int pivot0, int nwarps, int ntiles, int c_bstride, int c_rstride,
+              int o_bstride, int o_rstride, cudaStream_t st) {
+  const int smem = 2 * kTicks * W * NS * 2 * (int)sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      apply_kernel<T, W, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int cols = nwarps * (32 / W);
+  const int ncb = (w + cols - 1) / cols;
+  apply_kernel<T, W, NS><<<(unsigned)B * ncb, 32 * nwarps, smem, st>>>(
+      C, out, coef, m, b, w, pivot0, ntiles, ncb, c_bstride, c_rstride,
+      o_bstride, o_rstride);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* V, const T* Tn, const T* C, T* out, T* coef, int B, int m,
-           int b, int w, int pivot0, int cw, int stage, int c_bstride,
-           int c_rstride, int o_bstride, int o_rstride, int device, void* stream) {
+           int b, int w, int pivot0, int lanes, int per_lane, int nwarps,
+           int ntiles, int c_bstride, int c_rstride, int o_bstride,
+           int o_rstride, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  coeff_kernel<T><<<dim3(B, b), kCoeffThreads, 0, st>>>(V, Tn, coef, m, b, pivot0);
+  const size_t total = (size_t)B * ntiles * kTicks * lanes * per_lane;
+  const size_t want = (total + kCoeffThreads - 1) / kCoeffThreads;
+  const int nblk = want < 4096 ? (int)want : 4096;
+  coeff_kernel<T><<<nblk, kCoeffThreads, 0, st>>>(
+      V, Tn, coef, B, m, b, pivot0, lanes, per_lane, ntiles * kTicks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes<T>(m, pivot0, cw, stage);
-  err = cudaFuncSetAttribute(apply_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nblk = (w + cw - 1) / cw;
-  apply_kernel<T><<<dim3(B, nblk), kThreads, smem, st>>>(
-      Tn, C, out, coef, m, b, w, pivot0, cw, stage, c_bstride, c_rstride,
-      o_bstride, o_rstride);
-  return (int)cudaGetLastError();
+#define GGR_APPLY_CASE(W_, NS_)                                                \
+  if (lanes == W_ && per_lane == NS_)                                          \
+    return run_apply<T, W_, NS_>(C, out, coef, B, m, b, w, pivot0, nwarps,     \
+                                 ntiles, c_bstride, c_rstride, o_bstride,      \
+                                 o_rstride, st);
+  GGR_APPLY_CASE(8, 1)
+  GGR_APPLY_CASE(16, 1)
+  GGR_APPLY_CASE(32, 1)
+  GGR_APPLY_CASE(32, 2)
+  GGR_APPLY_CASE(32, 4)
+#undef GGR_APPLY_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -172,20 +296,22 @@ extern "C" {
 
 int ggr_apply_factors_f32(const float* V, const float* Tn, const float* C,
                           float* out, float* coef, int B, int m, int b, int w,
-                          int pivot0, int cw, int stage, int c_bstride,
-                          int c_rstride, int o_bstride, int o_rstride, int device,
-                          void* stream) {
-  return launch<float>(V, Tn, C, out, coef, B, m, b, w, pivot0, cw, stage,
-                       c_bstride, c_rstride, o_bstride, o_rstride, device, stream);
+                          int pivot0, int lanes, int per_lane, int nwarps,
+                          int ntiles, int c_bstride, int c_rstride,
+                          int o_bstride, int o_rstride, int device, void* stream) {
+  return launch<float>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
+                       nwarps, ntiles, c_bstride, c_rstride, o_bstride,
+                       o_rstride, device, stream);
 }
 
 int ggr_apply_factors_f64(const double* V, const double* Tn, const double* C,
                           double* out, double* coef, int B, int m, int b, int w,
-                          int pivot0, int cw, int stage, int c_bstride,
-                          int c_rstride, int o_bstride, int o_rstride, int device,
-                          void* stream) {
-  return launch<double>(V, Tn, C, out, coef, B, m, b, w, pivot0, cw, stage,
-                        c_bstride, c_rstride, o_bstride, o_rstride, device, stream);
+                          int pivot0, int lanes, int per_lane, int nwarps,
+                          int ntiles, int c_bstride, int c_rstride,
+                          int o_bstride, int o_rstride, int device, void* stream) {
+  return launch<double>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
+                        nwarps, ntiles, c_bstride, c_rstride, o_bstride,
+                        o_rstride, device, stream);
 }
 
 const char* ggr_apply_error_string(int code) {

@@ -5,9 +5,9 @@ over trailing columns — the fused schedule's DET2 grid (the paper's
 For a panel factored by ``ggr_panel.panel_factor`` into compact factors
 (V, T), ``apply_factors`` applies its b column steps, in order, to trailing
 columns C, with the same pivots ``pivot0 + c``.  Per step: one suffix-dot
-scan and one DET2 grid, with the coefficients k, l recomputed from (v, t);
-the CUDA kernel keeps each chunk of columns in shared memory across all b
-steps (b-fold reuse).
+scan and one DET2 grid, with the coefficients k, l recomputed from (v, t).
+The CUDA kernel runs the b steps as a pipeline of b stages over one
+bottom-up pass of each column, so C is read and written once.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/ggr_apply.cu``;
 on a CPU tensor it runs ``apply_factors_plain``, the same function in plain
@@ -18,14 +18,15 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .backend import dtype_name, resolve_precision
+from .backend import resolve_precision
 from .ggr_panel import _EPS, _accum_dt, _kernel_dtype_check, _revcumsum
 
 __all__ = ["apply_factors", "apply_factors_plain"]
 
-_THREADS = 1024  # mirrors kThreads in ggr_apply.cu
-_MAX_CW = 32  # widest column chunk one block stages
-_TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
+_TICKS = 32  # mirrors kTicks in ggr_apply.cu: ticks per coefficient tile
+_MAX_STAGES = 128  # transforms one launch pipelines: 32 lanes x 4 each
+_MAX_WARPS = 16  # warps per block
+_WAVE = 264  # blocks in one wave: two on each of the H100's 132 SMs
 
 
 def apply_factors_plain(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
@@ -65,22 +66,13 @@ def apply_factors_plain(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     return C
 
 
-def _column_chunk(B: int, m: int, w: int, pivot0: int,
-                 itemsize: int) -> tuple[int, bool]:
-    """(cw, stage): the columns one block of the CUDA kernel stages, and
-    whether each step's v, k, l (3 values per active row) are staged in
-    shared memory beside them.  cw is as many columns as the 227 KB hold for
-    the m - pivot0 active rows (after the v, k, l vectors when they fit with
-    at least one column), at most 32, and few enough that the grid has about
-    two blocks per SM.  cw is 0 if not even one column fits."""
-    rows = m - min(pivot0, m)
-    budget = _cuda.MAX_SMEM_BYTES // itemsize - _THREADS
-    if not rows:
-        return min(_MAX_CW, w), False
-    stage = budget // rows >= 4
-    fit = budget // rows - (3 if stage else 0)
-    want = max(1, -(-B * w // _TARGET_BLOCKS))
-    return min(fit, _MAX_CW, want, w), stage
+def _pipeline(b: int) -> tuple[int, int]:
+    """(lanes, per_lane) for b <= _MAX_STAGES transforms: the lanes of a warp
+    that run one column's pipeline (8, 16 or 32, so a warp runs 32 // lanes
+    columns) and the transforms each lane holds (1, 2 or 4)."""
+    lanes = 8 if b <= 8 else 16 if b <= 16 else 32
+    per_lane = 1 if b <= lanes else 2 if b <= 2 * lanes else 4
+    return lanes, per_lane
 
 
 def _apply_factors_cuda(V, T, C, pivot0, accum_dtype, out):
@@ -91,27 +83,32 @@ def _apply_factors_cuda(V, T, C, pivot0, accum_dtype, out):
     w = C.shape[2]
     if out is None:
         out = torch.empty_like(C, memory_format=torch.contiguous_format)
-    if B == 0 or m == 0 or w == 0:
-        return out.copy_(C)
-    cw, stage = _column_chunk(B, m, w, pivot0, C.element_size())
-    if cw < 1:
-        rows = m - min(pivot0, m)
-        limit = (_cuda.MAX_SMEM_BYTES // C.element_size() - _THREADS)
-        raise ValueError(
-            f"apply_factors: {rows} active rows of {dtype_name(C.dtype)} do not "
-            f"fit one column in shared memory; the kernel stages at most "
-            f"{limit} rows ({_cuda.MAX_SMEM_BYTES} bytes)")
-    if b > 65535:
-        raise ValueError(f"apply_factors: {b} transforms exceed the grid's 65535")
+    if B == 0 or m == 0 or w == 0 or b == 0 or pivot0 >= m:
+        return out.copy_(C)  # no transform has a pivot row
     V, T = V.contiguous(), T.contiguous()
     src = C if C.stride(2) == 1 else C.contiguous()
     dst = out if out.stride(2) == 1 else torch.empty_like(src)
-    coef = torch.empty((B, b, 3, m), dtype=C.dtype, device=C.device)
-    _cuda.launch("ggr_apply", "ggr_apply_factors", [V, T, src, dst, coef],
-                 B, m, b, w, pivot0, cw, int(stage), src.stride(0),
-                 src.stride(1), dst.stride(0), dst.stride(1))
-    apply_factors.launches += 1
-    apply_factors.shapes.add((tuple(C.shape), (b, pivot0), C.dtype))
+    # more than _MAX_STAGES transforms: one launch per group, in place after
+    # the first
+    for g0 in range(0, b, _MAX_STAGES):
+        p0 = pivot0 + g0
+        if p0 >= m:
+            break
+        Vg = V[:, :, g0:g0 + _MAX_STAGES].contiguous()  # V itself if b <= 128
+        Tg = T[:, :, g0:g0 + _MAX_STAGES].contiguous()
+        bg = Vg.shape[2]
+        lanes, per_lane = _pipeline(bg)
+        ntiles = -(-(m - p0 + 2 * bg - 1) // _TICKS)
+        warps = B * -(-w // (32 // lanes))
+        nwarps = min(_MAX_WARPS, -(-warps // _WAVE))
+        coef = torch.empty((B, ntiles * _TICKS, lanes * per_lane, 2),
+                           dtype=C.dtype, device=C.device)
+        _cuda.launch("ggr_apply", "ggr_apply_factors", [Vg, Tg, src, dst, coef],
+                     B, m, bg, w, p0, lanes, per_lane, nwarps, ntiles,
+                     src.stride(0), src.stride(1), dst.stride(0), dst.stride(1))
+        apply_factors.launches += 1
+        apply_factors.shapes.add((tuple(C.shape), (bg, p0), C.dtype))
+        src = dst
     if dst is not out:
         out.copy_(dst)
     return out
@@ -124,15 +121,15 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     batch in one launch) to trailing columns C ((m, w) / (B, m, w)).
 
     Step c uses pivot row ``pivot0 + c``: rows above it are untouched, and
-    k, l are recomputed from (v, t).  Any width is accepted.  The CUDA kernel
-    picks its own column chunk from the shared-memory budget, so ``block_w``
-    (kept for parity with the JAX signature) sets no tiling; it must be
-    positive.  ``out`` (optional, C's shape) receives the result and may be C
-    itself — a strided view of a larger frame is updated in place.  A frame
-    too tall for one column in shared memory raises ``ValueError`` on the
-    card.  ``precision`` selects compute + accumulation dtypes; on CUDA
-    tensors only the uniform f32/f64 policies have a kernel.  The launch
-    count is ``apply_factors.launches``.
+    k, l are recomputed from (v, t).  Any width and height are accepted.  The
+    CUDA kernel streams each column once, so ``block_w`` (kept for parity
+    with the JAX signature) sets no tiling; it must be positive.  ``out``
+    (optional, C's shape) receives the result and may be C itself — a
+    strided view of a larger frame is updated in place.  ``precision``
+    selects compute + accumulation dtypes; on CUDA tensors only the uniform
+    f32/f64 policies have a kernel.  The launch count is
+    ``apply_factors.launches``; more than 128 transforms take one launch per
+    128.
     """
     if block_w <= 0:
         raise ValueError(f"block_w must be positive, got {block_w}")

@@ -117,10 +117,13 @@ def test_panel_factor_kernel_matches_plain(card, dtype, B, m, b, pivot0):
 @pytest.mark.parametrize("B,m,b,w,pivot0", [(1, 16, 4, 8, 0), (2, 96, 8, 45, 5),
                                             (1, 4096, 64, 300, 0),
                                             (2, 2000, 16, 70, 900),
-                                            (1, 40, 8, 9, 35), (1, 8192, 8, 20, 0)])
+                                            (1, 40, 8, 9, 35), (1, 8192, 8, 20, 0),
+                                            (1, 700, 24, 37, 0), (2, 515, 33, 21, 3),
+                                            (1, 400, 130, 10, 2)])
 def test_apply_factors_kernel_matches_plain(card, dtype, B, m, b, w, pivot0):
-    """8192 rows f64 read each step's coefficients from the L2 instead of
-    staging them in shared memory."""
+    """b = 24 leaves lanes of the warp idle and b = 33 fills one stage of a
+    lane's second pair; widths 37 and 21 end inside a block's columns and b =
+    130 takes two launches (128 transforms each at most)."""
     g = torch.Generator(device=card).manual_seed(B + m + w)
     pans = torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype)
     pans[0] = 0
@@ -129,7 +132,7 @@ def test_apply_factors_kernel_matches_plain(card, dtype, B, m, b, w, pivot0):
     C[0] = 0
     n0 = ggr_apply.apply_factors.launches
     got = ggr_apply.apply_factors(V, T, C, pivot0=pivot0)
-    assert ggr_apply.apply_factors.launches == n0 + 1
+    assert ggr_apply.apply_factors.launches == n0 + -(-b // 128)
     want = ggr_apply.apply_factors_plain(V, T, C, pivot0)
     tol = TOL[dtype] * max(1, m // 16) * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
@@ -179,9 +182,16 @@ def test_kernels_refuse_what_they_do_not_take(card):
         ggr_panel.panel_factor(pan.to(torch.bfloat16))
     with pytest.raises(NotImplementedError):
         ggr_apply.apply_factors(pan, pan, pan, precision="mixed_bf16")
-    tall = torch.zeros((60000, 1), device=card)  # over the ~57 k f32 rows
-    with pytest.raises(ValueError, match="shared memory"):
-        ggr_apply.apply_factors(tall, tall, tall)
+    # the kernel streams each column, so a frame of any height runs: here
+    # 60000 rows f32, more than one column holds in shared memory
+    g = torch.Generator(device=card).manual_seed(6)
+    _, V, T = ggr_panel.panel_factor_plain(
+        torch.randn((1, 60000, 4), generator=g, device=card), 0)
+    tall = torch.randn((1, 60000, 3), generator=g, device=card)
+    want = ggr_apply.apply_factors_plain(V, T, tall, 0)[0]
+    got = ggr_apply.apply_factors(V[0], T[0], tall[0])
+    tol = TOL[torch.float32] * (60000 // 16) * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
 
 
 @pytest.mark.gpu

@@ -118,6 +118,83 @@ def test_apply_factors_in_place_on_a_strided_view_and_batch():
         ggr_apply.apply_factors(V, T, frame[:, :20])
 
 
+def _pipeline_apply(V, T, C, pivot0):
+    """Scalar emulation of the CUDA kernel's order (csrc/ggr_apply.cu).
+
+    Transform q is pipeline stage q.  It reads its column bottom-up and, on
+    reading row r, emits row r + 1: the DET2 value below its pivot, P_p / t_p
+    at the pivot, the row as it was above it.  A flush token after row
+    pivot0 emits the last row.  Stage q reads what stage q - 1 emitted on the
+    previous tick, so at tick tau it works on the stream's element
+    e = tau - 2q; every stage takes its step in one tick, last stage first.
+    """
+    B, m, b = V.shape
+    w = C.shape[2]
+    out = C.copy()
+    r0 = min(pivot0, m)
+    n0 = m - r0
+    eps = 1e-30
+    for i in range(B):
+        v, t = V[i], T[i]
+        P = np.zeros((b, w))
+        prev = np.zeros((b, w))  # the stage's previous input
+        emit = np.zeros((b, w))  # what the stage emitted on the last tick
+        for tau in range(n0 + 2 * b - 1):
+            for q in range(b - 1, -1, -1):
+                e = tau - 2 * q
+                r = m - 1 - e  # the row this stage reads; r0 - 1: the flush
+                if e < 0 or r < r0 - 1:
+                    continue  # not started, or done
+                if q:
+                    x = emit[q - 1].copy()
+                else:
+                    x = C[i, r] if r >= r0 else np.zeros(w)
+                p = pivot0 + q
+                y = prev[q].copy()
+                if e and p < m and t[p, q] > eps:
+                    if r + 1 == p:
+                        y = P[q] / t[p, q]
+                    elif r >= p and t[r + 1, q] > eps:
+                        st = t[r, q] if t[r, q] > eps else 1.0
+                        stn = t[r + 1, q]
+                        y = (v[r, q] / (st * stn)) * P[q] - (stn / st) * x
+                emit[q] = y
+                if r >= p:
+                    P[q] = v[r, q] * x + P[q]
+                prev[q] = x
+                if q == b - 1 and e:
+                    out[i, r + 1] = y
+    return out
+
+
+@pytest.mark.parametrize("B,m,b,w,pivot0,degenerate", [
+    (2, 20, 4, 5, 0, False), (1, 17, 8, 3, 3, False),
+    (1, 12, 8, 4, 6, False),   # b > m - pivot0: pivots past the last row
+    (2, 24, 8, 6, 2, True),    # t_p = 0 at a mid-panel pivot
+    (1, 9, 3, 2, 0, True)])
+def test_pipeline_order_equals_plain_apply(B, m, b, w, pivot0, degenerate):
+    """The kernel's streaming order (one stage per transform, a flush token)
+    computes exactly what apply_factors_plain does, at f64."""
+    pans = _rand((B, m, b), m + b + pivot0, np.float64)
+    _, V, T = ggr_panel.panel_factor_plain(_t(pans), pivot0)
+    if degenerate:
+        c = b // 2
+        T[:, pivot0 + c, c] = 0.0
+    C = _rand((B, m, w), m + w, np.float64)
+    want = ggr_apply.apply_factors_plain(V, T, _t(C), pivot0).numpy()
+    got = _pipeline_apply(V.numpy(), T.numpy(), C, pivot0)
+    assert np.array_equal(got, want)
+
+
+def test_pipeline_order_keeps_a_zero_problem_bitwise_zero():
+    V = np.zeros((2, 16, 8))
+    C = np.zeros((2, 16, 5))
+    got = _pipeline_apply(V, V, C, 3)
+    assert np.array_equal(got.view(np.int64), np.zeros_like(got, dtype=np.int64))
+    want = ggr_apply.apply_factors_plain(_t(V), _t(V), _t(C), 3).numpy()
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
 # ------------------------------------------------------------ fused drivers
 def test_tsqrt_matches_jax_and_numpy():
     rng = np.random.default_rng(8)
