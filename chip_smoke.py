@@ -16,17 +16,18 @@ Drives the port's main path on the card and checks it, phase by phase:
    batch that must come back bitwise zero; times kernel, plain version and
    the library call that computes the same function (for apply_factors
    ``torch.ormqr`` with ``torch.geqrf``'s factors of the same panel: the same
-   work in Householder's basis, timed only); apply_factors also runs at a
-   65536-row frame, taller than shared memory could stage;
+   work in Householder's basis, timed only); panel_factor and apply_factors
+   also run at a 65536-row frame;
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
 5. dense — ``ggr_lstsq`` on an (8192, 1024) f32 system against
-   ``torch.linalg.lstsq`` in f64, through the blocked tree schedule and, under
-   ``degraded_mode(schedule="fused")``, the fused one; ``ggr_qr_blocked`` of
-   a 4096 x 4096 f32 matrix with each schedule and ``ggr_qr_pallas`` (panel
-   32) against ``torch.linalg.qr``; traces of both schedules' QR and the
-   times of every route beside the library calls;
+   ``torch.linalg.lstsq`` in f64, through the blocked tree schedule (under
+   ``degraded_mode(schedule="tree")``) and through ``"auto"``, which is the
+   fused schedule on the card; ``ggr_qr_blocked`` of a 4096 x 4096 f32
+   matrix with each schedule named, with ``"auto"`` and through
+   ``ggr_qr_pallas`` (panel 32) against ``torch.linalg.qr``; traces of both
+   schedules' QR and the times of every route beside the library calls;
 6. every (shape, dtype) the kernels were launched at by phases 4-5 is held
    against the plain version once more;
 7. a JSON line of per-kernel numbers, then the last line
@@ -348,6 +349,7 @@ def main() -> int:
         KernelCase("panel_factor", (1, 8192, 64), 0, f32, gen),        # fused lstsq frame
         KernelCase("panel_factor", (1, 4096, 64), 0, f64, gen),
         KernelCase("panel_factor", (1, 4096, 32), 1024, f32, gen),     # ggr_qr_pallas
+        KernelCase("panel_factor", (1, 65536, 64), 0, f32, gen),       # a 16 MiB frame
         KernelCase("apply_factors", (1, 4096, 4032), (64, 0), f32, gen),  # fused QR
         KernelCase("apply_factors", (1, 8192, 964), (64, 0), f32, gen),   # fused lstsq
         KernelCase("apply_factors", (1, 4096, 1024), (64, 0), f64, gen),
@@ -426,25 +428,26 @@ def main() -> int:
     b = torch.randn((8192, 4), generator=g, device="cuda", dtype=f32)
     M = torch.randn((4096, 4096), generator=g, device="cuda", dtype=f32)
 
-    def fused_lstsq():
-        with degraded_mode(schedule="fused"):
+    def tree_lstsq():
+        with degraded_mode(schedule="tree"):
             return ggr_lstsq(A, b)
 
-    routes = {  # name -> (call, kernels it must launch)
-        "tree lstsq": (lambda: ggr_lstsq(A, b), ("batched_geqrt", "batched_update")),
-        "tree qr": (lambda: ggr_qr_blocked(M), ("batched_geqrt", "batched_update")),
-        "fused qr": (lambda: ggr_qr_blocked(M, schedule="fused"),
-                     ("panel_factor", "apply_factors")),
-        "fused lstsq": (fused_lstsq, ("panel_factor", "apply_factors")),
-        "pallas qr": (lambda: ggr_qr_pallas(M, panel=32),
-                      ("panel_factor", "apply_factors")),
+    tree, fused = ("batched_geqrt", "batched_update"), ("panel_factor", "apply_factors")
+    routes = {  # name -> (call, kernels it must launch, kernels it must not)
+        "tree lstsq": (tree_lstsq, tree, ()),
+        "tree qr": (lambda: ggr_qr_blocked(M, schedule="tree"), tree, ()),
+        "fused qr": (lambda: ggr_qr_blocked(M, schedule="fused"), fused, ()),
+        # "auto" on a CUDA tensor is the fused schedule
+        "auto qr": (lambda: ggr_qr_blocked(M), fused, ("batched_geqrt",)),
+        "fused lstsq": (lambda: ggr_lstsq(A, b), fused, ("batched_geqrt",)),
+        "pallas qr": (lambda: ggr_qr_pallas(M, panel=32), fused, ()),
     }
     for fn in kernels.values():
         fn.launches = 0
     results, route_launches = {}, {}
     torch.cuda.synchronize()
     t_dense = time.perf_counter()
-    for name, (call, _) in routes.items():
+    for name, (call, _, _) in routes.items():
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
         results[name] = call()
@@ -458,9 +461,11 @@ def main() -> int:
         recorded[name] |= fn.shapes
     print(f"  launches in the dense run ({dense_wall * 1e3:.1f} ms wall): "
           f"{dense_launches}")
-    for name, (_, needs) in routes.items():
+    for name, (_, needs, avoids) in routes.items():
         check(all(route_launches[name][k] > 0 for k in needs),
               f"{name} launched {' and '.join(needs)}")
+        for k in avoids:
+            check(route_launches[name][k] == 0, f"{name} launched no {k}")
     check(all(v > 0 for v in dense_launches.values()),
           "the dense run launched every kernel")
 
@@ -482,7 +487,7 @@ def main() -> int:
 
     R_lib = torch.linalg.qr(M, mode="r").R
     M64 = M.double()
-    for name in ("tree qr", "fused qr", "pallas qr"):
+    for name in ("tree qr", "fused qr", "auto qr", "pallas qr"):
         R = results[name]
         r_gap = float(torch.linalg.norm(R.abs() - R_lib.abs()) / torch.linalg.norm(R_lib))
         check(r_gap <= 1e-3, f"{name} 4096^2 f32: |R| within {r_gap:.3e} of "
@@ -493,10 +498,11 @@ def main() -> int:
         check(gram <= 1e-5, f"{name} Gram residual ||R^T R - A^T A|| / ||A||^2 "
                             f"= {gram:.3e} (<= 1e-5)")
     del results
-    profile_top(lambda: ggr_qr_blocked(M), "ggr_qr_blocked 4096^2 f32 (tree)")
+    profile_top(lambda: ggr_qr_blocked(M, schedule="tree"),
+                "ggr_qr_blocked 4096^2 f32 (tree)")
     profile_top(lambda: ggr_qr_blocked(M, schedule="fused"),
                 "ggr_qr_blocked 4096^2 f32 (fused)")
-    dense_ms = {name: cuda_ms(call, reps=3) for name, (call, _) in routes.items()}
+    dense_ms = {name: cuda_ms(call, reps=3) for name, (call, _, _) in routes.items()}
     dense_ms["torch.linalg.qr"] = cuda_ms(lambda: torch.linalg.qr(M), reps=3)
     dense_ms["torch.linalg.lstsq"] = cuda_ms(
         lambda: torch.linalg.lstsq(A, b).solution, reps=3)

@@ -4,7 +4,8 @@ The driver (``ggr_qr_blocked`` / ``ggr_triangularize_blocked``) is a
 right-looking panel algorithm, a Python loop over panels.  Two schedules
 share that loop:
 
-``schedule="tree"`` — the batched-GEMM schedule (what ``"auto"`` runs)
+``schedule="tree"`` — the batched-GEMM schedule (what ``"auto"`` runs on CPU
+tensors)
     Per panel: every row tile of the panel is factored independently by one
     batched GEQRT launch (``kernels.batched_geqrt``, identity riding along so
     each tile also emits its explicit b x b transform Qt); the per-tile R
@@ -16,17 +17,20 @@ share that loop:
     so there is no rank-b compact WY form; at tile size 64 an explicit Qt is
     small and turns every trailing update into a plain ``torch.bmm``.
 
-``schedule="fused"`` — the paper's merged UPDATE_ROW1/UPDATE schedule
+``schedule="fused"`` — the paper's merged UPDATE_ROW1/UPDATE schedule (what
+``"auto"`` runs on CUDA tensors)
     Per panel: one ``kernels.ggr_panel.panel_factor`` launch factors the whole
     (F, b) panel and stores its compact (V, T) factors, then ONE
     ``kernels.ggr_apply.apply_factors`` launch replays all b transforms over
-    the trailing columns while each chunk of columns stays resident in shared
-    memory — b-fold reuse instead of per-tile GEMMs.  Only the columns right
+    the trailing columns in one bottom-up pass over each column, the b
+    transforms as a pipeline of b stages — b-fold reuse of every element read
+    instead of per-tile GEMMs.  Only the columns right
     of the panel are updated, in place: columns left of it are exact zeros in
     the frame's rows, and the panel's own columns are overwritten by its R.
 
-``"auto"`` resolves to ``"tree"``: which schedule is faster on the card is
-for a benchmark to decide.
+``"auto"`` resolves as the reference does: ``"tree"`` on a CPU tensor, where
+the kernels' plain versions run (the port's interpret mode), and ``"fused"``
+on a CUDA tensor, where the kernels run.
 
 Panel k works on a *frame*: the rows from its first pivot row down, a plain
 slice.  Frame heights halve across O(log) phases as rows finalize
@@ -315,7 +319,8 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
 
     schedule: ``"tree"`` (batched tile GEQRT + log-depth coupling + GEMM
     trailing), ``"fused"`` (one panel kernel + one trailing apply launch per
-    panel) or ``"auto"``, which resolves to ``"tree"``.  A
+    panel) or ``"auto"``, which resolves to ``"tree"`` on a CPU tensor and to
+    ``"fused"`` on a CUDA tensor.  A
     ``kernels.backend.degraded_mode(schedule=...)`` override outranks the
     argument.  ``block_w`` (fused) and ``block_b`` (tree) are kept for the JAX
     signature and must be positive when given; the CUDA kernels pick their
@@ -338,7 +343,7 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
         raise ValueError(f"block_w must be positive, got {block_w}")
     sched = backend_forced_schedule() or schedule
     if sched == "auto":
-        sched = "tree"
+        sched = "tree" if X.device.type == "cpu" else "fused"
     accum_dtype = None
     if precision is not None:
         prec = resolve_precision(precision)

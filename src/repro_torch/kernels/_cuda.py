@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
-           "launch"]
+           "launch", "query"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("ggr_update", "ggr_panel", "ggr_panel_factor", "ggr_apply")
@@ -129,8 +129,27 @@ def launch(source: str, fn_prefix: str, tensors, *dims: int) -> None:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(*(t.data_ptr() for t in tensors), *dims, x.device.index, stream)
     if err != 0:
-        errstr = getattr(lib, f"{source}_error_string")
-        errstr.argtypes = [ctypes.c_int]
-        errstr.restype = ctypes.c_char_p
-        raise RuntimeError(f"{fn_prefix}_{suffix} launch failed: CUDA error "
-                           f"{err} ({errstr(err).decode()})")
+        raise RuntimeError(f"{fn_prefix}_{suffix} launch failed: "
+                           f"{_error(lib, source, err)}")
+
+
+def _error(lib: ctypes.CDLL, source: str, err: int) -> str:
+    errstr = getattr(lib, f"{source}_error_string")
+    errstr.argtypes = [ctypes.c_int]
+    errstr.restype = ctypes.c_char_p
+    return f"CUDA error {err} ({errstr(err).decode()})"
+
+
+def query(source: str, fn_prefix: str, x: torch.Tensor, *dims: int) -> int:
+    """Call ``<fn_prefix>_<f32|f64>(*dims, device)`` of ``source`` for the
+    dtype and device of ``x``: a host-side query that returns a count >= 0,
+    or -(CUDA error), which raises ``RuntimeError``."""
+    lib = _lib(source)
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
+    fn = getattr(lib, f"{fn_prefix}_{suffix}")
+    fn.argtypes = [ctypes.c_int] * (len(dims) + 1)
+    fn.restype = ctypes.c_int
+    out = fn(*dims, x.device.index)
+    if out < 0:
+        raise RuntimeError(f"{fn_prefix}_{suffix} failed: {_error(lib, source, -out)}")
+    return out

@@ -18,197 +18,372 @@
 // 4*B*m*b elements, while column c sweeps its m-p active rows over the b-c-1
 // columns right of it at about 5 flops per element, B*sum_c 5*(m-p)*(b-c-1)
 // flops.  At the fused frame (4096, 64) f32 that is 4.2 MB (0.0013 ms at 3.35
-// TB/s) against 41 MFLOP (0.0006 ms at 67 TFLOP/s), so bytes bound it.  One
-// block factors one panel, and a fused frame is one panel: a launch runs on
-// one of the card's 132 SMs and so can reach at most 1/132 of that bound.
+// TB/s) against 41 MFLOP (0.0006 ms at 67 TFLOP/s), so bytes bound it.
 //
-// Design.  The Pallas kernel keeps the whole panel in VMEM; here a (4096, 64)
-// f32 panel is 1 MB and an (8192, 64) f64 one 4 MB, far over the 227 KB a
-// block may hold, so the panel stays in device memory, where after the first
-// touch it lives in the 50 MB L2, and one SM's path to the L2 is what the
-// kernel spends.  A column of the row-major panel is strided (one 32-byte
-// sector per element), so each column is read that way once and everything
-// per column lives in contiguous vectors: v/sigma, k and l in shared memory
-// when 3*m of them fit (up to 18 k rows f32, 9 k f64), else in the device
-// scratch `work`; v/sigma and t of every column in work as (b, m) planes,
-// transposed into V and T (through shared-memory tiles) at the end.  Per
-// column the block runs row-chunked reverse scans (ggr_scan.cuh) instead of
-// a one-thread coefficient chain:
-//   1. sigma, a block max over the active rows, copying the column to a
-//      contiguous vector;
-//   2. the suffix norms t: chunk partials of (v/sigma)^2, chunk_carry, then a
-//      bottom-up walk writing v/sigma and t;
-//   3. the coefficients k and l of every active row;
-//   4. the DET2 sweep of the b-c-1 columns right of c: chunk partials of the
-//      suffix dots P, chunk_carry, then a bottom-up walk that carries P in a
-//      register and writes row r from old row r-1.  The exclusive suffix dot
-//      S_{r-1} is the inclusive P_r (a shift, never P - prod), and the old
-//      row above a chunk (its one-row halo) is read in the partial pass,
-//      before the barriers, so no chunk reads a row its neighbour rewrote.
-//      Both passes load 8 rows (f32; 4 in f64) at a time, so a walk step
-//      waits for the L2 once per group, not once per row.
-// The annihilated columns (sigma * t_p at the pivot, zeros below) are written
-// in one coalesced pass at the end: no later column step reads them.  Columns
-// left of c are zero below their own pivots and are not swept.
+// Design: a row split over co-resident blocks.  The Pallas kernel keeps the
+// panel in VMEM for all b column steps; a fused frame (1-2 MB) is far over
+// the 227 KB of one block, and one block per panel used 1/132 of the card.
+// So panel q is cut into nblk contiguous row slabs [lo_k, hi_k) (heights
+// differ by at most one row), block (q, k) loads its slab into shared memory
+// once (row stride b + 1: a column read is free of bank conflicts) and keeps
+// it there for all b steps; R is written back once at the end.  nblk is
+// chosen by ggr_panel.py::_panel_blocks from the panel's shape, dtype and the
+// card (slabs of about 128 rows, never more than one block's shared memory
+// or the co-resident capacity), never from B, so a panel's result does not
+// depend on its batch; the launch function checks it against the capacity.
+// Per column c only a few numbers per slab cross between blocks, through
+// three scratch arrays in `work` and a grid-wide barrier after each:
+//   A. sigma: each block publishes the max-abs of its active rows of column
+//      c; every block takes the max of all nblk (exact).
+//   B. suffix norms: each block publishes sum (v/sigma)^2 over its active
+//      rows; every block reduces all nblk partials in one fixed order (so
+//      t_p, and do_any = t_p > 1e-30, are bitwise the same in every block
+//      and no block can skip a barrier the others wait at), takes its carry
+//      (the partials of the slabs below) and walks its rows bottom-up from
+//      it in one warp; the slab's last row needs t_hi = sqrt(carry).  The
+//      owner of row p uses the shared t_p there.
+//   C. suffix dots and halo: each block publishes the partial dots
+//      sum v*x of its active rows over the b-c-1 columns right of c, its
+//      bottom row's old values over those columns, and that row's k and l.
+//      A block's carry for P is the sum of the partials below it; its top
+//      row's DET2 takes the row above (the halo: row, k and l published by
+//      slab k-1).  Inside the slab the sweep is ggr_scan.cuh's row-chunked
+//      scan and det2_walk, on shared memory.
+// Blocks above the pivot take part with zero partials.  Three arrays, so no
+// fourth barrier: a block can only overwrite column c+1's array X after
+// every block has passed column c+1's barriers before X.  A launch takes at
+// most 3b grid barriers: a column whose pivot is past the end takes none, and
+// one with do_any false skips exchange C when the grid holds one panel.
+//
+// The launch: nblk == 1 (small frames) is an ordinary launch of B blocks
+// with block barriers only.  nblk > 1 launches with cudaLaunchCooperativeKernel,
+// which guarantees that all blocks are co-resident, and the barrier is
+// cooperative_groups::this_grid().sync() (no -rdc needed); a batch whose
+// B * nblk exceeds the capacity (occupancy x SMs) runs in sub-batches of
+// floor(capacity / nblk) panels on the caller's stream.  A panel so tall that
+// capacity blocks cannot hold it in shared memory keeps its slabs in R in
+// device memory (resident == 0) and runs the same code through a generic
+// pointer.  Per-column planes of v/sigma and t go to `work` as (b, m) rows
+// and are transposed into V and T through shared-memory tiles at the end.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ggr_common.cuh"
 #include "ggr_scan.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kTile = 32;  // kTile x kTile transpose tiles (kThreads slots)
+constexpr int kThreads = 256;
+constexpr int kTile = 32;  // kTile x kTile transpose tiles
+constexpr int kPart = kTile * (kTile + 1) > kThreads ? kTile * (kTile + 1) : kThreads;
 
 // Scratch `work` per panel: t and v/sigma of every column as (b, m) planes,
-// sigma per column, then v/sigma, k, l of the current column (3*m; unused
-// when they live in shared memory).
-template <typename T>
-__device__ __forceinline__ size_t work_size(int m, int b) {
-  return 2 * (size_t)b * m + b + 3 * (size_t)m;
+// then the exchange arrays A (nblk), B (nblk) and C (nblk x (2b + 2): the
+// slab's dots, its bottom row, that row's k and l), then, when the slabs live
+// in device memory, each slab's vectors v/sigma, t, k, l (rows_max + 2 each).
+size_t work_size(int m, int b, int nblk, int resident) {
+  const size_t rows_max = (m + nblk - 1) / nblk;
+  return 2 * (size_t)b * m + (size_t)nblk * (2 * b + 4) +
+         (resident ? 0 : 4 * (size_t)nblk * (rows_max + 2));
 }
 
-// dst (m x b, row-major) <- column plane src (b x m) for rows r >= pivot0 + c,
-// and `above` (0 or t_p) for the rows above each pivot; coalesced both ways
-// through a kTile x kTile shared tile.
+// Shared memory per block: scan/transpose slots, reduction slots, sigma, t_p,
+// the dot carry and the halo row per column, then (resident) the vectors and
+// the slab; mirrors ggr_panel.py::_panel_smem.
+template <typename T>
+size_t smem_bytes(int m, int b, int nblk, int resident) {
+  const size_t rows_max = (m + nblk - 1) / nblk;
+  size_t n = kPart + ggr::kReduceSlots + 4 * (size_t)b;
+  if (resident) n += 4 * (rows_max + 2) + rows_max * (b + 1);
+  return n * sizeof(T);
+}
+
+__device__ __forceinline__ void grid_barrier(int nblk) {
+  if (nblk > 1)
+    cg::this_grid().sync();
+  else
+    __syncthreads();
+}
+
+// dst rows [lo, hi) (m x b, row-major) <- column planes src (b x m) for rows
+// r >= pivot0 + c, and `above` (0 or t_p) for the rows above each pivot;
+// coalesced both ways through a kTile x kTile shared tile.
 template <typename T, typename Above>
-__device__ void transpose_out(const T* src, T* dst, int m, int b, int pivot0,
-                              T* tile, Above above) {
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
-  for (int r0 = 0; r0 < m; r0 += kTile) {
+__device__ void transpose_out(const T* src, T* dst, int m, int b, int lo, int hi,
+                              int pivot0, T* tile, Above above) {
+  const int tx = threadIdx.x % kTile, ty0 = threadIdx.x / kTile;
+  const int tys = blockDim.x / kTile;
+  for (int r0 = lo; r0 < hi; r0 += kTile) {
     for (int c0 = 0; c0 < b; c0 += kTile) {
-      const int c = c0 + ty, r = r0 + tx;  // read along r
-      if (c < b && r < m)
-        tile[ty * (kTile + 1) + tx] = r >= pivot0 + c ? src[(size_t)c * m + r] : above(c);
+      for (int ty = ty0; ty < kTile; ty += tys) {  // read along r
+        const int c = c0 + ty, r = r0 + tx;
+        if (c < b && r < hi)
+          tile[ty * (kTile + 1) + tx] = r >= pivot0 + c ? src[(size_t)c * m + r] : above(c);
+      }
       __syncthreads();
-      const int cw = c0 + tx, rw = r0 + ty;  // write along c
-      if (cw < b && rw < m) dst[(size_t)rw * b + cw] = tile[tx * (kTile + 1) + ty];
+      for (int ty = ty0; ty < kTile; ty += tys) {  // write along c
+        const int cw = c0 + tx, rw = r0 + ty;
+        if (cw < b && rw < hi) dst[(size_t)rw * b + cw] = tile[tx * (kTile + 1) + ty];
+      }
       __syncthreads();
     }
   }
 }
 
+// Grid (panels, nblk): block (q, k) factors slab k of panel q.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__ V,
                     T* __restrict__ Tn, T* __restrict__ work, int m, int b,
-                    int pivot0, int stage) {
+                    int pivot0, int nblk, int resident, int ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* part = reinterpret_cast<T*>(smem_raw);  // kThreads scan slots (+ tile pad)
-  T* red = part + kThreads + kTile;          // block-reduction slots
-  T* cvec = red + ggr::kReduceSlots;         // v/sigma, k, l of the column
+  T* part = reinterpret_cast<T*>(smem_raw);  // scan slots / transpose tile
+  T* red = part + kPart;                     // block-reduction slots
+  T* sig = red + ggr::kReduceSlots;          // sigma of column c
+  T* tpv = sig + b;                          // t_p of column c
+  T* pcar = tpv + b;                         // dot carry of the slabs below
+  T* halo = pcar + b;                        // old bottom row of the slab above
 
+  const int k = blockIdx.y;
+  const int lo = (int)((long long)k * m / nblk);
+  const int hi = (int)((long long)(k + 1) * m / nblk);
+  const int rows = hi - lo;
+  const int nv = (m + nblk - 1) / nblk + 2;  // vector length: rows + 2 slots
   const size_t off = (size_t)blockIdx.x * m * b;
   in += off;
   R += off;
   V += off;
   Tn += off;
-  work += blockIdx.x * work_size<T>(m, b);
-  T* tplane = work;                  // t of column c at tplane[c * m + r]
+  T* pw = work + (size_t)blockIdx.x * ws;
+  T* tplane = pw;  // t of column c at tplane[c * m + r]
   T* vplane = tplane + (size_t)b * m;
-  T* sig = vplane + (size_t)b * m;   // sigma of column c
-  if (!stage) cvec = sig + b;
-  T* vs = cvec;
-  T* kk = vs + m;
-  T* ll = kk + m;
+  T* exA = vplane + (size_t)b * m;
+  T* exB = exA + nblk;
+  T* exC = exB + nblk;
+  const int cs = 2 * b + 2;  // exC per slab: dots [0, b), bottom row [b, 2b), k, l
+  T* vec;                    // vectors of the slab; row r at slot r - lo + 1
+  T* X;                      // the slab; row r, column j at X[(r - lo) * ld + j]
+  int ld;
+  if (resident) {
+    vec = halo + b;
+    X = vec + 4 * nv;
+    ld = b + 1;
+  } else {
+    vec = exC + (size_t)nblk * cs + (size_t)k * 4 * nv;
+    X = R + (size_t)lo * b;
+    ld = b;
+  }
+  T* vs = vec;      // v/sigma
+  T* tt = vs + nv;  // suffix norms; slot rows + 1: t of row hi
+  T* kk = tt + nv;  // coefficients; slot 0: row lo - 1 (from the slab above)
+  T* ll = kk + nv;
 
-  for (size_t i = threadIdx.x; i < (size_t)m * b; i += blockDim.x) R[i] = in[i];
+  for (int i = threadIdx.x; i < rows * b; i += blockDim.x) {
+    const int r = i / b;
+    X[r * ld + (i - r * b)] = in[(size_t)lo * b + i];
+  }
+  for (int c = threadIdx.x; c < b; c += blockDim.x) sig[c] = tpv[c] = T(0);
   __syncthreads();
 
   for (int c = 0; c < b; ++c) {
-    const int p = pivot0 + c < m ? pivot0 + c : m;  // first active row
+    const int p = pivot0 + c;
+    if (p >= m) break;  // this column and every later one: no transform
+    const int a0 = p > lo ? p : lo;  // first active row of the slab (none if >= hi)
     T* tcol = tplane + (size_t)c * m;
     T* vcol = vplane + (size_t)c * m;
 
-    // 1. safe-Givens scale; the column, copied to vs
+    // A. sigma: the max-abs of the active rows over all slabs
     T amax = T(0);
-    for (int r = p + threadIdx.x; r < m; r += blockDim.x) {
-      const T a = R[(size_t)r * b + c];
-      vs[r] = a;
-      amax = fabs(a) > amax ? fabs(a) : amax;
+    for (int r = a0 + threadIdx.x; r < hi; r += blockDim.x) {
+      const T a = fabs(X[(r - lo) * ld + c]);
+      amax = a > amax ? a : amax;
     }
-    const T sigma = ggr::block_max(amax, red);
+    amax = ggr::block_max(amax, red);
+    if (threadIdx.x == 0) exA[k] = amax;
+    grid_barrier(nblk);
+    T smax = T(0);
+    for (int i = threadIdx.x; i < nblk; i += blockDim.x) {
+      const T a = __ldcg(exA + i);
+      smax = a > smax ? a : smax;
+    }
+    const T sigma = ggr::block_max(smax, red);
     const T scale = sigma > T(0) ? sigma : T(1);
 
-    // 2. suffix norms of the scaled column (active rows)
-    {
-      const ggr::Chunking s = ggr::chunking(1, p, m);
+    // B. suffix norms: warp 0 scans the slab (a chunk of rows per lane)
+    const int lane = threadIdx.x & 31;
+    const int n = hi > a0 ? hi - a0 : 0;
+    const int len = (n + 31) / 32;
+    const int wlo = a0 + lane * len < hi ? a0 + lane * len : hi;
+    const int whi = wlo + len < hi ? wlo + len : hi;
+    T excl = T(0);  // sum over the slab's rows below this lane's chunk
+    if (threadIdx.x < 32) {
       T acc = T(0);
-      for (int r = s.lo; r < s.hi; ++r) {
-        const T v = vs[r] / scale;
+      for (int r = wlo; r < whi; ++r) {
+        const T v = X[(r - lo) * ld + c] / scale;
+        vs[r - lo + 1] = v;
         acc += v * v;
       }
-      T t2 = ggr::chunk_carry(s, acc, part);
-      for (int r = s.hi - 1; r >= s.lo; --r) {
-        const T v = vs[r] / scale;
+      T s = acc;  // inclusive suffix over the lanes
+      for (int d = 1; d < 32; d <<= 1) {
+        const T y = __shfl_down_sync(0xffffffffu, s, d);
+        if (lane + d < 32) s += y;
+      }
+      excl = __shfl_down_sync(0xffffffffu, s, 1);
+      if (lane == 31) excl = T(0);
+      if (lane == 0) exB[k] = s;
+    }
+    grid_barrier(nblk);
+    if (threadIdx.x < 32) {
+      // every block reduces the nblk partials in the same order: t_p is
+      // bitwise the same in all of them
+      T all = T(0), below = T(0);
+      for (int i = lane; i < nblk; i += 32) {
+        const T x = __ldcg(exB + i);
+        all += x;
+        if (i > k) below += x;
+      }
+      for (int d = 16; d > 0; d >>= 1) {
+        all += __shfl_xor_sync(0xffffffffu, all, d);
+        below += __shfl_xor_sync(0xffffffffu, below, d);
+      }
+      T t2 = below + excl;
+      for (int r = whi - 1; r >= wlo; --r) {
+        const T v = vs[r - lo + 1];
         t2 += v * v;
-        vs[r] = v;
-        vcol[r] = v;
-        tcol[r] = sqrt(t2);
+        tt[r - lo + 1] = sqrt(t2);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const T tp = sqrt(all);
+        tt[rows + 1] = sqrt(below);
+        if (p >= lo && p < hi) tt[p - lo + 1] = tp;
+        sig[c] = sigma;
+        tpv[c] = tp;
       }
     }
     __syncthreads();
-    const T tp = p < m ? tcol[p] : T(0);
-    if (threadIdx.x == 0) sig[c] = sigma;
-    if (!(tp > ggr::eps<T>())) continue;  // do_any (block-uniform): untouched
-
-    // 3. coefficients of the active rows
-    for (int r = p + threadIdx.x; r < m; r += blockDim.x)
-      ggr::det2_coeffs(vs[r], tcol[r], r + 1 < m ? tcol[r + 1] : T(0), kk[r], ll[r]);
-    __syncthreads();
-
-    // 4. DET2 sweep of the columns right of c
-    const int nc = b - c - 1;
-    if (nc > 0) {
-      constexpr int G = ggr::WalkGroup<T>::value;
-      const ggr::Chunking s = ggr::chunking(nc, p, m);
-      T* col = R + c + 1 + s.jj;  // this thread's column; row r at col[r * b]
-      auto x = [=](int r) { return col[r * b]; };  // m * b < 2^31 (wrapper)
-      auto v = [=](int r) { return vs[r]; };
-      const T acc = ggr::chunk_dot<T, G>(s.lo, s.hi, v, x);
-      const T halo = s.lo < s.hi && s.lo > p ? x(s.lo - 1) : T(0);
-      const T P = ggr::chunk_carry(s, acc, part);
-      ggr::det2_walk<T, G>(
-          s.lo, s.hi, p, P, halo, tp, x,
-          [=](int r, T val) { col[r * b] = val; }, v,
-          [=](int r) { return kk[r]; }, [=](int r) { return ll[r]; });
+    const T tp = tpv[c];
+    for (int r = a0 + threadIdx.x; r < hi; r += blockDim.x) {
+      vcol[r] = vs[r - lo + 1];
+      tcol[r] = tt[r - lo + 1];
     }
+    const bool do_any = tp > ggr::eps<T>();  // the same in every block of the panel
+    const int nc = b - c - 1;
+    if (nc == 0 || (!do_any && gridDim.x == 1)) continue;  // grid-uniform
+
+    // C. suffix dots of the columns right of c, and the halo
+    for (int r = a0 + threadIdx.x; r < hi; r += blockDim.x)
+      ggr::det2_coeffs(vs[r - lo + 1], tt[r - lo + 1], tt[r - lo + 2], kk[r - lo + 1],
+                       ll[r - lo + 1]);
+    __syncthreads();
+    constexpr int G = ggr::WalkGroup<T>::value;
+    const ggr::Chunking s = ggr::chunking(nc, a0, hi);
+    const int col = c + 1 + s.jj;
+    auto x = [=](int r) { return X[(r - lo) * ld + col]; };
+    auto v = [=](int r) { return vs[r - lo + 1]; };
+    const T acc = ggr::chunk_dot<T, G>(s.lo, s.hi, v, x);
+    const T hal = s.lo < s.hi && s.lo > p && s.lo > lo ? x(s.lo - 1) : T(0);
+    const T carry = ggr::chunk_carry(s, acc, part);
+    T* ec = exC + (size_t)k * cs;
+    if (s.active && s.k == 0) ec[s.jj] = carry + acc;  // the slab's partial dot
+    for (int j = threadIdx.x; j < nc; j += blockDim.x)
+      ec[b + j] = X[(rows - 1) * ld + c + 1 + j];
+    if (threadIdx.x == 0) {
+      ec[2 * b] = kk[rows];
+      ec[2 * b + 1] = ll[rows];
+    }
+    grid_barrier(nblk);
+    if (!do_any) continue;  // block-uniform: the panel stays as it is
+    for (int j = threadIdx.x; j < nc; j += blockDim.x) {
+      T P = T(0);
+      for (int i = nblk - 1; i > k; --i) P += __ldcg(exC + (size_t)i * cs + j);
+      pcar[j] = P;
+      if (lo > p) halo[j] = __ldcg(exC + (size_t)(k - 1) * cs + b + j);
+    }
+    if (threadIdx.x == 0 && lo > p) {
+      kk[0] = __ldcg(exC + (size_t)(k - 1) * cs + 2 * b);
+      ll[0] = __ldcg(exC + (size_t)(k - 1) * cs + 2 * b + 1);
+    }
+    __syncthreads();
+    ggr::det2_walk<T, G>(
+        s.lo, s.hi, p, pcar[s.jj] + carry, s.lo == lo ? halo[s.jj] : hal, tp, x,
+        [=](int r, T val) { X[(r - lo) * ld + col] = val; }, v,
+        [=](int r) { return kk[r - lo + 1]; }, [=](int r) { return ll[r - lo + 1]; });
     __syncthreads();
   }
+  __syncthreads();
 
-  // the annihilated columns: sigma * t_p at the pivot, 0 below (do_any only)
-  for (size_t i = threadIdx.x; i < (size_t)m * b; i += blockDim.x) {
-    const int r = (int)(i / b), c = (int)(i % b);
-    const int p = pivot0 + c;
-    if (p < m && r >= p) {
-      const T tp = tplane[(size_t)c * m + p];
-      if (tp > ggr::eps<T>()) R[i] = r == p ? sig[c] * tp : T(0);
-    }
+  // R: the slab, with the annihilated columns written exactly (sigma * t_p
+  // at the pivot, 0 below; do_any only)
+  for (int i = threadIdx.x; i < rows * b; i += blockDim.x) {
+    const int rl = i / b, c = i - rl * b;
+    const int r = lo + rl;
+    T val = X[rl * ld + c];
+    if (r >= pivot0 + c && tpv[c] > ggr::eps<T>())
+      val = r == pivot0 + c ? sig[c] * tpv[c] : T(0);
+    R[(size_t)lo * b + i] = val;
   }
   // V and T: the column planes, zero / t_p above each pivot
-  auto t_piv = [=](int c) { return pivot0 + c < m ? tplane[(size_t)c * m + pivot0 + c] : T(0); };
-  transpose_out(vplane, V, m, b, pivot0, part, [](int) { return T(0); });
-  transpose_out(tplane, Tn, m, b, pivot0, part, t_piv);
+  transpose_out(vplane, V, m, b, lo, hi, pivot0, part, [](int) { return T(0); });
+  transpose_out(tplane, Tn, m, b, lo, hi, pivot0, part, [=](int c) { return tpv[c]; });
 }
 
 template <typename T>
-size_t smem_bytes(int m, int stage) {
-  return ((size_t)kThreads + kTile + ggr::kReduceSlots + (stage ? 3 * (size_t)m : 0)) *
-         sizeof(T);
+cudaError_t capacity(size_t smem, int device, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_factor_kernel<T>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *out = per_sm * sms;
+  return err;
 }
 
 template <typename T>
 int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
-           int pivot0, int stage, int device, void* stream) {
+           int pivot0, int nblk, int resident, int ws, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes<T>(m, stage);
-  err = cudaFuncSetAttribute(panel_factor_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (nblk < 1 || nblk > m || (size_t)ws < work_size(m, b, nblk, resident))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(m, b, nblk, resident);
+  int cap = 0;
+  err = capacity<T>(smem, device, &cap);
   if (err != cudaSuccess) return (int)err;
-  panel_factor_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      in, R, V, Tn, work, m, b, pivot0, stage);
-  return (int)cudaGetLastError();
+  if (nblk == 1) {
+    panel_factor_kernel<T><<<dim3(B, 1), kThreads, smem, (cudaStream_t)stream>>>(
+        in, R, V, Tn, work, m, b, pivot0, nblk, resident, ws);
+    return (int)cudaGetLastError();
+  }
+  if (nblk > cap) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int per = cap / nblk;  // panels per cooperative launch
+  const size_t panel = (size_t)m * b;
+  for (int q0 = 0; q0 < B; q0 += per) {
+    const int nb = B - q0 < per ? B - q0 : per;
+    const T* a_in = in + q0 * panel;
+    T* a_R = R + q0 * panel;
+    T* a_V = V + q0 * panel;
+    T* a_T = Tn + q0 * panel;
+    T* a_work = work + (size_t)q0 * ws;
+    void* args[] = {&a_in, &a_R, &a_V, &a_T, &a_work, &m, &b, &pivot0, &nblk, &resident, &ws};
+    err = cudaLaunchCooperativeKernel((const void*)panel_factor_kernel<T>, dim3(nb, nblk),
+                                      dim3(kThreads), args, smem, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int query_capacity(int smem, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  int cap = 0;
+  if (err == cudaSuccess) err = capacity<T>((size_t)smem, device, &cap);
+  return err == cudaSuccess ? cap : -(int)err;
 }
 
 }  // namespace
@@ -216,15 +391,27 @@ int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
 extern "C" {
 
 int ggr_panel_factor_f32(const float* in, float* R, float* V, float* Tn,
-                         float* work, int B, int m, int b, int pivot0, int stage,
-                         int device, void* stream) {
-  return launch<float>(in, R, V, Tn, work, B, m, b, pivot0, stage, device, stream);
+                         float* work, int B, int m, int b, int pivot0, int nblk,
+                         int resident, int ws, int device, void* stream) {
+  return launch<float>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                       device, stream);
 }
 
 int ggr_panel_factor_f64(const double* in, double* R, double* V, double* Tn,
-                         double* work, int B, int m, int b, int pivot0, int stage,
-                         int device, void* stream) {
-  return launch<double>(in, R, V, Tn, work, B, m, b, pivot0, stage, device, stream);
+                         double* work, int B, int m, int b, int pivot0, int nblk,
+                         int resident, int ws, int device, void* stream) {
+  return launch<double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                        device, stream);
+}
+
+// Blocks of the kernel that can be co-resident on the card at `smem` bytes of
+// shared memory each (occupancy x SMs), or -(CUDA error).
+int ggr_panel_factor_capacity_f32(int smem, int device) {
+  return query_capacity<float>(smem, device);
+}
+
+int ggr_panel_factor_capacity_f64(int smem, int device) {
+  return query_capacity<double>(smem, device);
 }
 
 const char* ggr_panel_factor_error_string(int code) {

@@ -1,5 +1,5 @@
-// Row-chunked block-wide reverse scans, shared by the fused schedule's
-// kernels (ggr_panel_factor.cu, ggr_apply.cu).
+// Row-chunked block-wide reverse scans of the fused schedule's panel kernel
+// (ggr_panel_factor.cu), over the rows of one slab of a panel.
 //
 // A block sweeps nc columns over the active rows [row0, row1).  Its threads
 // are laid out as nchunks = blockDim / nc row chunks times nc columns, column
@@ -17,10 +17,10 @@
 // read in step 1, before chunk_carry's barriers.
 //
 // chunk_dot and det2_walk take the column and its coefficients through
-// accessors, so one walk serves a column in device memory (the panel kernel)
-// and one in shared memory (the apply kernel).  Both issue the loads of G
-// rows together before using any of them: a walk step that waited for each
-// load in turn would pay the full L2 latency once per row.
+// accessors, so one walk serves a slab held in shared memory and one kept in
+// device memory (a panel too tall for the blocks' shared memory).  Both issue
+// the loads of G rows together before using any of them: a walk step that
+// waited for each load in turn would pay the full load latency once per row.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -224,14 +224,59 @@ batched_geqrt.launches = 0  # kernel launches, for tests and chip_smoke.py
 batched_geqrt.shapes = set()  # (shape, n_pivots, dtype) of every launch
 
 
-_PANEL_THREADS = 1024  # mirrors kThreads in ggr_panel_factor.cu
+_PANEL_THREADS = 256  # mirrors kThreads in ggr_panel_factor.cu
+_SLAB_ROWS = 128  # target slab height: rows of a panel one block holds
+# scan / transpose-tile slots and reduction slots (kPart + kReduceSlots)
+_PANEL_SLOTS = max(_PANEL_THREADS, 32 * 33) + 32
 
 
-def _panel_stages(m: int, itemsize: int) -> bool:
-    """Whether the panel kernel keeps a column's v/sigma, k, l (3*m values) in
-    shared memory beside its scan slots (mirrors smem_bytes in
-    ggr_panel_factor.cu); else they live in the device scratch."""
-    return (_PANEL_THREADS + 64 + 3 * m) * itemsize <= _cuda.MAX_SMEM_BYTES
+def _panel_smem(rows: int, b: int, itemsize: int, resident: bool) -> int:
+    """Shared memory of one block of the panel kernel whose slabs hold at
+    most ``rows`` rows (mirrors smem_bytes in ggr_panel_factor.cu): the slots,
+    four per-column values, and when ``resident`` the slab (row stride b + 1)
+    with its four vectors of rows + 2."""
+    n = _PANEL_SLOTS + 4 * b
+    if resident:
+        n += 4 * (rows + 2) + rows * (b + 1)
+    return n * itemsize
+
+
+def _panel_blocks(m: int, b: int, itemsize: int, capacity) -> tuple[int, bool]:
+    """(nblk, resident): the row slabs one (m, b) panel is split into.
+
+    Slabs of about ``_SLAB_ROWS`` rows, each held in one block's shared
+    memory for the whole factorization, and never more slabs than
+    ``capacity(smem_bytes)`` blocks (occupancy x SMs at that much shared
+    memory per block) can be co-resident: where the target height needs
+    more, the slabs grow taller until they are.  A panel that capacity
+    blocks cannot hold runs with its slabs in device memory (``resident``
+    False).  The batch size takes no part: a panel's result does not depend on the
+    batch it is factored in.  One slab (``nblk == 1``) runs as an ordinary
+    launch, so it needs no co-residency.
+    """
+    want = -(-m // _SLAB_ROWS)
+    fixed = _panel_smem(0, b, itemsize, True)
+    fit = (_cuda.MAX_SMEM_BYTES - fixed) // ((b + 5) * itemsize)  # rows a block holds
+    need = min(m, -(-m // fit))  # the fewest slabs that fit
+    nblk = min(m, max(want, need))
+    while True:  # fewer, taller slabs until they are co-resident
+        cap = capacity(_panel_smem(-(-m // nblk), b, itemsize, True)) if nblk > 1 else 1
+        if nblk <= cap:
+            return nblk, True
+        if nblk == need:
+            return min(m, want, capacity(_panel_smem(0, b, itemsize, False))), False
+        nblk = max(need, cap)
+
+
+_CAPACITY: dict = {}  # (dtype, device, smem bytes) -> co-resident blocks
+
+
+def _panel_capacity(x: torch.Tensor, smem: int) -> int:
+    key = (x.dtype, x.device.index, smem)
+    if key not in _CAPACITY:
+        _CAPACITY[key] = _cuda.query("ggr_panel_factor", "ggr_panel_factor_capacity",
+                                     x, smem)
+    return _CAPACITY[key]
 
 
 def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
@@ -252,19 +297,24 @@ def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
         V.zero_()
         T.zero_()
         return R.copy_(panel), V, T
-    # per panel: t and v/sigma planes (b, m), sigma (b), one column's v, k, l
-    work = torch.empty((B, 2 * b * m + b + 3 * m), dtype=panel.dtype,
-                       device=panel.device)
+    nblk, resident = _panel_blocks(m, b, panel.element_size(),
+                                   lambda smem: _panel_capacity(panel, smem))
+    # per panel (mirrors work_size in ggr_panel_factor.cu): t and v/sigma
+    # planes (b, m), the exchange arrays, the slabs' vectors in device memory
+    ws = 2 * b * m + nblk * (2 * b + 4)
+    if not resident:
+        ws += 4 * nblk * (-(-m // nblk) + 2)
+    work = torch.empty((B, ws), dtype=panel.dtype, device=panel.device)
     _cuda.launch("ggr_panel_factor", "ggr_panel_factor", [panel, R, V, T, work],
-                 B, m, b, pivot0, int(_panel_stages(m, panel.element_size())))
+                 B, m, b, pivot0, nblk, int(resident), ws)
     panel_factor.launches += 1
     panel_factor.shapes.add((tuple(panel.shape), pivot0, panel.dtype))
     return R, V, T
 
 
 def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
-    """Fused GGR factorization of an (m, b) panel, or a (B, m, b) batch in
-    one launch; returns (R, V, T) of the panel's shape.
+    """Fused GGR factorization of an (m, b) panel, or a (B, m, b) batch;
+    returns (R, V, T) of the panel's shape.
 
     Column c is annihilated below pivot row ``pivot0 + c``; ``V[:, c]`` is
     the column scaled by its max-abs (zero above the pivot) and ``T[:, c]``
@@ -275,8 +325,10 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
 
     ``precision`` selects the panel's compute dtype and the in-kernel
     accumulation dtype (``None`` = the panel's own dtype throughout); on CUDA
-    tensors only the uniform f32/f64 policies have a kernel.  The launch count
-    is ``panel_factor.launches``.
+    tensors only the uniform f32/f64 policies have a kernel.  The CUDA kernel
+    splits each panel by rows over co-resident blocks (``_panel_blocks``); a
+    large batch may take several launches, and a call counts once in
+    ``panel_factor.launches``.
     """
     if panel.ndim not in (2, 3):
         raise ValueError(f"panel_factor expects (m, b) or (B, m, b), got "

@@ -9,6 +9,7 @@ import torch
 from repro.core import blocked as jblocked
 from repro_torch.core import blocked
 from repro_torch.kernels import batched_geqrt, batched_update
+from repro_torch.kernels.ggr_panel import panel_factor
 from repro_torch.kernels.backend import degraded_mode
 
 TOL = {np.float32: 5e-5, np.float64: 1e-11}
@@ -65,7 +66,8 @@ def test_batch_dimension_equals_per_problem_loop_with_one_launch_per_level(monke
 
 
 def test_auto_resolves_to_tree_and_fused_is_not_ported():
-    """``"auto"`` still means tree in the port (no benchmark has chosen);
+    """On a CPU tensor ``"auto"`` means tree, as the reference resolves it in
+    interpret mode (on a CUDA tensor it means fused: tests/test_torch_cuda.py);
     ``"fused"`` — ported since, the name kept from when it raised — runs as an
     argument and under ``degraded_mode`` and matches the JAX fused schedule."""
     Xn = _rand((48, 20), 5, np.float64)
@@ -86,6 +88,36 @@ def test_auto_resolves_to_tree_and_fused_is_not_ported():
         blocked.ggr_triangularize_blocked(X, 21)
     with pytest.raises(ValueError):
         blocked.ggr_triangularize_blocked(X, 20, schedule="fused", block_w=0)
+
+
+def test_degraded_mode_outranks_auto(monkeypatch):
+    """On a CPU tensor ``"auto"`` is tree; ``degraded_mode(schedule="fused")``
+    outranks it (and an explicit schedule), also through ``ggr_lstsq``'s
+    blocked route, which passes no schedule."""
+    from repro_torch.solvers import ggr_lstsq
+
+    X = torch.from_numpy(_rand((48, 20), 9, np.float64))
+    tree = blocked.ggr_triangularize_blocked(X, 20, tile=8, schedule="tree")
+    fused = blocked.ggr_triangularize_blocked(X, 20, tile=8, schedule="fused")
+    assert not torch.equal(tree, fused)
+    assert torch.equal(blocked.ggr_triangularize_blocked(X, 20, tile=8, schedule="auto"),
+                       tree)
+    with degraded_mode(schedule="fused"):
+        for schedule in ("auto", "tree"):
+            assert torch.equal(blocked.ggr_triangularize_blocked(
+                X, 20, tile=8, schedule=schedule), fused)
+    calls = []
+    monkeypatch.setattr(blocked, "panel_factor",
+                        lambda *a, **k: calls.append(1) or panel_factor(*a, **k))
+    rng = np.random.default_rng(10)
+    A = torch.from_numpy(rng.standard_normal((300, 130)))
+    b = torch.from_numpy(rng.standard_normal((300, 2)))
+    auto = ggr_lstsq(A, b)
+    assert not calls  # "auto" on a CPU tensor: tree
+    with degraded_mode(schedule="fused"):
+        fit = ggr_lstsq(A, b)
+    assert calls
+    np.testing.assert_allclose(fit.x.numpy(), auto.x.numpy(), atol=1e-10)
 
 
 @pytest.mark.parametrize("p", [1, 2, 5, 8])

@@ -93,12 +93,16 @@ def _bits_zero(x):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,m,b,pivot0", [(1, 8, 4, 0), (3, 48, 8, 13),
                                           (2, 4096, 64, 0), (1, 1500, 32, 700),
-                                          (2, 40, 8, 36), (1, 10000, 8, 0)])
+                                          (2, 40, 8, 36), (1, 10000, 8, 0),
+                                          (3, 128, 64, 0), (1, 4097, 64, 0),
+                                          (1, 5000, 24, 300), (1, 65536, 64, 0)])
 def test_panel_factor_kernel_matches_plain(card, dtype, B, m, b, pivot0):
-    """Tall frames span many row chunks (the scan's carries and halos);
-    pivot0 = 36 of 40 rows runs pivots onto the last row and past the end;
-    10000 rows f64 keep the column vectors in device scratch, not shared
-    memory."""
+    """Tall frames split into many row slabs (the exchanges between blocks,
+    the halo) and each slab into row chunks; (3, 128, 64) runs on one block
+    per panel; 4097 and 5000 rows give slabs of uneven heights, and pivot0 =
+    300 puts the pivots inside the second slab; pivot0 = 36 of 40 rows runs
+    pivots onto the last row and past the end; 65536 rows f64 (32 MiB) keep
+    the slabs in device memory."""
     g = torch.Generator(device=card).manual_seed(B + m + b)
     X = torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype)
     X[0] = 0
@@ -110,6 +114,20 @@ def test_panel_factor_kernel_matches_plain(card, dtype, B, m, b, pivot0):
         tol = TOL[dtype] * max(1, m // 16) * max(1.0, float(w.abs().max()))
         assert float((a - w).abs().max()) <= tol
         assert _bits_zero(a[0])  # the zero panel comes back bitwise zero
+
+
+@pytest.mark.gpu
+def test_panel_factor_result_does_not_depend_on_the_batch(card):
+    """40 fused frames need several cooperative launches (sub-batches); each
+    panel's R, V and T equal that panel factored alone, bit for bit."""
+    g = torch.Generator(device=card).manual_seed(40)
+    X = torch.randn((40, 4096, 64), generator=g, device=card)
+    n0 = ggr_panel.panel_factor.launches
+    got = ggr_panel.panel_factor(X)
+    assert ggr_panel.panel_factor.launches == n0 + 1
+    for i in range(40):
+        for a, w in zip(got, ggr_panel.panel_factor(X[i])):
+            assert torch.equal(a[i], w)
 
 
 @pytest.mark.gpu
@@ -160,6 +178,19 @@ def test_blocked_qr_on_the_card_matches_the_cpu(card, schedule):
     np.testing.assert_allclose(np.abs(Rp.cpu().numpy()),
                                np.abs(ggr_qr_pallas(A[:, :128], panel=32).numpy()),
                                atol=1e-10)
+
+
+@pytest.mark.gpu
+def test_auto_is_the_fused_schedule_on_the_card(card):
+    """``"auto"`` on a CUDA tensor runs the fused schedule, as the reference
+    does where its kernels compile: the same R bit for bit, through
+    panel_factor and apply_factors and no batched_geqrt."""
+    A = torch.from_numpy(np.random.default_rng(4).standard_normal((300, 130))).to(card)
+    counters = (ggr_panel.panel_factor, ggr_apply.apply_factors, batched_geqrt)
+    n0 = [f.launches for f in counters]
+    R = blocked.ggr_qr_blocked(A, tile=32)
+    assert [f.launches - n for f, n in zip(counters, n0)] == [5, 4, 0]
+    assert torch.equal(R, blocked.ggr_qr_blocked(A, tile=32, schedule="fused"))
 
 
 @pytest.mark.gpu

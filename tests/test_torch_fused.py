@@ -74,6 +74,161 @@ def test_panel_factor_batch_equals_per_panel_loop():
             assert torch.equal(a, b)
 
 
+def _slab_factor(pan, pivot0, nblk):
+    """Emulation of the CUDA kernel's decomposition (csrc/ggr_panel_factor.cu)
+    for one (m, b) panel: nblk row slabs, each factored on its own, which per
+    column exchange only (A) the max-abs of their active rows, (B) the sum of
+    squares of their scaled active rows, and (C) their partial suffix dots
+    over the columns right of c, their old bottom row and its k and l (the
+    halo of the slab below).  t_p is reduced from the B partials in one fixed
+    order, the same in every slab, and the owner of the pivot row uses it."""
+    m, b = pan.shape
+    eps = 1e-30
+    bounds = [(k * m // nblk, (k + 1) * m // nblk) for k in range(nblk)]
+    X = [pan[lo:hi].copy() for lo, hi in bounds]
+    V, T = np.zeros_like(pan), np.zeros_like(pan)
+    sig, tps = np.zeros(b), np.zeros(b)
+    for c in range(b):
+        p = pivot0 + c
+        if p >= m:
+            break
+        a0 = [max(p, lo) for lo, _ in bounds]
+        act = [X[k][a0[k] - lo:] for k, (lo, _) in enumerate(bounds)]  # views
+        # A. sigma
+        sigma = max(float(np.abs(a[:, c]).max(initial=0.0)) for a in act)
+        scale = sigma if sigma > 0 else 1.0
+        # B. suffix norms from the slabs' partial sums of squares
+        vs = [a[:, c] / scale for a in act]
+        exB = [float(np.sum(v * v)) for v in vs]
+        tp = np.sqrt(sum(exB))  # one fixed order for every slab
+        ts, t_hi = [], []
+        for k, v in enumerate(vs):
+            below = sum(exB[k + 1:])
+            t = np.sqrt(below + np.cumsum((v * v)[::-1])[::-1])
+            if bounds[k][0] <= p < bounds[k][1]:
+                t[p - a0[k]] = tp
+            ts.append(t)
+            t_hi.append(np.sqrt(below))
+            V[a0[k]:bounds[k][1], c] = v
+            T[a0[k]:bounds[k][1], c] = t
+        T[:p, c] = tp
+        sig[c], tps[c] = sigma, tp
+        if not tp > eps:
+            continue  # every slab agrees: the panel stays as it is
+        # C. coefficients, partial dots, bottom rows and their k, l
+        kl = []
+        for k, t in enumerate(ts):
+            tn = np.append(t[1:], t_hi[k])
+            valid = tn > eps
+            st = np.where(t > eps, t, 1.0)
+            stn = np.where(valid, tn, 1.0)
+            kl.append((vs[k] / (st * stn), np.where(valid, stn / st, -1.0)))
+        dots = [vs[k] @ a[:, c + 1:] for k, a in enumerate(act)]
+        bottom = [(X[k][-1, c + 1:].copy(), kl[k][0][-1] if len(vs[k]) else 0.0,
+                   kl[k][1][-1] if len(vs[k]) else 0.0) for k in range(nblk)]
+        for k, a in enumerate(act):
+            n = len(vs[k])
+            if not n:
+                continue
+            old = a[:, c + 1:].copy()
+            P = sum(dots[k + 1:], np.zeros(b - c - 1))
+            for i in range(n - 1, -1, -1):  # bottom-up from the carry
+                P = vs[k][i] * old[i] + P
+                r = a0[k] + i
+                if r == p:
+                    a[i, c + 1:] = P / tp
+                    break
+                if i:
+                    x_up, k_up, l_up = old[i - 1], kl[k][0][i - 1], kl[k][1][i - 1]
+                else:  # the halo: slab k-1's old bottom row, k and l
+                    x_up, k_up, l_up = bottom[k - 1]
+                a[i, c + 1:] = k_up * P - l_up * x_up if l_up > 0 else old[i]
+    R = np.concatenate(X)
+    for c in range(b):
+        p = pivot0 + c
+        if p < m and tps[c] > eps:
+            R[p, c] = sig[c] * tps[c]
+            R[p + 1:, c] = 0
+    return R, V, T
+
+
+@pytest.mark.parametrize("m,b,pivot0,nblk,case", [
+    (64, 8, 0, 1, "plain"), (64, 8, 0, 3, "plain"), (64, 8, 0, 64, "plain"),
+    (33, 8, 0, 33, "plain"),        # one row per slab
+    (50, 8, 20, 3, "plain"),        # pivots in the second slab
+    (97, 16, 30, 7, "plain"),       # uneven slabs, pivots crossing their edges
+    (40, 8, 36, 5, "plain"),        # pivots on the last row and past the end
+    (64, 8, 4, 3, "zero_column"),   # column 5 is zero from its step on
+    (64, 8, 5, 3, "tiny"), (64, 8, 5, 3, "huge"),  # data scaled by 1e-30, 1e30
+])
+def test_slab_protocol_matches_plain(m, b, pivot0, nblk, case):
+    """The kernel's row split, its three exchanges per column and the halo
+    give the plain version's R, V and T to 1e-13 relative at f64."""
+    pan = _rand((m, b), m * b + nblk, np.float64)
+    if case == "zero_column":
+        pan[pivot0:, 5] = 0.0
+    pan *= {"tiny": 1e-30, "huge": 1e30}.get(case, 1.0)
+    got = _slab_factor(pan, pivot0, nblk)
+    want = ggr_panel.panel_factor_plain(_t(pan)[None], pivot0)
+    for g, w in zip(got, want):
+        w = w[0].numpy()
+        assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, w, rtol=1e-13, atol=1e-13 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("nblk", [1, 3, 33])
+def test_slab_protocol_keeps_a_zero_panel_bitwise_zero(nblk):
+    pan = np.zeros((33, 8))
+    for out in _slab_factor(pan, 2, nblk):
+        assert np.array_equal(out.view(np.int64), np.zeros((33, 8), dtype=np.int64))
+
+
+def _h100_capacity(per_sm=2048 // ggr_panel._PANEL_THREADS):
+    """Co-resident blocks on 132 SMs of 228 KB shared memory (1 KB reserved
+    per block), at most ``per_sm`` blocks each (threads or registers): the
+    card's occupancy rule, for CPU tests."""
+    return lambda smem: 132 * min(per_sm, 233472 // (smem + 1024))
+
+
+@pytest.mark.parametrize("m,b,itemsize,per_sm,nblk,resident", [
+    (40, 8, 8, 8, 1, True), (128, 64, 4, 8, 1, True),  # small frames: one block
+    (256, 64, 4, 8, 2, True),
+    (4096, 64, 4, 8, 32, True), (8192, 64, 4, 8, 64, True), (4096, 64, 8, 8, 32, True),
+    (4097, 64, 4, 8, 33, True),
+    (65536, 64, 4, 8, 512, True),
+    (65536, 64, 4, 2, 264, True),     # two blocks an SM: fewer, taller slabs
+    (65536, 64, 8, 8, 512, False),    # 32 MiB: slabs in device memory
+])
+def test_panel_blocks_choice(m, b, itemsize, per_sm, nblk, resident):
+    cap = _h100_capacity(per_sm)
+    assert ggr_panel._panel_blocks(m, b, itemsize, cap) == (nblk, resident)
+
+
+@pytest.mark.parametrize("m", [1, 7, 300, 4096, 5000, 20000, 40000, 65536, 200000])
+@pytest.mark.parametrize("b,itemsize", [(8, 4), (64, 4), (64, 8), (256, 8)])
+@pytest.mark.parametrize("per_sm", [2, 8])
+def test_panel_blocks_fit_the_card(m, b, itemsize, per_sm):
+    """Every slab fits a block's shared memory or the device-memory case is
+    chosen; nblk never exceeds the rows or the co-resident capacity; the
+    batch takes no part in the choice."""
+    import inspect
+
+    cap = _h100_capacity(per_sm)
+    nblk, resident = ggr_panel._panel_blocks(m, b, itemsize, cap)
+    assert 1 <= nblk <= m
+    smem = ggr_panel._panel_smem(-(-m // nblk), b, itemsize, resident)
+    assert smem <= ggr_panel._cuda.MAX_SMEM_BYTES
+    assert nblk == 1 or nblk <= cap(smem)
+    if not resident:  # too tall for capacity blocks, even at the tallest slabs
+        fit = next(r for r in range(m, 0, -1)
+                   if ggr_panel._panel_smem(r, b, itemsize, True)
+                   <= ggr_panel._cuda.MAX_SMEM_BYTES)
+        need = -(-m // fit)
+        assert need > cap(ggr_panel._panel_smem(-(-m // need), b, itemsize, True))
+    assert list(inspect.signature(ggr_panel._panel_blocks).parameters) == [
+        "m", "b", "itemsize", "capacity"]
+
+
 # ------------------------------------------------------------ apply kernel
 @pytest.mark.parametrize("m,b", [(16, 4), (64, 8), (128, 16)])
 @pytest.mark.parametrize("w", [8, 32, 64, 40])
