@@ -48,7 +48,10 @@
 //      A block's carry for P is the sum of the partials below it; its top
 //      row's DET2 takes the row above (the halo: row, k and l published by
 //      slab k-1).  Inside the slab the sweep is ggr_scan.cuh's row-chunked
-//      scan and det2_walk, on shared memory.
+//      scan and det2_walk, on shared memory, over groups of at most
+//      blockDim.x columns: a panel wider than the block takes several groups
+//      (and its dots twice), so any width whose per-column values fit a
+//      block's shared memory runs.
 // Blocks above the pivot take part with zero partials.  Three arrays, so no
 // fourth barrier: a block can only overwrite column c+1's array X after
 // every block has passed column c+1's barriers before X.  A launch takes at
@@ -58,9 +61,12 @@
 // The launch: nblk == 1 (small frames) is an ordinary launch of B blocks
 // with block barriers only.  nblk > 1 launches with cudaLaunchCooperativeKernel,
 // which guarantees that all blocks are co-resident, and the barrier is
-// cooperative_groups::this_grid().sync() (no -rdc needed); a batch whose
-// B * nblk exceeds the capacity (occupancy x SMs) runs in sub-batches of
-// floor(capacity / nblk) panels on the caller's stream.  A panel so tall that
+// cooperative_groups::this_grid().sync() (no -rdc needed).  The capacity
+// (occupancy x SMs at the launch's shared memory) comes from
+// ggr_panel_factor_capacity, which the caller queries once per shape and
+// passes in; an nblk over it is refused, and a batch whose B * nblk exceeds
+// it runs in sub-batches of floor(capacity / nblk) panels on the caller's
+// stream.  A panel so tall that
 // capacity blocks cannot hold it in shared memory keeps its slabs in R in
 // device memory (resident == 0) and runs the same code through a generic
 // pointer.  Per-column planes of v/sigma and t go to `work` as (b, m) rows
@@ -273,21 +279,32 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
     const int nc = b - c - 1;
     if (nc == 0 || (!do_any && gridDim.x == 1)) continue;  // grid-uniform
 
-    // C. suffix dots of the columns right of c, and the halo
+    // C. suffix dots of the columns right of c, and the halo.  The columns
+    // go in groups of at most blockDim.x (one group unless the panel is
+    // wider than the block); dots(j0) takes group j0's chunking, the partial
+    // dot of the thread's chunk, its halo row and its carry within the slab.
     for (int r = a0 + threadIdx.x; r < hi; r += blockDim.x)
       ggr::det2_coeffs(vs[r - lo + 1], tt[r - lo + 1], tt[r - lo + 2], kk[r - lo + 1],
                        ll[r - lo + 1]);
     __syncthreads();
     constexpr int G = ggr::WalkGroup<T>::value;
-    const ggr::Chunking s = ggr::chunking(nc, a0, hi);
-    const int col = c + 1 + s.jj;
-    auto x = [=](int r) { return X[(r - lo) * ld + col]; };
+    const int gw = blockDim.x;
     auto v = [=](int r) { return vs[r - lo + 1]; };
-    const T acc = ggr::chunk_dot<T, G>(s.lo, s.hi, v, x);
-    const T hal = s.lo < s.hi && s.lo > p && s.lo > lo ? x(s.lo - 1) : T(0);
-    const T carry = ggr::chunk_carry(s, acc, part);
+    ggr::Chunking s;
+    T acc, hal, carry;
+    auto dots = [&](int j0) {
+      s = ggr::chunking(nc - j0 < gw ? nc - j0 : gw, a0, hi);
+      const int col = c + 1 + j0 + s.jj;
+      auto x = [=](int r) { return X[(r - lo) * ld + col]; };
+      acc = ggr::chunk_dot<T, G>(s.lo, s.hi, v, x);
+      hal = s.lo < s.hi && s.lo > p && s.lo > lo ? x(s.lo - 1) : T(0);
+      carry = ggr::chunk_carry(s, acc, part);
+    };
     T* ec = exC + (size_t)k * cs;
-    if (s.active && s.k == 0) ec[s.jj] = carry + acc;  // the slab's partial dot
+    for (int j0 = 0; j0 < nc; j0 += gw) {
+      dots(j0);
+      if (s.active && s.k == 0) ec[j0 + s.jj] = carry + acc;  // the slab's partial dot
+    }
     for (int j = threadIdx.x; j < nc; j += blockDim.x)
       ec[b + j] = X[(rows - 1) * ld + c + 1 + j];
     if (threadIdx.x == 0) {
@@ -307,11 +324,17 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
       ll[0] = __ldcg(exC + (size_t)(k - 1) * cs + 2 * b + 1);
     }
     __syncthreads();
-    ggr::det2_walk<T, G>(
-        s.lo, s.hi, p, pcar[s.jj] + carry, s.lo == lo ? halo[s.jj] : hal, tp, x,
-        [=](int r, T val) { X[(r - lo) * ld + col] = val; }, v,
-        [=](int r) { return kk[r - lo + 1]; }, [=](int r) { return ll[r - lo + 1]; });
-    __syncthreads();
+    for (int j0 = 0; j0 < nc; j0 += gw) {
+      // a wide panel takes each group's dots again: its columns are unchanged
+      if (nc > gw) dots(j0);
+      const int j = j0 + s.jj, col = c + 1 + j;
+      ggr::det2_walk<T, G>(
+          s.lo, s.hi, p, pcar[j] + carry, s.lo == lo ? halo[j] : hal, tp,
+          [=](int r) { return X[(r - lo) * ld + col]; },
+          [=](int r, T val) { X[(r - lo) * ld + col] = val; }, v,
+          [=](int r) { return kk[r - lo + 1]; }, [=](int r) { return ll[r - lo + 1]; });
+      __syncthreads();
+    }
   }
   __syncthreads();
 
@@ -330,30 +353,36 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
   transpose_out(tplane, Tn, m, b, lo, hi, pivot0, part, [=](int c) { return tpv[c]; });
 }
 
+// The kernel may take up to kMaxSmem bytes of dynamic shared memory: set once
+// per device, before the first launch or capacity query there.
+constexpr int kMaxSmem = 232448;  // an H100 block's limit (_cuda.MAX_SMEM_BYTES)
+constexpr int kMaxDevices = 64;
+
 template <typename T>
-cudaError_t capacity(size_t smem, int device, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      panel_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_factor_kernel<T>,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  *out = per_sm * sms;
+cudaError_t allow_smem(int device) {
+  static bool done[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      panel_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  done[device] = err == cudaSuccess;
   return err;
 }
 
+// `cap`: the blocks that can be co-resident at this launch's shared memory,
+// from ggr_panel_factor_capacity (queried once per shape and cached by the
+// caller); the launch refuses an nblk over it.
 template <typename T>
 int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
-           int pivot0, int nblk, int resident, int ws, int device, void* stream) {
+           int pivot0, int nblk, int resident, int ws, int cap, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nblk < 1 || nblk > m || (size_t)ws < work_size(m, b, nblk, resident))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(m, b, nblk, resident);
-  int cap = 0;
-  err = capacity<T>(smem, device, &cap);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  err = allow_smem<T>(device);
   if (err != cudaSuccess) return (int)err;
   if (nblk == 1) {
     panel_factor_kernel<T><<<dim3(B, 1), kThreads, smem, (cudaStream_t)stream>>>(
@@ -378,12 +407,19 @@ int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
   return (int)cudaSuccess;
 }
 
+// Blocks of the kernel that can be co-resident on the card at `smem` bytes of
+// shared memory each: occupancy x SMs, or -(CUDA error).
 template <typename T>
-int query_capacity(int smem, int device) {
+int capacity(int smem, int device) {
   cudaError_t err = cudaSetDevice(device);
-  int cap = 0;
-  if (err == cudaSuccess) err = capacity<T>((size_t)smem, device, &cap);
-  return err == cudaSuccess ? cap : -(int)err;
+  if (err == cudaSuccess) err = allow_smem<T>(device);
+  int per_sm = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_factor_kernel<T>,
+                                                        kThreads, (size_t)smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
 }
 
 }  // namespace
@@ -392,26 +428,24 @@ extern "C" {
 
 int ggr_panel_factor_f32(const float* in, float* R, float* V, float* Tn,
                          float* work, int B, int m, int b, int pivot0, int nblk,
-                         int resident, int ws, int device, void* stream) {
-  return launch<float>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                         int resident, int ws, int cap, int device, void* stream) {
+  return launch<float>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws, cap,
                        device, stream);
 }
 
 int ggr_panel_factor_f64(const double* in, double* R, double* V, double* Tn,
                          double* work, int B, int m, int b, int pivot0, int nblk,
-                         int resident, int ws, int device, void* stream) {
-  return launch<double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                         int resident, int ws, int cap, int device, void* stream) {
+  return launch<double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws, cap,
                         device, stream);
 }
 
-// Blocks of the kernel that can be co-resident on the card at `smem` bytes of
-// shared memory each (occupancy x SMs), or -(CUDA error).
 int ggr_panel_factor_capacity_f32(int smem, int device) {
-  return query_capacity<float>(smem, device);
+  return capacity<float>(smem, device);
 }
 
 int ggr_panel_factor_capacity_f64(int smem, int device) {
-  return query_capacity<double>(smem, device);
+  return capacity<double>(smem, device);
 }
 
 const char* ggr_panel_factor_error_string(int code) {

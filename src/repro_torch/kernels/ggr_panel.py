@@ -257,6 +257,8 @@ def _panel_blocks(m: int, b: int, itemsize: int, capacity) -> tuple[int, bool]:
     want = -(-m // _SLAB_ROWS)
     fixed = _panel_smem(0, b, itemsize, True)
     fit = (_cuda.MAX_SMEM_BYTES - fixed) // ((b + 5) * itemsize)  # rows a block holds
+    if fit < 1:  # a panel so wide that no row of it fits beside its values
+        return min(m, want, capacity(_panel_smem(0, b, itemsize, False))), False
     need = min(m, -(-m // fit))  # the fewest slabs that fit
     nblk = min(m, max(want, need))
     while True:  # fewer, taller slabs until they are co-resident
@@ -272,6 +274,8 @@ _CAPACITY: dict = {}  # (dtype, device, smem bytes) -> co-resident blocks
 
 
 def _panel_capacity(x: torch.Tensor, smem: int) -> int:
+    """Blocks of the panel kernel co-resident on x's card at ``smem`` bytes
+    each, queried from the kernel once per (dtype, device, smem) and cached."""
     key = (x.dtype, x.device.index, smem)
     if key not in _CAPACITY:
         _CAPACITY[key] = _cuda.query("ggr_panel_factor", "ggr_panel_factor_capacity",
@@ -285,9 +289,11 @@ def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
         raise ValueError(f"panel_factor: unsupported device {panel.device}")
     _kernel_dtype_check(panel, accum_dtype, "panel_factor")
     B, m, b = panel.shape
-    if b > _PANEL_THREADS:
-        raise ValueError(f"panel_factor: a panel of width {b} has more columns "
-                         f"than the kernel's {_PANEL_THREADS} threads")
+    size = panel.element_size()
+    if _panel_smem(0, b, size, False) > _cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"panel_factor: a panel of width {b} needs more shared "
+                         f"memory for its per-column values than a block's "
+                         f"{_cuda.MAX_SMEM_BYTES} bytes")
     if m * b >= 2**31:
         raise ValueError(f"panel_factor: a ({m}, {b}) panel has 2^31 elements "
                          "or more; the kernel indexes it with 32-bit offsets")
@@ -297,16 +303,19 @@ def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
         V.zero_()
         T.zero_()
         return R.copy_(panel), V, T
-    nblk, resident = _panel_blocks(m, b, panel.element_size(),
-                                   lambda smem: _panel_capacity(panel, smem))
+    nblk, resident = _panel_blocks(m, b, size, lambda smem: _panel_capacity(panel, smem))
+    cap = _panel_capacity(panel, _panel_smem(-(-m // nblk), b, size, resident))
     # per panel (mirrors work_size in ggr_panel_factor.cu): t and v/sigma
     # planes (b, m), the exchange arrays, the slabs' vectors in device memory
     ws = 2 * b * m + nblk * (2 * b + 4)
     if not resident:
         ws += 4 * nblk * (-(-m // nblk) + 2)
+    if ws >= 2**31:
+        raise ValueError(f"panel_factor: a ({m}, {b}) panel needs {ws} values of "
+                         "scratch; the kernel indexes it with 32-bit offsets")
     work = torch.empty((B, ws), dtype=panel.dtype, device=panel.device)
     _cuda.launch("ggr_panel_factor", "ggr_panel_factor", [panel, R, V, T, work],
-                 B, m, b, pivot0, nblk, int(resident), ws)
+                 B, m, b, pivot0, nblk, int(resident), ws, cap)
     panel_factor.launches += 1
     panel_factor.shapes.add((tuple(panel.shape), pivot0, panel.dtype))
     return R, V, T

@@ -198,6 +198,8 @@ def _h100_capacity(per_sm=2048 // ggr_panel._PANEL_THREADS):
     (65536, 64, 4, 8, 512, True),
     (65536, 64, 4, 2, 264, True),     # two blocks an SM: fewer, taller slabs
     (65536, 64, 8, 8, 512, False),    # 32 MiB: slabs in device memory
+    (600, 300, 4, 2, 5, True),        # wider than a block's 256 threads
+    (64, 6000, 8, 2, 1, False),       # no row fits beside the column values
 ])
 def test_panel_blocks_choice(m, b, itemsize, per_sm, nblk, resident):
     cap = _h100_capacity(per_sm)
@@ -205,7 +207,8 @@ def test_panel_blocks_choice(m, b, itemsize, per_sm, nblk, resident):
 
 
 @pytest.mark.parametrize("m", [1, 7, 300, 4096, 5000, 20000, 40000, 65536, 200000])
-@pytest.mark.parametrize("b,itemsize", [(8, 4), (64, 4), (64, 8), (256, 8)])
+@pytest.mark.parametrize("b,itemsize", [(8, 4), (64, 4), (64, 8), (256, 8),
+                                        (1024, 8), (6000, 8)])
 @pytest.mark.parametrize("per_sm", [2, 8])
 def test_panel_blocks_fit_the_card(m, b, itemsize, per_sm):
     """Every slab fits a block's shared memory or the device-memory case is
@@ -220,11 +223,12 @@ def test_panel_blocks_fit_the_card(m, b, itemsize, per_sm):
     assert smem <= ggr_panel._cuda.MAX_SMEM_BYTES
     assert nblk == 1 or nblk <= cap(smem)
     if not resident:  # too tall for capacity blocks, even at the tallest slabs
-        fit = next(r for r in range(m, 0, -1)
-                   if ggr_panel._panel_smem(r, b, itemsize, True)
-                   <= ggr_panel._cuda.MAX_SMEM_BYTES)
-        need = -(-m // fit)
-        assert need > cap(ggr_panel._panel_smem(-(-m // need), b, itemsize, True))
+        fit = next((r for r in range(m, 0, -1)
+                    if ggr_panel._panel_smem(r, b, itemsize, True)
+                    <= ggr_panel._cuda.MAX_SMEM_BYTES), None)
+        if fit is not None:  # else too wide for one row beside its values
+            need = -(-m // fit)
+            assert need > cap(ggr_panel._panel_smem(-(-m // need), b, itemsize, True))
     assert list(inspect.signature(ggr_panel._panel_blocks).parameters) == [
         "m", "b", "itemsize", "capacity"]
 

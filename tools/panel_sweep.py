@@ -9,8 +9,11 @@ Each variant is a copy of ``src/repro_torch`` under ``build/tune/`` with
 parallel, then each runs in its own process, one after another: B3 at the
 fused frames of the 4096^2 QR (4096 down to 128 rows), the lstsq frame
 (8192 rows), f64 and the ``ggr_qr_pallas`` frame, each checked against the
-plain version (worst error relative to max(1, |out|)) and timed with CUDA
-events over 20 launches, then the fused 4096^2 f32 QR over 3 calls.
+plain version (worst error of R, V, T over its rms) and timed with CUDA
+events over 20 launches, then the fused 4096^2 f32 QR over 3 calls.  Each
+line names the threads, slab rows and slab count its variant ran with, and
+a variant whose constants are not found exactly once in the sources stops
+the sweep.
 """
 from __future__ import annotations
 
@@ -32,12 +35,16 @@ def variant(threads: int, rows: int) -> Path:
         shutil.rmtree(d)
     shutil.copytree(ROOT / "src" / "repro_torch", d / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = d / "src/repro_torch/kernels/csrc/ggr_panel_factor.cu"
-    cu.write_text(re.sub(r"constexpr int kThreads = \d+;",
-                         f"constexpr int kThreads = {threads};", cu.read_text()))
-    py = d / "src/repro_torch/kernels/ggr_panel.py"
-    s = re.sub(r"_PANEL_THREADS = \d+", f"_PANEL_THREADS = {threads}", py.read_text())
-    py.write_text(re.sub(r"_SLAB_ROWS = \d+", f"_SLAB_ROWS = {rows}", s))
+    kern = d / "src/repro_torch/kernels"
+    for path, pattern, value in [
+            (kern / "csrc/ggr_panel_factor.cu", r"constexpr int kThreads = \d+;",
+             f"constexpr int kThreads = {threads};"),
+            (kern / "ggr_panel.py", r"_PANEL_THREADS = \d+", f"_PANEL_THREADS = {threads}"),
+            (kern / "ggr_panel.py", r"_SLAB_ROWS = \d+", f"_SLAB_ROWS = {rows}")]:
+        text, n = re.subn(pattern, value, path.read_text())
+        if n != 1:  # a variant that kept the sources' value would be mislabeled
+            raise SystemExit(f"{path.name}: {pattern!r} matched {n} times, not once")
+        path.write_text(text)
     return d / "src"
 
 
@@ -64,12 +71,14 @@ def measure(src: str) -> None:
         X = torch.randn((1, m, b), generator=gen, device="cuda", dtype=getattr(torch, dt))
         got = ggr_panel.panel_factor(X, p0)
         want = ggr_panel.panel_factor_plain(X, p0)
-        err = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+        err = max(float((g - w).abs().max()) / float(w.double().square().mean().sqrt())
                   for g, w in zip(got, want))
         nblk, _ = ggr_panel._panel_blocks(m, b, X.element_size(),
                                           lambda smem: ggr_panel._panel_capacity(X, smem))
         t = ms(lambda: ggr_panel.panel_factor(X, p0), 20)
-        print(f"({m},{b}) p0={p0} {dt} nblk={nblk} {t:.4f} ms err {err:.1e}", flush=True)
+        print(f"({m},{b}) p0={p0} {dt} threads={ggr_panel._PANEL_THREADS} "
+              f"slab_rows={ggr_panel._SLAB_ROWS} nblk={nblk} {t:.4f} ms "
+              f"max|err|/rms {err:.1e}", flush=True)
     M = torch.randn((4096, 4096), generator=gen, device="cuda")
     print(f"fused qr 4096^2: {ms(lambda: ggr_qr_blocked(M, schedule='fused'), 3):.2f} ms",
           flush=True)
