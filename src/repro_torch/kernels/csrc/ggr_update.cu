@@ -6,102 +6,346 @@
 // What it computes: for each of B stacked problems X = [R | d; U | Y]
 // ((n_piv + p) x w, R upper triangular) it triangularizes the first n_piv
 // columns.  Per column c only the (p+1)-row active set — pivot row c plus the
-// p appended rows — is swept (see ggr_common.cuh); the column is written
-// exactly as sigma*t_0 at the pivot and zeros below, and rhs columns ride along.
+// p appended rows — is swept (see ggr_common.cuh for the column step); the
+// column is written exactly as sigma*t_0 at the pivot and zeros below, and
+// rhs columns ride along.  An all-zero problem comes back bitwise zero.
 //
 // Bound on this card: each problem is read once and written once, 2*B*m*w
 // elements.  Column c sweeps its p+1 active rows over the w-c-1 columns right
 // of it (columns left of c are already zero), about 5 flops per element, so
-// the work is B*sum_c (5*(p+1)*(w-c-1) + (w-c-1) + 8*(p+1)) flops.  That is
-// 2.5 flops per byte at the serving append shape (40 x 33, f32), 8.3 at the
-// kalman shape (104 x 65, f32) and 17 / 8.6 at the tree-coupling shape
-// (128 x 192, b = 64) in f32 / f64: all under the H100's ridge of 20 f32 and
-// 10 f64 flops per byte (67 and 34 TFLOP/s over 3.35 TB/s), so the kernel is
-// bound by bytes at every main-path shape.  The design moves each element the
-// least possible: the p appended rows plus the current pivot row stay
-// resident in shared memory for the whole sweep, the top n_piv rows are
-// streamed from device memory (each is touched once, at its own column), and
-// each thread owns one column so loads and stores are coalesced across the
-// block.  What this simple design does not hide is the per-column serial
-// coefficient chain (one thread, p+1 rows) and the block barriers around it:
-// with one block per problem and few threads per block, latency rather than
-// bandwidth is what a later change has to attack.
+// the work is B*sum_c (5*(p+1)*(w-c-1) + (w-c-1) + 8*(p+1)) flops
+// (chip_smoke.py::update_flops).  That is 2.5 flops per byte at the serving
+// append shape (40 x 33, f32), 8.3 at the kalman shape (104 x 65, f32) and
+// 17 / 8.6 at the tree-coupling shape (128 x 192, 64 pivots) in f32 / f64:
+// all under the H100's ridge of 20 f32 and 10 f64 flops per byte (67 and 34
+// TFLOP/s over 3.35 TB/s), so bytes bound the kernel at every main-path shape.
+// Each element is read from device memory once and written once: the p
+// appended rows stay in shared memory for the whole sweep, and each pivot row
+// is fetched once, a column step ahead (cp.async into the second of two pivot
+// buffers), and written once, at its own step.
 //
-// Layout: one thread block per problem, blockDim = w rounded up to 32, one
-// thread per output column.  Per column: a block reduction gives sigma, one
-// thread runs the coefficient chain, every thread sweeps its column.
-// Dynamic shared memory: (p+1)*w tile rows, 4*(p+1) coefficient slots, 32
-// reduction slots and t_0.
+// What bounds it in practice is latency and instruction count: a column
+// step is a chain of dependent phases (max-abs, suffix norms, coefficients,
+// suffix dots, DET2) and a problem is small.  The design attacks both:
+//
+//   * No serial coefficient chain.  One warp computes column c's
+//     coefficients with its active rows split over the lanes (lane L holds
+//     rows [L*R, L*R+R), R = ceil((p+1)/32)): sigma by a shuffle max; the
+//     suffix sums of squares by a reverse inclusive shuffle scan of the
+//     lanes' partial sums (the carry from the lanes below), then each lane
+//     walks its rows bottom-up from its carry for t_i; t of the row below a
+//     lane's last row comes from the next lane by one shuffle, so every row's
+//     t is computed once; each lane then forms k_i and l_i for its own rows
+//     (ggr_scan.cuh::det2_coeffs, l_i = -1 where invalid).  t_0, and so
+//     do_any = t_0 > 1e-30, is one value in shared memory for the problem.
+//   * Only the w-c-1 columns right of c are swept: columns left of c are
+//     zero in every active row (R is upper triangular, and every earlier
+//     column was annihilated), so they keep their zeros, and the pivot row
+//     keeps its own values there.
+//   * A thread layout chosen by shape (ggr_update.py::_update_layout, from
+//     m, w, n_piv, the dtype and the card's limits, never from B): G threads
+//     (a multiple of 32) work on one problem, PB problems share a block, and
+//     each thread walks whole columns (column_walk), its loads four rows
+//     ahead of its stores.  The serving shapes (thousands of problems, bound
+//     by instruction issue) take one warp a problem at append (33 columns),
+//     two at kalman (65), several problems a block; the tree coupling (65 x
+//     192, 1-64 problems a launch, bound by latency) takes a block of 192
+//     threads, one a column.  The kernel is launch-bounded at 512 threads a
+//     block, so a thread may hold 128 registers: enough to keep a group of
+//     rows' loads in flight.  A group of one warp synchronizes with
+//     __syncwarp only; a larger group with its own named barrier (bar.sync
+//     1+g, G), never the whole block.
+//   * The bits of a problem depend only on its shape: the same layout and the
+//     same order run whatever B is or where the problem sits in the batch.
+//
+// Per column step a group passes two barriers (pivot row in place; the
+// coefficients in place).  Dynamic shared memory per problem (elements): a
+// record (v, k, l) for each of the p+1 active rows, nbuf pivot rows and p
+// appended rows of stride ws (w rounded up to odd when it fits: the
+// coefficient warp reads a column down the rows), sigma and t_0.  Where two
+// pivot buffers and the padded stride do not fit, nbuf = 1 and ws = w: the
+// pivot row is then loaded at the start of its step (the parent kernel's
+// footprint).
+//
+// Every shared access stays inside its problem's region: records 0..n-1 only
+// (coefficients of row i+1 are written only where i+1 < n), pivot-row and
+// appended-row columns below w <= ws, appended rows 1..n-1 only (a walk's
+// look-ahead stops at row 1 and takes the pivot row above it; the
+// coefficient warp clamps a lane's unused row slots to row n-1 rather than
+// loading past the last row and masking), and each region a multiple of 16
+// bytes, so every record is 16-byte aligned.
 #include <cuda_runtime.h>
 
 #include "ggr_common.cuh"
+#include "ggr_scan.cuh"
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// What the walk of active row r needs, in one 16-byte-aligned record:
+// v_r and the DET2 coefficients k_{r-1}, l_{r-1} of the row above (t_r is
+// parked in pad while the coefficients are formed).
 template <typename T>
-__global__ void batched_update_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                      int m, int w, int n_piv) {
+struct __align__(16) Rec {
+  T v, k, l, pad;
+};
+
+// Elements of shared memory one problem takes, a multiple of 4 so that every
+// problem's records stay 16-byte aligned (mirrored by
+// ggr_update.py::_smem_elems): the n active rows' records, nbuf pivot rows
+// and n - 1 appended rows of stride ws, sigma and t_0.
+__host__ __device__ __forceinline__ size_t group_elems(int n, int ws, int nbuf) {
+  const size_t e = 4 * (size_t)n + (size_t)(nbuf + n - 1) * ws + 2;
+  return (e + 3) / 4 * 4;
+}
+
+// The G threads of group g meet: one warp by __syncwarp, more by named
+// barrier 1+g (0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int g, int G) {
+  if (G == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(G) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"((int)sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Column c's coefficients over its n active rows, by one warp (every lane
+// calls it).  col(i): active row i of column c.  Writes rec[i].v = v_i and
+// rec[i+1].k, .l = k_i, l_i for every row, and slot[0] = sigma, slot[1] =
+// t_0.  Lane L owns rows [L*R, L*R+R), held in registers when R <= RM (p+1
+// <= 32*RM), else walked through rec in three passes; both in the same
+// order, so with the same bits.
+template <typename T, typename Col>
+__device__ void coeff_chain(int lane, int n, Col col, Rec<T>* rec, T* slot) {
+  constexpr int RM = 4;
+  const int R = (n + 31) / 32;
+  const int lo = min(lane * R, n), hi = min(lo + R, n);
+  auto warp_max = [](T x) {  // the max is exact in any order
+    for (int off = 16; off > 0; off >>= 1) {
+      const T o = __shfl_xor_sync(kFull, x, off);
+      x = o > x ? o : x;
+    }
+    return x;
+  };
+  // reverse inclusive scan over the lanes (Hillis-Steele) of each lane's sum
+  // of squares, then the carry: the sum over every lane below this one
+  auto carry_below = [lane](T s) {
+    for (int off = 1; off < 32; off <<= 1) {
+      const T o = __shfl_down_sync(kFull, s, off);
+      if (lane + off < 32) s += o;
+    }
+    const T c = __shfl_down_sync(kFull, s, 1);
+    return lane == 31 ? T(0) : c;
+  };
+  auto t_below = [lane](T t_lo) {  // t of the row below this lane's rows
+    const T t = __shfl_down_sync(kFull, t_lo, 1);
+    return lane == 31 ? T(0) : t;
+  };
+  T mx = T(0), t_lo = T(0);
+  if (R <= RM) {
+    T v[RM], t[RM];
+#pragma unroll
+    for (int q = 0; q < RM; ++q) {  // an in-range row even where unused:
+      const T x = col(min(lo + q, n - 1));  // the load may be speculated
+      v[q] = lo + q < hi ? x : T(0);
+      mx = fabs(v[q]) > mx ? fabs(v[q]) : mx;
+    }
+    mx = warp_max(mx);
+    const T scale = mx > T(0) ? mx : T(1);
+    T s = T(0);  // this lane's sum of squares, bottom-up
+#pragma unroll
+    for (int q = RM - 1; q >= 0; --q)
+      if (lo + q < hi) {
+        v[q] = v[q] / scale;
+        s += v[q] * v[q];
+      }
+    T acc = carry_below(s);
+#pragma unroll
+    for (int q = RM - 1; q >= 0; --q)
+      if (lo + q < hi) {
+        acc += v[q] * v[q];
+        t[q] = sqrt(acc);
+      }
+    t_lo = lo < hi ? t[0] : T(0);
+    T tn = t_below(t_lo);
+#pragma unroll
+    for (int q = RM - 1; q >= 0; --q)
+      if (lo + q < hi) {
+        const int i = lo + q;
+        rec[i].v = v[q];
+        if (i + 1 < n) ggr::det2_coeffs(v[q], t[q], tn, rec[i + 1].k, rec[i + 1].l);
+        tn = t[q];
+      }
+  } else {
+    for (int i = lo; i < hi; ++i) {
+      const T a = fabs(col(i));
+      mx = a > mx ? a : mx;
+    }
+    mx = warp_max(mx);
+    const T scale = mx > T(0) ? mx : T(1);
+    T s = T(0);
+    for (int i = hi - 1; i >= lo; --i) {
+      const T v = col(i) / scale;
+      rec[i].v = v;
+      s += v * v;
+    }
+    T acc = carry_below(s);
+    for (int i = hi - 1; i >= lo; --i) {  // t_i, parked in pad
+      acc += rec[i].v * rec[i].v;
+      rec[i].pad = sqrt(acc);
+    }
+    t_lo = lo < hi ? rec[lo].pad : T(0);
+    T tn = t_below(t_lo);
+    for (int i = hi - 1; i >= lo; --i) {
+      const T t = rec[i].pad;
+      if (i + 1 < n) ggr::det2_coeffs(rec[i].v, t, tn, rec[i + 1].k, rec[i + 1].l);
+      tn = t;
+    }
+  }
+  if (lane == 0) {
+    slot[0] = mx;
+    slot[1] = t_lo;
+  }
+}
+
+// One thread's walk of a whole column j, bottom-up:
+// P_i = v_i a_i + P_{i+1}, row i <- valid_{i-1} ? k_{i-1} P_i - l_{i-1} a_{i-1}
+// : a_i, and the pivot row P_0 / t_0 to *y.  colA: active row 1 of the
+// column (rows ws apart), top: its pivot-row value.  WG rows at a time load
+// together before any of them is stored (every read sees the old value, and
+// the load latency is paid once a group), each row's coefficients in one
+// record.  The last 1..WG rows go one at a time in a loop kept rolled:
+// NVVM (CUDA 12.8) unrolls it four times and, in the unrolled body, loads the
+// fourth row above from an address register it sets only later in that body,
+// a load that runs whenever more than four rows are left (PERF.md §6).
+template <typename T, int WG>
+__device__ __forceinline__ void column_walk(int n, T* colA, int ws, T top,
+                                            const Rec<T>* rec, T t0, T* y) {
+  T P = T(0);
+  T* pa = colA + (n - 2) * ws;  // active row i = n-1, stepping up by ws
+  T a = n > 1 ? *pa : top;
+  int i = n - 1;                // the next row to write
+  for (; i - WG >= 1; i -= WG, pa -= WG * ws) {  // rows i .. i-WG+1, all >= 2
+    T up[WG];
+    Rec<T> rc[WG];
+#pragma unroll
+    for (int q = 0; q < WG; ++q) {
+      up[q] = pa[-(q + 1) * ws];
+      rc[q] = rec[i - q];
+    }
+#pragma unroll
+    for (int q = 0; q < WG; ++q) {
+      P += rc[q].v * a;
+      pa[-q * ws] = rc[q].l > T(0) ? rc[q].k * P - rc[q].l * up[q] : a;
+      a = up[q];
+    }
+  }
+#pragma unroll 1
+  for (; i >= 1; --i, pa -= ws) {
+    const T up = i >= 2 ? pa[-ws] : top;
+    const Rec<T> rc = rec[i];
+    P += rc.v * a;
+    *pa = rc.l > T(0) ? rc.k * P - rc.l * up : a;
+    a = up;
+  }
+  P += rec[0].v * a;
+  *y = P / t0;
+}
+
+// Every thread walks whole columns (column_walk), w - c - 1 of them over the
+// G threads of a problem.
+template <typename T>
+__global__ void __launch_bounds__(512)
+batched_update_kernel(const T* __restrict__ in, T* __restrict__ out, int B,
+                      int m, int w, int n_piv, int G, int ws, int nbuf) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = m - n_piv;
-  T* A = reinterpret_cast<T*>(smem_raw);  // (p+1) x w: pivot row + appended rows
-  T* vs = A + (size_t)(p + 1) * w;
-  T* kk = vs + (p + 1);
-  T* ll = kk + (p + 1);
-  T* vd = ll + (p + 1);
-  T* red = vd + (p + 1);  // block-reduction slots
-  T* t0_slot = red + ggr::kReduceSlots;
+  const int n = p + 1;  // active rows: the pivot row, then the appended rows
+  const int g = (int)threadIdx.x / G;
+  const int tid = (int)threadIdx.x - g * G;
+  const size_t prob = (size_t)blockIdx.x * (blockDim.x / G) + g;
+  if (prob >= (size_t)B) return;  // the whole group leaves together
 
-  const T* X = in + (size_t)blockIdx.x * m * w;
-  T* Y = out + (size_t)blockIdx.x * m * w;
-  const int j = threadIdx.x;
-  const bool active = j < w;
+  T* base = reinterpret_cast<T*>(smem_raw) + g * group_elems(n, ws, nbuf);
+  Rec<T>* rec = reinterpret_cast<Rec<T>*>(base);
+  T* piv = base + 4 * n;
+  T* A = piv + nbuf * ws;  // active rows 1..p at A[(r-1)*ws]
+  T* slot = A + p * ws;    // sigma, t_0
+  const T* X = in + prob * m * w;
+  T* Y = out + prob * m * w;
 
-  if (active)
-    for (int i = 0; i < p; ++i) A[(size_t)(i + 1) * w + j] = X[(size_t)(n_piv + i) * w + j];
+  for (int e = tid; e < p * w; e += G) {
+    const int i = e / w, j = e - i * w;
+    A[i * ws + j] = X[(size_t)(n_piv + i) * w + j];
+  }
+  for (int j = tid; j < w; j += G) piv[j] = X[j];
 
   for (int c = 0; c < n_piv; ++c) {
-    if (active) A[j] = X[(size_t)c * w + j];  // pivot row c, read once
-    __syncthreads();
-    const T sigma = ggr::block_absmax(A + c, w, p + 1, red);
-    if (j == 0) *t0_slot = ggr::column_coeffs(A + c, w, p + 1, sigma, vs, kk, ll, vd);
-    __syncthreads();
-    const T t0 = *t0_slot;
-    if (active) {
-      T row0 = A[j];
-      if (t0 > ggr::eps<T>()) {  // do_any: else the problem is left untouched
-        if (j == c) {
-          row0 = sigma * t0;  // annihilated column: sigma*t at the pivot, 0 below
-          for (int i = 1; i <= p; ++i) A[(size_t)i * w + j] = T(0);
-        } else {
-          row0 = ggr::sweep_column(A + j, w, p + 1, vs, kk, ll, vd) / t0;
-        }
-      }
-      Y[(size_t)c * w + j] = row0;
+    T* row0 = piv + (nbuf == 2 ? (c & 1) * ws : 0);
+    if (nbuf == 1 && c > 0) {
+      group_sync(g, G);  // every read of the last pivot row is done
+      for (int j = tid; j < w; j += G) row0[j] = X[(size_t)c * w + j];
     }
-    __syncthreads();  // the next column's chain reads every thread's rows
+    group_sync(g, G);  // pivot row c in place; the last step's sweep done
+    if (nbuf == 2 && c + 1 < n_piv) {
+      T* next = piv + ((c + 1) & 1) * ws;
+      for (int j = tid; j < w; j += G) cp_async(next + j, X + (size_t)(c + 1) * w + j);
+    }
+    if (tid < 32)
+      coeff_chain(tid, n, [&](int r) { return r == 0 ? row0[c] : A[(r - 1) * ws + c]; },
+                  rec, slot);
+    group_sync(g, G);  // coefficients, sigma and t_0 in place
+    const T sigma = slot[0], t0 = slot[1];
+    T* Yc = Y + (size_t)c * w;
+    if (t0 > ggr::eps<T>()) {  // do_any: the same for every thread of the problem
+      // Columns left of c are zero in every active row (R is upper
+      // triangular, and each earlier column was annihilated), so only the
+      // w - c - 1 columns right of c are swept.
+      for (int j = c + 1 + tid; j < w; j += G)
+        column_walk<T, 4>(n, A + j, ws, row0[j], rec, t0, Yc + j);
+      // the annihilated column: sigma*t_0 at the pivot, zeros below
+      for (int r = 1 + tid; r < n; r += G) A[(r - 1) * ws + c] = T(0);
+      for (int j = tid; j <= c; j += G) Yc[j] = j == c ? sigma * t0 : row0[j];
+    } else {  // nothing to annihilate: the problem stays as it is
+      for (int j = tid; j < w; j += G) Yc[j] = row0[j];
+    }
+    if (nbuf == 2) cp_async_wait_all();
   }
 
-  if (active)
-    for (int i = 0; i < p; ++i) Y[(size_t)(n_piv + i) * w + j] = A[(size_t)(i + 1) * w + j];
+  group_sync(g, G);
+  for (int e = tid; e < p * w; e += G) {
+    const int i = e / w, j = e - i * w;
+    Y[(size_t)(n_piv + i) * w + j] = A[i * ws + j];
+  }
 }
 
 template <typename T>
-size_t smem_bytes(int m, int w, int n_piv) {
-  const size_t rows = (size_t)(m - n_piv) + 1;
-  return (rows * w + 4 * rows + ggr::kReduceSlots + 1) * sizeof(T);
-}
-
-template <typename T>
-int launch(const T* in, T* out, int B, int m, int w, int n_piv, int device,
-           void* stream) {
+int launch(const T* in, T* out, int B, int m, int w, int n_piv, int G, int PB,
+           int ws, int nbuf, int device, void* stream) {
+  if (G < 32 || G % 32 || PB < 1 || G * PB > 512 || (G > 32 && PB > 15) ||
+      (nbuf != 1 && nbuf != 2) || ws < w || n_piv < 1 || m <= n_piv)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes<T>(m, w, n_piv);
+  const size_t smem = PB * group_elems(m - n_piv + 1, ws, nbuf) * sizeof(T);
   err = cudaFuncSetAttribute(batched_update_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (w + 31) / 32 * 32;
-  batched_update_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(in, out, m, w, n_piv);
+  const unsigned grid = (unsigned)((B + PB - 1) / PB);
+  batched_update_kernel<T><<<grid, G * PB, smem, (cudaStream_t)stream>>>(
+      in, out, B, m, w, n_piv, G, ws, nbuf);
   return (int)cudaGetLastError();
 }
 
@@ -110,13 +354,15 @@ int launch(const T* in, T* out, int B, int m, int w, int n_piv, int device,
 extern "C" {
 
 int ggr_batched_update_f32(const float* in, float* out, int B, int m, int w,
-                           int n_piv, int device, void* stream) {
-  return launch<float>(in, out, B, m, w, n_piv, device, stream);
+                           int n_piv, int G, int PB, int ws, int nbuf, int device,
+                           void* stream) {
+  return launch<float>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
 }
 
 int ggr_batched_update_f64(const double* in, double* out, int B, int m, int w,
-                           int n_piv, int device, void* stream) {
-  return launch<double>(in, out, B, m, w, n_piv, device, stream);
+                           int n_piv, int G, int PB, int ws, int nbuf, int device,
+                           void* stream) {
+  return launch<double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
 }
 
 const char* ggr_update_error_string(int code) {

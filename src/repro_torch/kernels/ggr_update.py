@@ -14,7 +14,8 @@ request the work is a GGR sweep over a stacked ``[R | d; U | Y]`` matrix.
   solver states update in one pass.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/ggr_update.cu``
-(one thread block per problem); on a CPU tensor it runs
+(a group of threads per problem, laid out by ``_update_layout`` from the
+problem's shape); on a CPU tensor it runs
 ``batched_update_plain``, the same function in plain PyTorch.
 
 Semantics contract: this is a *different rotation order* than a batched
@@ -122,9 +123,45 @@ def batched_update_plain(stacked: torch.Tensor, n_pivots: int,
     return torch.cat([Xt, Xu], 1)
 
 
-def _smem_bytes(m: int, w: int, n_pivots: int, itemsize: int) -> int:
-    rows = m - n_pivots + 1  # mirrors smem_bytes in ggr_update.cu
-    return (rows * w + 4 * rows + 33) * itemsize
+# The thread layout (csrc/ggr_update.cu).  Chosen from a sweep on the card
+# (tools/update_sweep.py; PERF.md §6).
+_BLOCK_THREADS = 256  # threads of a block that several problems share
+_KERNEL_THREADS = 512  # the kernel's launch bound (128 registers a thread)
+_NAMED_BARRIERS = 15  # bar.sync ids 1..15: groups of more than one warp a block
+
+
+def _smem_elems(n: int, ws: int, nbuf: int) -> int:
+    """Shared-memory elements of one problem (mirrors group_elems in
+    ggr_update.cu): the n active rows' coefficient records (4 each), nbuf
+    pivot rows and n - 1 appended rows of stride ws, sigma and t_0 — rounded
+    up to a multiple of 4."""
+    e = 4 * n + (nbuf + n - 1) * ws + 2
+    return -(-e // 4) * 4
+
+
+def _update_layout(m: int, w: int, n_pivots: int, itemsize: int):
+    """(G, PB, ws, nbuf) for a (m, w) problem with ``n_pivots`` pivots: G
+    threads per problem, PB problems per block, row stride ws and nbuf pivot
+    buffers — from the shape, the dtype and the card's limits only, never
+    the batch, so a problem's bits do not depend on its batch.  None when no
+    layout fits one block's shared memory.
+
+    A thread a swept column (at most w - 1, whole warps, up to
+    _KERNEL_THREADS), each walking whole columns; as many problems a block
+    as fill _BLOCK_THREADS.  Two pivot buffers (the next row fetched a step
+    ahead) and an odd row stride (a column read free of bank conflicts)
+    where they fit, else one buffer, stride w and one warp: the parent
+    kernel's footprint."""
+    n = m - n_pivots + 1
+    G = min(_KERNEL_THREADS, -(-max(1, w - 1) // 32) * 32)
+    for G_, ws, nbuf in ((G, w | 1, 2), (G, w, 1), (32, w, 1)):
+        elems = _smem_elems(n, ws, nbuf)
+        if elems * itemsize <= _cuda.MAX_SMEM_BYTES:
+            PB = min(max(1, _BLOCK_THREADS // G_),
+                     _cuda.MAX_SMEM_BYTES // (elems * itemsize),
+                     32 if G_ == 32 else _NAMED_BARRIERS)
+            return G_, PB, ws, nbuf
+    return None
 
 
 def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
@@ -133,8 +170,11 @@ def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
         raise ValueError(f"batched_update: unsupported device {stacked.device}")
     _kernel_dtype_check(stacked, accum_dtype, "batched_update")
     B, m, w = stacked.shape
-    smem = _smem_bytes(m, w, n_pivots, stacked.element_size())
-    if smem > _cuda.MAX_SMEM_BYTES or w > _cuda.MAX_THREADS:
+    size = stacked.element_size()
+    layout = (_update_layout(m, w, n_pivots, size)
+              if w <= _cuda.MAX_THREADS else None)
+    if layout is None:
+        smem = _smem_elems(m - n_pivots + 1, w, 1) * size
         raise ValueError(
             f"batched_update: a ({m}, {w}) {dtype_name(stacked.dtype)} problem "
             f"with {n_pivots} pivots needs {smem} bytes of shared memory and "
@@ -143,7 +183,8 @@ def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
     out = torch.empty_like(stacked)
     if B == 0:
         return out
-    _cuda.launch("ggr_update", "ggr_batched_update", [stacked, out], B, m, w, n_pivots)
+    _cuda.launch("ggr_update", "ggr_batched_update", [stacked, out], B, m, w,
+                 n_pivots, *layout)
     batched_update.launches += 1
     batched_update.shapes.add((tuple(stacked.shape), n_pivots, stacked.dtype))
     return out
@@ -154,18 +195,21 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
     """Triangularize the first ``n_pivots`` columns of each stacked problem.
 
     stacked: (B, n_pivots + p, w) batch of ``[R | d; U | Y]`` matrices, R
-    upper triangular (rows n_pivots.. are the appended observation rows).
-    Returns the (B, m, w) updated batch; callers slice ``[:, :n, :n]``
-    (updated R) and ``[:, :n, n:]`` (updated rhs).  With no appended rows
-    (``m == n_pivots``) there is nothing to annihilate and the batch comes
-    back as it was, without a launch.
+    upper triangular (rows n_pivots.. are the appended observation rows);
+    the CUDA kernel relies on it and sweeps only the columns right of each
+    pivot, as the compact active-set schedule does.  Returns the (B, m, w)
+    updated batch; callers slice ``[:, :n, :n]`` (updated R) and
+    ``[:, :n, n:]`` (updated rhs).  With no appended rows (``m ==
+    n_pivots``) there is nothing to annihilate and the batch comes back as
+    it was, without a launch.
 
-    The CUDA kernel runs one thread block per problem over the whole batch,
-    so ``block_b`` (kept for parity with the JAX signature) sets no tiling;
-    it must be positive.  ``precision`` selects tile compute + in-kernel
-    accumulation dtypes (``None`` = the batch at its own dtype with
-    same-width accumulation); on CUDA tensors only the uniform f32/f64
-    policies have a kernel.  The launch count is ``batched_update.launches``.
+    The CUDA kernel runs one group of threads per problem over the whole
+    batch, laid out by the problem's shape alone, so ``block_b`` (kept for
+    parity with the JAX signature) sets no tiling; it must be positive.
+    ``precision`` selects tile compute + in-kernel accumulation dtypes
+    (``None`` = the batch at its own dtype with same-width accumulation); on
+    CUDA tensors only the uniform f32/f64 policies have a kernel.  The
+    launch count is ``batched_update.launches``.
     """
     _check_stack(stacked, n_pivots, block_b, "batched_update")
     m = stacked.shape[1]

@@ -14,10 +14,19 @@ from repro_torch.kernels import _cuda, batched_geqrt, batched_update, ggr_qr_pal
 from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
 from repro_torch.launch import serve_qr
 
-TOL = {torch.float32: 5e-5, torch.float64: 1e-11}
-# panel_factor: the worst error of each of R, V, T over that output's rms,
-# times max(1, b / 64) (rounding grows with the column steps an entry sees)
-PANEL_REL = {torch.float32: 3e-4, torch.float64: 3e-12}
+# kernel vs plain version, each output on its own: the worst error over that
+# output's rms (so one wrong row of a tall output shows) within rel_bound(),
+# as in chip_smoke.py: a per-kernel, per-dtype constant (f32, f64) grown with
+# the rows of a problem (B1, B2), the column steps an entry sees (B3) or the
+# square root of the rows a suffix dot runs over (B4)
+REL = {"batched_update": (7.5e-4, 1e-12), "batched_geqrt": (1e-3, 3e-12),
+       "panel_factor": (3e-4, 3e-12), "apply_factors": (2e-4, 3e-13)}
+
+
+def rel_bound(name, m, w, dtype):
+    grow = {"batched_update": m / 64, "batched_geqrt": m / 64,
+            "panel_factor": w / 64, "apply_factors": (m / 4096) ** 0.5}[name]
+    return REL[name][dtype == torch.float64] * max(1.0, grow)
 
 
 def _rel_err(got, want):
@@ -61,24 +70,46 @@ def _stack(g, card, B, m, w, n_piv, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,m,w,n_piv", [(1, 12, 9, 8), (67, 40, 33, 32),
-                                         (7, 104, 65, 64), (5, 128, 192, 64)])
+@pytest.mark.parametrize("B,m,w,n_piv", [(2, 12, 9, 8), (67, 40, 33, 32),
+                                         (7, 104, 65, 64), (5, 128, 192, 64),
+                                         (2, 128, 192, 64), (32, 128, 192, 64),
+                                         (3, 200, 65, 64), (2, 12, 1, 1),
+                                         (2, 12, 1000, 8)])
 def test_batched_update_kernel_matches_plain(card, dtype, B, m, w, n_piv):
+    """Problem 0 is all zero and every other one random, so each case holds
+    at least one real problem.  (2, 128, 192) is the tree's last coupling
+    round (one problem) beside the zero one, (32, 128, 192) its first;
+    (3, 200, 65) has p+1 = 137 active rows, (2, 12, 1) one pivot and one
+    column, (2, 12, 1000) a width near the 1024 threads of a block."""
     g = torch.Generator(device=card).manual_seed(B + m)
     X = _stack(g, card, B, m, w, n_piv, dtype)
     n0 = batched_update.launches
     out = batched_update(X, n_piv)
     assert batched_update.launches == n0 + 1
     ref = ggr_update.batched_update_plain(X, n_piv)
-    tol = TOL[dtype] * max(1, m // 16) * max(1.0, float(ref.abs().max()))
-    assert float((out - ref).abs().max()) <= tol
+    assert _rel_err(out, ref) <= rel_bound("batched_update", m, w, dtype)
     bits = out[0].view(torch.int32 if dtype == torch.float32 else torch.int64)
     assert bool((bits == 0).all())  # the zero problem comes back bitwise zero
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,w,n_piv", [(40, 33, 32), (104, 65, 64), (128, 192, 64)])
+def test_batched_update_result_does_not_depend_on_the_batch(card, m, w, n_piv):
+    """40 problems at the serving append, serving kalman and tree-coupling
+    shapes: each equals itself launched alone, bit for bit, wherever it sits
+    in the batch (the serving and solver contracts of batched == sequential
+    rest on this)."""
+    g = torch.Generator(device=card).manual_seed(m + w)
+    X = _stack(g, card, 40, m, w, n_piv, torch.float32)
+    got = batched_update(X, n_piv)
+    for i in range(40):
+        assert torch.equal(got[i], batched_update(X[i:i + 1], n_piv)[0])
+    assert torch.equal(got[7:20], batched_update(X[7:20], n_piv))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,t,w,n_piv", [(1, 8, 16, 8), (67, 64, 128, 64),
+@pytest.mark.parametrize("B,t,w,n_piv", [(2, 8, 16, 8), (67, 64, 128, 64),
                                          (9, 20, 24, 16), (4, 12, 30, 16)])
 def test_batched_geqrt_kernel_matches_plain(card, dtype, B, t, w, n_piv):
     g = torch.Generator(device=card).manual_seed(B + t)
@@ -88,8 +119,7 @@ def test_batched_geqrt_kernel_matches_plain(card, dtype, B, t, w, n_piv):
     out = batched_geqrt(X, n_piv)
     assert batched_geqrt.launches == n0 + 1
     ref = ggr_panel.batched_geqrt_plain(X, n_piv)
-    tol = TOL[dtype] * max(1, t // 16) * max(1.0, float(ref.abs().max()))
-    assert float((out - ref).abs().max()) <= tol
+    assert _rel_err(out, ref) <= rel_bound("batched_geqrt", t, w, dtype)
     assert torch.equal(out[0], X[0])
 
 
@@ -123,7 +153,7 @@ def test_panel_factor_kernel_matches_plain(card, dtype, B, m, b, pivot0):
     assert ggr_panel.panel_factor.launches == n0 + 1
     want = ggr_panel.panel_factor_plain(X, pivot0)
     for a, w in zip(got, want):
-        assert _rel_err(a, w) <= PANEL_REL[dtype] * max(1.0, b / 64)
+        assert _rel_err(a, w) <= rel_bound("panel_factor", m, b, dtype)
         assert _bits_zero(a[0])  # the zero panel comes back bitwise zero
 
 
@@ -163,8 +193,7 @@ def test_apply_factors_kernel_matches_plain(card, dtype, B, m, b, w, pivot0):
     got = ggr_apply.apply_factors(V, T, C, pivot0=pivot0)
     assert ggr_apply.apply_factors.launches == n0 + -(-b // 128)
     want = ggr_apply.apply_factors_plain(V, T, C, pivot0)
-    tol = TOL[dtype] * max(1, m // 16) * max(1.0, float(want.abs().max()))
-    assert float((got - want).abs().max()) <= tol
+    assert _rel_err(got, want) <= rel_bound("apply_factors", m, w, dtype)
     assert _bits_zero(got[0])
     # in place on a strided view of a wider frame: the same values
     frame = torch.zeros((B + 1, m, w + 7), device=card, dtype=dtype)
@@ -234,8 +263,7 @@ def test_kernels_refuse_what_they_do_not_take(card):
     tall = torch.randn((1, 60000, 3), generator=g, device=card)
     want = ggr_apply.apply_factors_plain(V, T, tall, 0)[0]
     got = ggr_apply.apply_factors(V[0], T[0], tall[0])
-    tol = TOL[torch.float32] * (60000 // 16) * max(1.0, float(want.abs().max()))
-    assert float((got - want).abs().max()) <= tol
+    assert _rel_err(got, want) <= rel_bound("apply_factors", 60000, 3, torch.float32)
 
 
 @pytest.mark.gpu

@@ -354,6 +354,78 @@ def test_pipeline_order_keeps_a_zero_problem_bitwise_zero():
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
+def _rotation_apply(V, T, C, pivot0):
+    """Emulation of the arithmetic the card runs (csrc/ggr_apply.cu, the
+    two-coefficient form): each stage carries the scaled suffix dot Q =
+    P_{r+1} / t_{r+1} and, on reading row r with the pair (a, c) that
+    coeff_kernel writes for it, emits row r + 1 as a Q - c x and updates
+    Q <- a x + c Q; a = v_r / t_r, c = t_{r+1} / t_r below the pivot, (1, +0)
+    on the row above it (the pivot row is Q), and c = -0.0 flags a pass (the
+    stage emits its previous input and Q <- a x, dropping c Q).  Stage q's
+    output stream, bottom-up, is stage q + 1's input, closed by a flush zero."""
+    B, m, b = V.shape
+    out = C.copy()
+    r0 = min(pivot0, m)
+    eps = 1e-30
+    for i in range(B):
+        stream = C[i, r0:][::-1].copy()  # rows m-1 .. r0, bottom-up
+        for q in range(b):
+            p = pivot0 + q
+            live = p < m and T[i, p, q] > eps
+            Q = np.zeros(C.shape[2])
+            xp = np.zeros(C.shape[2])
+            emitted = []
+            for e, x in enumerate(list(stream) + [np.zeros(C.shape[2])]):
+                r = m - 1 - e  # r0 - 1: the flush
+                a, c = 0.0, -0.0
+                if live and r >= p:
+                    t = T[i, r, q]
+                    tn = T[i, r + 1, q] if r + 1 < m else 0.0
+                    st = t if t > eps else 1.0
+                    a = V[i, r, q] / st
+                    if tn > eps:
+                        c = tn / st
+                elif live and r == p - 1:
+                    a, c = 1.0, 0.0
+                y = xp if np.signbit(c) else a * Q - c * x
+                Q = a * x + c * Q
+                xp = x
+                if e:
+                    emitted.append(y)
+            stream = np.array(emitted)
+        out[i, r0:] = stream[::-1]
+    return out
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-10, 1e-20, 1e-31])
+@pytest.mark.parametrize("B,m,b,w,pivot0,degenerate", [
+    (2, 20, 4, 5, 0, False), (1, 64, 8, 5, 0, False), (1, 17, 8, 3, 3, False),
+    (1, 12, 8, 4, 6, False),   # b > m - pivot0: pivots past the last row
+    (2, 24, 8, 6, 2, True),    # t_p = 0 at a mid-panel pivot
+    (1, 9, 3, 2, 0, True)])
+def test_rotation_arithmetic_matches_plain_apply(B, m, b, w, pivot0, degenerate, scale):
+    """The card's two-coefficient rotation on Q = P / t, with passes flagged
+    by c = -0.0, gives apply_factors_plain's result to 1e-13 relative at f64,
+    with the panel and C scaled from 1 down to 1e-31."""
+    pans = _rand((B, m, b), m + b + pivot0, np.float64) * scale
+    _, V, T = ggr_panel.panel_factor_plain(_t(pans), pivot0)
+    if degenerate:
+        c = b // 2
+        T[:, pivot0 + c, c] = 0.0
+    C = _rand((B, m, w), m + w, np.float64) * scale
+    want = ggr_apply.apply_factors_plain(V, T, _t(C), pivot0).numpy()
+    got = _rotation_apply(V.numpy(), T.numpy(), C, pivot0)
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13 * np.abs(want).max())
+
+
+def test_rotation_arithmetic_keeps_a_zero_problem_bitwise_zero():
+    V = np.zeros((2, 16, 8))
+    C = np.zeros((2, 16, 5))
+    got = _rotation_apply(V, V, C, 3)
+    assert np.array_equal(got.view(np.int64), np.zeros_like(got, dtype=np.int64))
+
+
 # ------------------------------------------------------------ fused drivers
 def test_tsqrt_matches_jax_and_numpy():
     rng = np.random.default_rng(8)
