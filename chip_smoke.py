@@ -13,12 +13,14 @@ Drives the port's main path on the card and checks it, phase by phase:
 3. kernels — each of the four kernels (batched_update, batched_geqrt,
    panel_factor, apply_factors) against its plain PyTorch version on the card
    at the main path's shapes, each output (panel_factor: each of R, V and T)
-   within rel_bound() of its rms, plus an all-zero
-   batch that must come back bitwise zero; times kernel, plain version and
-   the library call that computes the same function (for apply_factors
-   ``torch.ormqr`` with ``torch.geqrf``'s factors of the same panel: the same
-   work in Householder's basis, timed only); panel_factor and apply_factors
-   also run at a 65536-row frame;
+   within rel_bound() of its rms, plus an all-zero batch that must come
+   back bitwise zero; batched_geqrt also on the tree schedule's own
+   [pan | I] tiles, whose [0 | I] tiles must come back bitwise as they were;
+   prints the layout of batched_update and batched_geqrt; times kernel,
+   plain version and the library call that computes the same function (for
+   apply_factors ``torch.ormqr`` with ``torch.geqrf``'s factors of the same
+   panel: the same work in Householder's basis, timed only); panel_factor
+   and apply_factors also run at a 65536-row frame;
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
@@ -75,7 +77,9 @@ def rel_bound(name: str, shape, dtype_name: str) -> float:
 # the rule B1, B2 and B4 were held to before: 5e-5 f32 / 1e-11 f64 x
 # max(1, rows // 16) x max(1, max|out|), printed beside the new one
 OLD_TOL = {"float32": 5e-5, "float64": 1e-11}
-# phase 3: (kernel, shape, param, dtype) at the main path's shapes
+# phase 3: (kernel, shape, param, dtype[, data]) at the main path's shapes;
+# data is "random" (randn) unless named: "tree" is batched_geqrt's tiles as
+# the tree schedule builds them (tree_tiles)
 PHASE3 = [
     ("batched_update", (8192, 40, 33), 32, "float32"),    # serving append
     ("batched_update", (8192, 104, 65), 64, "float32"),   # serving kalman
@@ -86,6 +90,12 @@ PHASE3 = [
     ("batched_update", (1, 128, 192), 64, "float32"),
     ("batched_geqrt", (128, 64, 128), 64, "float32"),     # tree level 0
     ("batched_geqrt", (128, 64, 128), 64, "float64"),
+    # the tree QR's level-0 launches: its first panel (64 tiles) and its last
+    # (2 tiles), on random tiles and on the tree's own tiles
+    ("batched_geqrt", (64, 64, 128), 64, "float32"),
+    ("batched_geqrt", (64, 64, 128), 64, "float32", "tree"),
+    ("batched_geqrt", (2, 64, 128), 64, "float32"),
+    ("batched_geqrt", (2, 64, 128), 64, "float32", "tree"),
     ("panel_factor", (1, 4096, 64), 0, "float32"),        # fused QR frame
     ("panel_factor", (1, 8192, 64), 0, "float32"),        # fused lstsq frame
     ("panel_factor", (1, 4096, 64), 0, "float64"),
@@ -176,6 +186,18 @@ def apply_flops(shape, b: int, pivot0: int) -> float:
                          for c in range(b) if pivot0 + c < m))
 
 
+def tree_tiles(B: int, b: int, gen, dtype):
+    """(B, b, 2b) tiles as the tree schedule hands them to batched_geqrt at
+    a panel past its first: [pan | I], the second half [0 | I] (row tiles
+    past the matrix, zero in the panel's columns)."""
+    import torch
+
+    pan = torch.randn((B, b, b), generator=gen, device="cuda", dtype=dtype)
+    pan[B // 2:] = 0
+    eye = torch.eye(b, device="cuda", dtype=dtype).expand(B, b, b)
+    return torch.cat([pan, eye], 2).contiguous()
+
+
 def bound(nbytes: float, dtype_name: str, flops: float):
     """(bound_ms, bound_by): the bytes the function must move (each input
     read once, each output written once) over HBM bandwidth, vs the
@@ -192,13 +214,15 @@ class KernelCase:
     panel_factor (shape (B, m, b)) and ``(b, pivot0)`` for apply_factors
     (shape of C, (B, m, w))."""
 
-    def __init__(self, name, shape, param, dtype, gen):
+    def __init__(self, name, shape, param, dtype, gen, data="random"):
         import torch
 
         from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
 
         self.name, self.shape, self.param, self.dtype = name, shape, param, dtype
+        self.data = data
         self.note = ""
+        self.fixed = None  # tiles that must come back bitwise as they were
         self.dname = str(dtype).removeprefix("torch.")
         size = _itemsize(self.dname)
         B, m, w = shape
@@ -218,12 +242,16 @@ class KernelCase:
                          f"{ggr_update._update_layout(m, w, n_piv, size)}")
         elif name == "batched_geqrt":
             n_piv = param
+            if data == "tree":
+                x = tree_tiles(B, m, gen, dtype)
+                self.fixed = slice(B // 2, B)
             self.fn = lambda z: ggr_panel.batched_geqrt(z, n_piv)
             self.plain = lambda: ggr_panel.batched_geqrt_plain(x, n_piv)
             # Q and R of the tile's pivot columns: [R | Qt] up to signs
             self.library = lambda: torch.linalg.qr(x[:, :, :n_piv])
             self.flops = geqrt_flops(shape, n_piv)
             self.nbytes = 2.0 * B * m * w * size
+            self.note = f", layout (G, ws) {ggr_panel._geqrt_layout(m, w, size)}"
         elif name == "panel_factor":
             pivot0 = param
             self.fn = lambda z: ggr_panel.panel_factor(z, pivot0)
@@ -248,12 +276,15 @@ class KernelCase:
         self.rel_tol = rel_bound(name, shape, self.dname)
 
     def label(self) -> str:
-        return f"{self.name} {self.shape} {self.dname} param={self.param}"
+        data = "" if self.data == "random" else f" {self.data} data"
+        return f"{self.name} {self.shape} {self.dname} param={self.param}{data}"
 
     def compare(self, quiet: bool = False) -> float:
         """Kernel vs plain version on the same inputs, each output on its own
         scale; returns the worst absolute error and keeps the worst error
         over rms(out) in ``rel``."""
+        import torch
+
         out, ref = self.kernel(), self.plain()
         outs = out if isinstance(out, tuple) else (out,)
         refs = ref if isinstance(ref, tuple) else (ref,)
@@ -269,6 +300,10 @@ class KernelCase:
             err = max(err, e)
         self.rel = max(rels)
         self.old = min(olds) if olds else float("inf")
+        if self.fixed is not None:
+            check(torch.equal(out[self.fixed], self.x[self.fixed]),
+                  f"{self.label()}: the [0 | I] tiles come back bitwise as they were",
+                  quiet)
         old = f" (old rule {self.old:.1e})" if olds else ""
         check(ok, f"{self.label()}: max_abs_err {err:.3e}, max|err| / rms(out) "
                   f"{', '.join(f'{q:.2e}' for q in rels)}; each within "
@@ -398,14 +433,14 @@ def main() -> int:
     # ------------------------------------------------------------ phase 3
     phase("3. kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [KernelCase(name, shape, param, getattr(torch, dname), gen)
-             for name, shape, param, dname in PHASE3]
+    cases = [KernelCase(name, shape, param, getattr(torch, dname), gen, *data)
+             for name, shape, param, dname, *data in PHASE3]
     worst = {name: 0.0 for name in kernels}
     timed = {}
     for case in cases:
         worst[case.name] = max(worst[case.name], case.compare())
         case.zero_batch()
-        timed[(case.name, case.shape, case.dname)] = case.times()
+        timed[(case.name, case.shape, case.dname, case.data)] = case.times()
 
     # ------------------------------------------------------------ phase 4
     phase("4. serving")
@@ -578,7 +613,7 @@ def main() -> int:
                               "src/repro/kernels/ggr_apply.py:28")}
     rows_out = []
     for name in kernels:
-        t = timed[headline[name]]
+        t = timed[(*headline[name], "random")]
         rows_out.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -588,8 +623,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": list(headline[name][1]), "dtype": headline[name][2],
         })
-    for (name, shape, dname), t in timed.items():
-        print(f"  {name} {shape} {dname}: " + ", ".join(
+    for (name, shape, dname, data), t in timed.items():
+        print(f"  {name} {shape} {dname} {data}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in t.items()))
     print(f"  serving: {req_s:.1f} req/s; dense ms: " + ", ".join(

@@ -27,7 +27,7 @@ __all__ = ["MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("ggr_update", "ggr_panel", "ggr_panel_factor", "ggr_apply")
-_HEADERS = ("ggr_common.cuh", "ggr_scan.cuh")
+_HEADERS = ("ggr_common.cuh", "ggr_scan.cuh", "ggr_warp.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

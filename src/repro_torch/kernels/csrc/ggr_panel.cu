@@ -7,92 +7,139 @@
 // triangularizes the first n_piv columns, pivot row c for column c (see
 // ggr_common.cuh for the column step); the remaining columns ride along, so a
 // tile [T | I] comes back as [R | Qt].  The annihilated column is written
-// exactly as sigma*t_c at the pivot and zeros below.
+// exactly as sigma*t_0 at the pivot and zeros below; a column that is zero
+// from its pivot down leaves the tile bitwise as it was.
 //
 // Bound on this card: a tile is read once and written once, 2*B*t*w elements,
 // while column c sweeps its t-c active rows over the w-c-1 columns right of it
 // (columns left of c are already zero) at about 5 flops per element, so the
-// work is B*sum_c (5*(t-c)*(w-c-1) + (w-c-1) + 8*(t-c)) flops.  At the tree
-// schedule's level-0 shape (t = b = 64, w = 2b) that is 17 flops per byte in
-// f32 and 8.6 in f64, under the H100's ridge of 20 and 10 (67 / 34 TFLOP/s
-// over 3.35 TB/s), so bytes bound it.  The design reads and writes each element once:
-// the whole tile is staged in shared memory (64 KB at b = 64 in f64) and
-// swept there column after column; each thread owns one output column, so the
-// global loads and stores are coalesced.  The per-column serial coefficient
-// chain (one thread, t-c rows) and the block barriers around it are the
-// latency this first version leaves in place.
+// work is B*sum_c (5*(t-c)*(w-c-1) + (w-c-1) + 8*(t-c)) flops
+// (chip_smoke.py::geqrt_flops).  At the tree schedule's level-0 shape (t = b
+// = 64, w = 2b) that is 17 flops per byte in f32 and 8.6 in f64, under the
+// H100's ridge of 20 and 10 (67 / 34 TFLOP/s over 3.35 TB/s), so bytes bound
+// it.  Each element is read from device memory once and written once: the
+// tile is staged in shared memory, and each pivot row is stored at its own
+// step (it is final once its column is annihilated), the rows past the last
+// pivot at the end.
 //
-// Layout: one thread block per tile, blockDim = w rounded up to 32.  Per
-// column: a block reduction gives sigma, one thread runs the coefficient
-// chain, every thread sweeps its column.  Dynamic shared memory: t*w tile
-// elements, 4*t coefficient slots, 32 reduction slots and t_c.
+// What bounds it in practice is latency: a launch of the tree schedule holds
+// at most 128 tiles, one block each, so it lasts as long as one tile's chain
+// of column steps, and a step is a chain of dependent phases (max-abs,
+// suffix norms, coefficients, suffix dots, DET2).  The design shortens each
+// phase (B1's column step, ggr_warp.cuh):
+//
+//   * No serial coefficient chain: one warp computes column c's
+//     coefficients with the active rows over its lanes (coeff_chain: a
+//     shuffle max, a reverse shuffle scan with carries for the suffix norms,
+//     each row's t computed once).  A zero column (sigma == 0, as in every
+//     [0 | I] tile the tree pads with) stops after the max: the step is
+//     skipped and the tile stays as it was.
+//   * Only the w-c-1 columns right of c are swept: the columns left of c are
+//     zero in the active rows (this kernel annihilated them), and the pivot
+//     row keeps its values there.
+//   * Each thread walks whole columns bottom-up (column_walk: each row's
+//     (v, k, l) in one 16-byte record, four rows' loads ahead of their
+//     stores).  Walks of row chunks from the carry of the chunks below (as
+//     the panel kernel walks its slabs) were slower at every main-path
+//     shape: a tile has at most 64 active rows there (PERF.md §6).
+//   * The layout (threads G = blockDim, a thread a swept column, and the
+//     row stride ws) comes from the tile's shape
+//     (ggr_panel.py::_geqrt_layout), never from B, so a tile's bits do not
+//     depend on its batch.
+//
+// Per column step the block passes two barriers (column c in place; the
+// coefficients in place).  Dynamic shared memory (elements, tile_elems): a
+// record for each of the t rows, the tile at row stride ws (w rounded up to
+// odd where it fits: the coefficient warp reads a column down the rows),
+// sigma and t_0.
 #include <cuda_runtime.h>
 
 #include "ggr_common.cuh"
+#include "ggr_warp.cuh"
 
 namespace {
 
+// Elements of shared memory one tile takes, mirrored by
+// ggr_panel.py::_geqrt_smem.  The records come first, so they are 16-byte
+// aligned.
+__host__ __device__ __forceinline__ size_t tile_elems(int t, int ws) {
+  return 4 * (size_t)t + (size_t)t * ws + 2;
+}
+
+// Rows of the tile a thread loads together before storing them.
+constexpr int kLoadGroup = 16;
+
 template <typename T>
-__global__ void batched_geqrt_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                     int t, int w, int n_piv) {
+__global__ void __launch_bounds__(512)
+batched_geqrt_kernel(const T* __restrict__ in, T* __restrict__ out, int t, int w,
+                     int n_piv, int ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* X = reinterpret_cast<T*>(smem_raw);  // t x w tile
-  T* vs = X + (size_t)t * w;
-  T* kk = vs + t;
-  T* ll = kk + t;
-  T* vd = ll + t;
-  T* red = vd + t;  // block-reduction slots
-  T* tc_slot = red + ggr::kReduceSlots;
-
+  ggr::Rec<T>* rec = reinterpret_cast<ggr::Rec<T>*>(smem_raw);
+  T* X = reinterpret_cast<T*>(smem_raw) + 4 * (size_t)t;  // row i at X[i * ws]
+  T* slot = X + (size_t)t * ws;                            // sigma, t_0
+  const int G = (int)blockDim.x, tid = (int)threadIdx.x;
   const T* src = in + (size_t)blockIdx.x * t * w;
-  T* dst = out + (size_t)blockIdx.x * t * w;
-  const int j = threadIdx.x;
-  const bool active = j < w;
+  T* Y = out + (size_t)blockIdx.x * t * w;
 
-  if (active)
-    for (int i = 0; i < t; ++i) X[(size_t)i * w + j] = src[(size_t)i * w + j];
+  // the tile into shared memory, kLoadGroup loads in flight a thread
+  const int total = t * w;
+  int e = tid;
+  for (; e + (kLoadGroup - 1) * G < total; e += kLoadGroup * G) {
+    T v[kLoadGroup];
+#pragma unroll
+    for (int q = 0; q < kLoadGroup; ++q) v[q] = src[e + q * G];
+#pragma unroll
+    for (int q = 0; q < kLoadGroup; ++q) {
+      const int f = e + q * G, i = f / w;
+      X[(size_t)i * ws + (f - i * w)] = v[q];
+    }
+  }
+  for (; e < total; e += G) {
+    const int i = e / w;
+    X[(size_t)i * ws + (e - i * w)] = src[e];
+  }
 
   const int steps = n_piv < t ? n_piv : t;
   for (int c = 0; c < steps; ++c) {
-    __syncthreads();  // the chain reads column c of every thread's last sweep
-    const int n = t - c;  // active rows c..t-1; rows above c are untouched
-    const T* piv = X + (size_t)c * w + c;
-    const T sigma = ggr::block_absmax(piv, w, n, red);
-    if (j == 0) *tc_slot = ggr::column_coeffs(piv, w, n, sigma, vs, kk, ll, vd);
-    __syncthreads();
-    const T tc = *tc_slot;
-    if (active && tc > ggr::eps<T>()) {  // do_any: else the tile is left untouched
-      T* col = X + (size_t)c * w + j;
-      if (j == c) {
-        col[0] = sigma * tc;  // annihilated column: sigma*t at the pivot, 0 below
-        for (int i = 1; i < n; ++i) col[(size_t)i * w] = T(0);
-      } else {
-        col[0] = ggr::sweep_column(col, w, n, vs, kk, ll, vd) / tc;
-      }
+    const int n = t - c;  // active rows c..t-1; the rows above are final
+    T* top = X + (size_t)c * ws;
+    __syncthreads();  // column c and the last step's rows in place
+    if (tid < 32)
+      ggr::coeff_chain(tid, n, [&](int i) { return top[(size_t)i * ws + c]; }, rec, slot);
+    __syncthreads();  // coefficients, sigma and t_0 in place
+    const T sigma = slot[0], t0 = slot[1];
+    T* Yc = Y + (size_t)c * w;
+    if (!(t0 > ggr::eps<T>())) {  // do_any false: the tile stays as it is
+      for (int j = tid; j < w; j += G) Yc[j] = top[j];
+      continue;
     }
+    for (int j = c + 1 + tid; j < w; j += G)
+      ggr::column_walk<T, 4>(n, top + ws + j, ws, top[j], rec, t0, Yc + j);
+    // the annihilated column: sigma*t_0 at the pivot, zeros below; the pivot
+    // row keeps its values left of c
+    for (int r = c + 1 + tid; r < t; r += G) X[(size_t)r * ws + c] = T(0);
+    for (int j = tid; j <= c; j += G) Yc[j] = j == c ? sigma * t0 : top[j];
   }
+
   __syncthreads();
-
-  if (active)
-    for (int i = 0; i < t; ++i) dst[(size_t)i * w + j] = X[(size_t)i * w + j];
+  for (int e2 = steps * w + tid; e2 < total; e2 += G) {  // rows past the last pivot
+    const int i = e2 / w;
+    Y[e2] = X[(size_t)i * ws + (e2 - i * w)];
+  }
 }
 
 template <typename T>
-size_t smem_bytes(int t, int w) {
-  return ((size_t)t * w + 4 * (size_t)t + ggr::kReduceSlots + 1) * sizeof(T);
-}
-
-template <typename T>
-int launch(const T* in, T* out, int B, int t, int w, int n_piv, int device,
-           void* stream) {
+int launch(const T* in, T* out, int B, int t, int w, int n_piv, int G, int ws,
+           int device, void* stream) {
+  if (G < 32 || G % 32 || G > 512 || ws < w || t < 1 || w < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes<T>(t, w);
+  const size_t smem = tile_elems(t, ws) * sizeof(T);
   err = cudaFuncSetAttribute(batched_geqrt_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (w + 31) / 32 * 32;
-  batched_geqrt_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(in, out, t, w, n_piv);
+  batched_geqrt_kernel<T><<<B, G, smem, (cudaStream_t)stream>>>(in, out, t, w, n_piv, ws);
   return (int)cudaGetLastError();
 }
 
@@ -100,14 +147,14 @@ int launch(const T* in, T* out, int B, int t, int w, int n_piv, int device,
 
 extern "C" {
 
-int ggr_batched_geqrt_f32(const float* in, float* out, int B, int t, int w,
-                          int n_piv, int device, void* stream) {
-  return launch<float>(in, out, B, t, w, n_piv, device, stream);
+int ggr_batched_geqrt_f32(const float* in, float* out, int B, int t, int w, int n_piv,
+                          int G, int ws, int device, void* stream) {
+  return launch<float>(in, out, B, t, w, n_piv, G, ws, device, stream);
 }
 
 int ggr_batched_geqrt_f64(const double* in, double* out, int B, int t, int w,
-                          int n_piv, int device, void* stream) {
-  return launch<double>(in, out, B, t, w, n_piv, device, stream);
+                          int n_piv, int G, int ws, int device, void* stream) {
+  return launch<double>(in, out, B, t, w, n_piv, G, ws, device, stream);
 }
 
 const char* ggr_panel_error_string(int code) {

@@ -166,8 +166,33 @@ def batched_geqrt_plain(tiles: torch.Tensor, n_pivots: int,
     return X
 
 
-def _smem_bytes(t: int, w: int, itemsize: int) -> int:
-    return (t * w + 4 * t + 33) * itemsize  # mirrors smem_bytes in ggr_panel.cu
+# The tile kernel's thread layout (csrc/ggr_panel.cu).  Chosen from a sweep on
+# the card (tools/geqrt_sweep.py; PERF.md §6).
+_GEQRT_THREADS = 512  # the kernel's launch bound
+
+
+def _geqrt_smem(t: int, ws: int, itemsize: int) -> int:
+    """Shared memory of one tile (mirrors tile_elems in ggr_panel.cu): t
+    coefficient records (4 elements each), the tile at row stride ws, sigma
+    and t_0."""
+    return (4 * t + t * ws + 2) * itemsize
+
+
+def _geqrt_layout(t: int, w: int, itemsize: int):
+    """(G, ws) for a (t, w) tile: G threads a tile (one block), each walking
+    whole columns, and the row stride ws in shared memory — from the shape,
+    the dtype and the card's limits only, never the batch, so a tile's bits
+    do not depend on its batch.  None when the tile does not fit one block's
+    shared memory.
+
+    A thread a swept column (at most w - 1, whole warps, up to
+    _GEQRT_THREADS; wider tiles give a thread several columns), and an odd
+    row stride (a column read free of bank conflicts) where it fits."""
+    G = min(_GEQRT_THREADS, -(-max(1, w - 1) // 32) * 32)
+    for ws in (w | 1, w):
+        if _geqrt_smem(t, ws, itemsize) <= _cuda.MAX_SMEM_BYTES:
+            return G, ws
+    return None
 
 
 def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
@@ -176,16 +201,18 @@ def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
         raise ValueError(f"batched_geqrt: unsupported device {tiles.device}")
     _kernel_dtype_check(tiles, accum_dtype, "batched_geqrt")
     B, t, w = tiles.shape
-    smem = _smem_bytes(t, w, tiles.element_size())
-    if smem > _cuda.MAX_SMEM_BYTES or w > _cuda.MAX_THREADS:
+    size = tiles.element_size()
+    layout = _geqrt_layout(t, w, size)
+    if layout is None:
         raise ValueError(
             f"batched_geqrt: a ({t}, {w}) {dtype_name(tiles.dtype)} tile needs "
-            f"{smem} bytes of shared memory and {w} threads; the kernel takes at "
-            f"most {_cuda.MAX_SMEM_BYTES} bytes and {_cuda.MAX_THREADS} threads")
+            f"{_geqrt_smem(t, w, size)} bytes of shared memory; the kernel "
+            f"takes at most {_cuda.MAX_SMEM_BYTES}")
     out = torch.empty_like(tiles)
-    if B == 0:
+    if tiles.numel() == 0:
         return out
-    _cuda.launch("ggr_panel", "ggr_batched_geqrt", [tiles, out], B, t, w, n_pivots)
+    _cuda.launch("ggr_panel", "ggr_batched_geqrt", [tiles, out], B, t, w, n_pivots,
+                 *layout)
     batched_geqrt.launches += 1
     batched_geqrt.shapes.add((tuple(tiles.shape), n_pivots, tiles.dtype))
     return out
@@ -202,9 +229,9 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
     ``Qt`` orthogonal.  All-zero tiles are exact fixed points (every divisor
     is eps-guarded), so padding tiles come back bit-identical with ``Qt = I``.
 
-    The CUDA kernel runs one thread block per tile over the whole batch, so
-    ``block_b`` (kept for parity with the JAX signature) sets no tiling; it
-    must be positive.  ``precision`` selects tile compute dtype + in-kernel
+    The CUDA kernel runs one thread block per tile over the whole batch,
+    laid out by ``_geqrt_layout`` from the tile's shape, so ``block_b`` (kept
+    for parity with the JAX signature) sets no tiling; it must be positive.  ``precision`` selects tile compute dtype + in-kernel
     accumulation dtype (``None`` = tiles at their own dtype, same-width
     accumulation); on CUDA tensors only the uniform f32/f64 policies have a
     kernel.  The launch count is ``batched_geqrt.launches``.

@@ -110,8 +110,15 @@ def test_batched_update_result_does_not_depend_on_the_batch(card, m, w, n_piv):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,t,w,n_piv", [(2, 8, 16, 8), (67, 64, 128, 64),
-                                         (9, 20, 24, 16), (4, 12, 30, 16)])
+                                         (9, 20, 24, 16), (4, 12, 30, 16),
+                                         (3, 65, 131, 65), (3, 128, 200, 128),
+                                         (2, 33, 40, 0), (2, 24, 900, 24),
+                                         (2, 1, 1, 1), (3, 300, 20, 20)])
 def test_batched_geqrt_kernel_matches_plain(card, dtype, B, t, w, n_piv):
+    """Tile 0 is all zero and comes back bitwise; 65 and 128 active rows put
+    two and four rows on a lane of the coefficient warp; n_piv = 0 copies;
+    900 columns give a thread two; 300 rows, more than the warp holds in
+    registers (three passes through the records), with n_piv = w."""
     g = torch.Generator(device=card).manual_seed(B + t)
     X = torch.randn((B, t, w), generator=g, device=card, dtype=dtype)
     X[0] = 0
@@ -121,6 +128,50 @@ def test_batched_geqrt_kernel_matches_plain(card, dtype, B, t, w, n_piv):
     ref = ggr_panel.batched_geqrt_plain(X, n_piv)
     assert _rel_err(out, ref) <= rel_bound("batched_geqrt", t, w, dtype)
     assert torch.equal(out[0], X[0])
+
+
+def _tree_tiles(g, card, B, b, dtype):
+    """[pan | I] tiles as the tree schedule builds them, the second half
+    [0 | I] (row tiles past the matrix)."""
+    pan = torch.randn((B, b, b), generator=g, device=card, dtype=dtype)
+    pan[B // 2:] = 0
+    eye = torch.eye(b, device=card, dtype=dtype).expand(B, b, b)
+    return torch.cat([pan, eye], 2).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+def test_batched_geqrt_on_the_trees_tiles(card, dtype, tol):
+    """(64, 64, 128) [pan | I] tiles, half [0 | I], as the tree QR's first
+    panel: each output within rel_bound of the plain version; Qt orthogonal
+    (max |Qt Qt^T - I|) and Qt T = R (||Qt T - R|| / ||T||) within tol, a few
+    times 64 rows' worth of rounding (64 x 6e-8 f32, 64 x 1.1e-16 f64), which
+    holds whatever the tiles' conditioning; the [0 | I] tiles bitwise as they
+    were."""
+    g = torch.Generator(device=card).manual_seed(64)
+    X = _tree_tiles(g, card, 64, 64, dtype)
+    out = batched_geqrt(X, 64)
+    assert _rel_err(out, ggr_panel.batched_geqrt_plain(X, 64)) <= rel_bound(
+        "batched_geqrt", 64, 128, dtype)
+    assert torch.equal(out[32:], X[32:])
+    R, Qt, T = (z[:32].double() for z in (out[:, :, :64], out[:, :, 64:], X[:, :, :64]))
+    eye = torch.eye(64, device=card, dtype=torch.float64)
+    assert float((Qt @ Qt.transpose(1, 2) - eye).abs().max()) <= tol
+    assert float(torch.linalg.norm(Qt @ T - R) / torch.linalg.norm(T)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", ["random", "tree"])
+def test_batched_geqrt_result_does_not_depend_on_the_batch(card, data):
+    """40 (64, 128) tiles, random or the tree's own: each equals itself
+    launched alone, bit for bit, wherever it sits in the batch."""
+    g = torch.Generator(device=card).manual_seed(40)
+    X = (_tree_tiles(g, card, 40, 64, torch.float32) if data == "tree"
+         else torch.randn((40, 64, 128), generator=g, device=card))
+    got = batched_geqrt(X, 64)
+    for i in range(40):
+        assert torch.equal(got[i], batched_geqrt(X[i:i + 1], 64)[0])
+    assert torch.equal(got[7:20], batched_geqrt(X[7:20], 64))
 
 
 def _bits_zero(x):

@@ -9,7 +9,12 @@ N fresh inputs (generator seeds 1..N) and prints the worst and the median of
 max|err| / rms(out) over the draws, beside the case's bound.  For
 batched_update and batched_geqrt in f32 it also prints how far the kernel
 and the f32 plain version each land from the plain version run in f64 on
-the same inputs (whether a reading is the kernel's rounding or both's).
+the same inputs (whether a reading is the kernel's rounding or both's), and
+for batched_geqrt the tile it lands farthest from f64 on: its draw and
+index, the condition number of its pivot columns, its smallest pivot that
+sets a rotation (|R[c, c]| over the 2-norm of the pivot columns, c before
+the last row), both f32 readings on that tile, and how far the f64 result
+moves when that tile moves by f32's rounding (2^-24 relative, worst of 3).
 Imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -23,6 +28,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+
+
+def tile_note(tile, n_piv: int, plain, rms64: float) -> str:
+    """What sets the f32 error on one (t, w) tile: its conditioning."""
+    import torch
+
+    x = tile.double()[None]
+    ref = plain(x, n_piv)
+    A = x[0, :, :n_piv]
+    steps = min(n_piv, A.shape[0])
+    pivots = ref[0].diagonal()[:steps - 1].abs() / torch.linalg.matrix_norm(A, ord=2)
+    c = int(pivots.argmin()) if steps > 1 else 0
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    moved = max(float((plain(x * (1 + 2.0 ** -24 * torch.randn(
+        x.shape, generator=gen, device=x.device, dtype=x.dtype)), n_piv) - ref).abs().max())
+        for _ in range(3)) / rms64
+    small = f"{float(pivots[c]):.2e} at c = {c}" if steps > 1 else "none"
+    return (f"cond {float(torch.linalg.cond(A)):.2e}, smallest rotating pivot "
+            f"{small}, f64 result moves {moved:.2e} under a 2^-24 input move")
 
 
 def main() -> int:
@@ -43,26 +67,35 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
-    for name, shape, param, dname in chip_smoke.PHASE3:
+    for name, shape, param, dname, *data in chip_smoke.PHASE3:
         dtype = getattr(torch, dname)
-        rels, own, own_plain = [], [], []
+        rels, own, own_plain, worst = [], [], [], None
         for seed in range(1, args.draws + 1):
             gen = torch.Generator(device="cuda").manual_seed(seed)
-            case = chip_smoke.KernelCase(name, shape, param, dtype, gen)
+            case = chip_smoke.KernelCase(name, shape, param, dtype, gen, *data)
             case.compare(quiet=True)
             rels.append(case.rel)
             if name in plain and dtype == torch.float32:
                 ref64 = plain[name](case.x.double(), param)
                 rms64 = float(ref64.square().mean().sqrt())
-                own.append(float((case.kernel().double() - ref64).abs().max()) / rms64)
-                own_plain.append(
-                    float((case.plain().double() - ref64).abs().max()) / rms64)
+                err = (case.kernel().double() - ref64).abs()
+                err_plain = (case.plain().double() - ref64).abs()
+                own.append(float(err.max()) / rms64)
+                own_plain.append(float(err_plain.max()) / rms64)
+                i = int(err.amax((1, 2)).argmax())
+                if name == "batched_geqrt" and (worst is None or own[-1] > worst[0]):
+                    worst = (own[-1], float(err_plain[i].max()) / rms64, seed, i,
+                             case.x[i].clone(), rms64)
         f64 = (f"; vs f64: kernel worst {max(own):.2e}, plain f32 worst "
                f"{max(own_plain):.2e}" if own else "")
-        print(f"  {name} {shape} {dname} param={param}: "
-              f"max|err| / rms(out) worst {max(rels):.2e}, median "
+        print(f"  {case.label()}: max|err| / rms(out) worst {max(rels):.2e}, median "
               f"{statistics.median(rels):.2e} over {args.draws} draws; bound "
               f"{case.rel_tol:.1e}{f64}", flush=True)
+        if worst:
+            kern, pl, seed, i, tile, rms64 = worst
+            print(f"    farthest tile from f64: draw {seed}, tile {i} (kernel "
+                  f"{kern:.2e}, plain f32 {pl:.2e}): "
+                  f"{tile_note(tile, param, plain[name], rms64)}", flush=True)
     chip_smoke.FAILURES.clear()  # a reading over its bound is printed, not failed
     return 0
 
