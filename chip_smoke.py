@@ -32,19 +32,38 @@ Drives the port's main path on the card and checks it, phase by phase:
    ``ggr_qr_pallas`` (panel 32) against ``torch.linalg.qr``; traces of both
    schedules' QR and of the tree lstsq, and the times of every route beside
    the library calls;
-6. every (shape, dtype) the kernels were launched at by phases 4-5 is held
+6. instrumented path and sketch least squares — (a) the serving flush of
+   phase 4 under an ``obs`` collector: its snapshot must hold every family
+   of ``REQUIRED_SERVE_FAMILIES``, and the flush's req/s with and without
+   the collector are printed; ``python -m repro_torch.launch.serve_qr
+   --metrics build/smoke_metrics/serve --check --requests 512`` must exit 0
+   with two CSV lines and files ``repro_torch.obs.export --validate``
+   accepts; (b) ``sketch_lstsq`` of a (65536, 256) f64 system at cond 1e8
+   with b = A x0 + r0, r0 orthogonal to range(A), ||r0|| = 0.1 (the sketch's
+   (1024, 256) QR runs the fused schedule's kernels): the residual within
+   1e-6 of ||r0|| in at most 50 iterations, R_s the same bits twice, timed
+   beside ``torch.linalg.lstsq``; (c) a ``ConditionMonitor`` over 32
+   appends to a (256, 256) RLS state, within 2x of ``torch.linalg.cond``; a
+   downdate across the rank cliff under ``DowndateGuard`` ("damp": finite
+   factor, one ``solvers.downdate_guard_trips``; "refuse": the state bit
+   for bit) and ``state_integrity`` with and without ``max_cond``; (d) one
+   ``ggr_qr_blocked`` of 4096^2 f32 under a collector: its ``blocked``
+   flops (the sweep model) and the GFLOP/s they give (a reading); (e) the
+   paper's baseline QRs (``core.baselines``) against ``torch.linalg.qr``;
+7. every (shape, dtype) the kernels were launched at by phases 4-6 is held
    against the plain version once more;
-7. a JSON line of per-kernel numbers, then the last line
+8. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before the serving run and the dense run and
-read just after; a route that does not launch its kernels fails the run.  Any
-failed check exits non-zero without printing the last line.  The script
-imports nothing of the JAX package.
+Launch counts are set to 0 just before the serving run, the dense run and
+phase 6, and read just after each; a route that does not launch its kernels
+fails the run.  Any failed check exits non-zero without printing the last
+line.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -110,6 +129,8 @@ PHASE3 = [
 ]
 SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chunk
 FAILURES: list[str] = []
+# phase 6's sketch least squares: the tall system, its spectrum and the oracle
+SKETCH_M, SKETCH_N, SKETCH_COND, SKETCH_R0 = 65536, 256, 1e8, 0.1
 
 
 def check(ok: bool, what: str, quiet: bool = False) -> None:
@@ -119,8 +140,11 @@ def check(ok: bool, what: str, quiet: bool = False) -> None:
         FAILURES.append(what)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -341,14 +365,17 @@ class KernelCase:
                     bound_ms=bound_ms, bound_by=bound_by)
 
 
-def profile_top(fn, label: str, rows: int = 8) -> None:
+def profile_top(fn, label: str, rows: int = 8, host_ops: bool = True) -> None:
     """One traced call of ``fn``: device time by kernel name (self time,
-    top ``rows``), the device's busy share of the call's wall time."""
+    top ``rows``), the device's busy share of the call's wall time.
+    ``host_ops=False`` records the device activity only: reading back a
+    trace of ~10^5 host-side ops takes the profiler about a minute."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -381,6 +408,236 @@ def recheck_shapes(recorded: dict, gen) -> dict:
     print(f"  worst max|err| / rms(out): {worst_rel}")
     print(f"  shapes where the bound is looser than the old rule: {looser or 'none'}")
     return worst
+
+
+def graded_system(m: int, n: int, cond: float, seed: int):
+    """(A, b, x0, ||r0||) in f64 numpy: A with singular values geometric from
+    1 to 1/cond (orthogonal factors from QR of seeded Gaussians), b = A x0 +
+    r0 with r0 orthogonal to range(A) — so x0 solves min ||Ax - b|| and
+    ||r0|| is the optimal residual exactly."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((m, n)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    A = (U * np.geomspace(1.0, 1.0 / cond, n)) @ V.T
+    x0 = rng.standard_normal(n)
+    r0 = rng.standard_normal(m)
+    r0 -= U @ (U.T @ r0)
+    r0 *= SKETCH_R0 / np.linalg.norm(r0)
+    return A, A @ x0 + r0, x0, float(np.linalg.norm(r0))
+
+
+def wall_ms(fn) -> tuple:
+    """(result, ms) of one call, synchronized on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def instrumented_phase(server, reqs, kernels, card: str) -> dict:
+    """Phase 6 (a)-(e); returns the launches it made and its numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs, ranks, solvers
+    from repro_torch.core import baselines, ggr_qr_blocked
+    from repro_torch.launch.serve_qr import _submit_all
+
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the serving flush with and without a collector, in turns after
+    # one untimed flush
+    _submit_all(server, reqs)
+    server.flush()
+    server.drain()
+    rates = {"without": [], "with": []}
+    for mode in ("without", "with", "with", "without", "without", "with"):
+        _submit_all(server, reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "with":
+            with obs.collecting() as reg:
+                served = server.flush()
+                server.drain()
+        else:
+            served = server.flush()
+            server.drain()
+        rates[mode].append(served / (time.perf_counter() - t0))
+    out["serve_req_s"] = rates
+    print(f"  (a) 8192-request flush: without a collector "
+          f"{', '.join(f'{r:.1f}' for r in rates['without'])} req/s, with one "
+          f"{', '.join(f'{r:.1f}' for r in rates['with'])} req/s (turns: without, "
+          f"with, with, without, without, with; {card})")
+    snap = obs.snapshot(reg)
+    missing = obs.missing_families(snap)
+    check(not missing, f"(a) the instrumented flush's snapshot holds every "
+                       f"required serving family (missing: {missing or 'none'})")
+    flops = sum(m["value"] for m in snap["metrics"] if m["name"] == "serve.flops_total")
+    gf = [m for m in snap["metrics"] if m["name"] == "serve.achieved_gflops"]
+    print(f"  (a) {len(snap['metrics'])} series; serve.flops_total {flops:.4g}; "
+          "achieved GFLOP/s p50 by kind: " + ", ".join(
+              f"{m['labels']['kind']} {m['quantiles']['0.5']:.3g}" for m in gf))
+    prefix = ROOT / "build" / "smoke_metrics" / "serve"
+    prefix.parent.mkdir(parents=True, exist_ok=True)
+    for f in (f"{prefix}.jsonl", f"{prefix}.prom"):
+        if os.path.exists(f):
+            os.remove(f)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
+                          "--metrics", str(prefix), "--check", "--requests", "512"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
+          f"(a) serve_qr --metrics --check --requests 512 exits "
+          f"{cli.returncode} with {len(lines)} CSV lines: {lines[-1:]}")
+    val = subprocess.run([sys.executable, "-m", "repro_torch.obs.export",
+                          "--validate", f"{prefix}.jsonl"],
+                         capture_output=True, text=True, env=env, timeout=300)
+    check(val.returncode == 0 and os.path.exists(f"{prefix}.prom"),
+          f"(a) obs.export --validate accepts {prefix}.jsonl: "
+          f"{(val.stdout or val.stderr).strip()[:120]}")
+
+    # (b) sketch-preconditioned least squares at full size, f64
+    t0 = time.perf_counter()
+    A, b, x0, r0 = graded_system(SKETCH_M, SKETCH_N, SKETCH_COND, seed=13)
+    print(f"  (b) built A ({SKETCH_M}, {SKETCH_N}) f64, cond {SKETCH_COND:g}, "
+          f"in {time.perf_counter() - t0:.1f} s on the host")
+    At = torch.as_tensor(A, device="cuda")
+    bt = torch.as_tensor(b, device="cuda")
+    before = {k: fn.launches for k, fn in kernels.items()}
+    fit, ms = wall_ms(lambda: ranks.sketch_lstsq(At, bt, iters=50, tol=1e-12, seed=15))
+    sk_launch = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    fit2, ms2 = wall_ms(lambda: ranks.sketch_lstsq(At, bt, iters=50, tol=1e-12, seed=15))
+    _, lib_ms = wall_ms(lambda: torch.linalg.lstsq(At, bt[:, None]).solution)
+    _, lib_ms2 = wall_ms(lambda: torch.linalg.lstsq(At, bt[:, None]).solution)
+    resid, iters = float(fit.resid), int(fit.iters)
+    x_err = float(np.linalg.norm(fit.x.cpu().numpy() - x0) / np.linalg.norm(x0))
+    out["sketch"] = dict(ms=[ms, ms2], lstsq_ms=[lib_ms, lib_ms2], iters=iters,
+                         resid_gap=abs(resid - r0) / r0)
+    print(f"  (b) sketch_lstsq: {ms:.1f} / {ms2:.1f} ms, {iters} iterations, "
+          f"resid {resid:.12g} vs ||r0|| {r0:.12g}, |x - x0| / |x0| {x_err:.2e}; "
+          f"torch.linalg.lstsq {lib_ms:.1f} / {lib_ms2:.1f} ms; launches {sk_launch} "
+          f"({card})")
+    check(abs(resid - r0) <= 1e-6 * r0 and iters <= 50,
+          f"(b) residual within {abs(resid - r0) / r0:.2e} of ||r0|| (<= 1e-6) "
+          f"in {iters} <= 50 iterations")
+    check(x_err <= 1e-2, f"(b) x within {x_err:.2e} of x0 (<= 1e-2, the "
+                         "problem's tol x cond amplification)")
+    check(torch.equal(fit.R, fit2.R) and torch.equal(fit.x, fit2.x),
+          "(b) R_s and x are the same bits on two runs (deterministic sketch)")
+    check(sk_launch["panel_factor"] > 0 and sk_launch["apply_factors"] > 0,
+          "(b) the sketch QR launched panel_factor and apply_factors")
+    profile_top(lambda: ranks.sketch_lstsq(At, bt, iters=50, tol=1e-12, seed=15),
+                "sketch_lstsq (65536, 256) f64", rows=5, host_ops=False)
+    del At, bt, fit, fit2
+
+    # (c) monitor and guard on a (256, 256) RLS state on the card
+    n = 256
+    rng = np.random.default_rng(21)
+    U, _ = np.linalg.qr(rng.standard_normal((2 * n, n)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    R0 = np.linalg.qr((U * np.geomspace(1.0, 1e-6, n)) @ V.T, mode="r")
+    R0 *= np.sign(np.diag(R0))[:, None]
+    f64 = dict(dtype=torch.float64, device="cuda")
+    rls = solvers.RecursiveLS(n=n)
+    state = solvers.RLSState(R=torch.as_tensor(R0, **f64),
+                             d=torch.as_tensor(rng.standard_normal((n, 1)), **f64),
+                             count=torch.zeros((), dtype=torch.int32, device="cuda"))
+    mon = ranks.ConditionMonitor(layer="rls", iters=4)
+    t0 = time.perf_counter()
+    with obs.collecting() as reg:
+        for _ in range(32):
+            state = rls.observe(state, torch.as_tensor(1e-3 * rng.standard_normal((1, n)), **f64),
+                                torch.zeros((1, 1), **f64))
+            est = mon.observe(state.R)
+    truth = float(torch.linalg.cond(state.R.cpu().double()))
+    print(f"  (c) ConditionMonitor over 32 appends: {est:.6g} vs torch.linalg.cond "
+          f"{truth:.6g} ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+    check(0.5 * truth <= est <= 2.0 * truth, "(c) the monitor's last estimate is "
+          f"within 2x of torch.linalg.cond ({est / truth:.3f})")
+    check(reg.find("rls.cond_estimate").value == est, "(c) rls.cond_estimate gauge recorded")
+    u = state.R[n // 2] + 0.0  # a direction of the window's mass
+    lev = float(rls.residual_gram(state, u))
+    bad = (1.5 / lev) ** 0.5 * u  # leverage 1.5: past the rank cliff
+    y = bad.sum().reshape(1)
+    with obs.collecting() as reg:
+        damped = rls.forget(state, bad, y, guard=ranks.DowndateGuard(1e-6, "damp"))
+    trips = reg.find("solvers.downdate_guard_trips")
+    check(bool(damped.R.isfinite().all()) and trips is not None and trips.value == 1,
+          "(c) damp: the factor stays finite, solvers.downdate_guard_trips = "
+          f"{None if trips is None else trips.value}")
+    kept = rls.forget(state, bad, y, guard=ranks.DowndateGuard(1e-6, "refuse"))
+    check(torch.equal(kept.R, state.R) and torch.equal(kept.d, state.d),
+          "(c) refuse: the state comes back bit for bit")
+    ok_free, why_free = solvers.state_integrity(damped)
+    ok_cap, why_cap = solvers.state_integrity(damped, max_cond=1e3)
+    ok_big, _ = solvers.state_integrity(damped, max_cond=1e12)
+    print(f"  (c) state_integrity: {ok_free} ({why_free}); max_cond=1e3: {ok_cap} "
+          f"({why_cap}); max_cond=1e12: {ok_big}")
+    check(ok_free and ok_big and not ok_cap, "(c) state_integrity passes the "
+          "damped state, and refuses it only under max_cond=1e3")
+
+    # (d) flop accounting of one dense QR (a reading, not a claim)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    M = torch.randn((4096, 4096), generator=g, device="cuda")
+    ggr_qr_blocked(M)  # warm
+    qr_ms = {"without": [], "with": []}
+    for mode in ("without", "with", "with", "without"):
+        if mode == "with":
+            with obs.collecting() as reg:
+                qr_ms[mode].append(wall_ms(lambda: ggr_qr_blocked(M))[1])
+        else:
+            qr_ms[mode].append(wall_ms(lambda: ggr_qr_blocked(M))[1])
+    out["dense_qr_ms"] = qr_ms
+    print(f"  (d) ggr_qr_blocked 4096^2 f32 wall: without a collector "
+          f"{', '.join(f'{t:.2f}' for t in qr_ms['without'])} ms, with one "
+          f"{', '.join(f'{t:.2f}' for t in qr_ms['with'])} ms")
+    sched = "fused"
+    disp = reg.find("blocked.dispatch_seconds", schedule=sched, precision="float32")
+    fl = reg.find("blocked.flops_total", dtype="float32", schedule=sched, precision="float32")
+    model = obs.ggr_sweep_flops(4096, 4096)
+    check(disp is not None and fl is not None and fl.value == model,
+          "(d) blocked.flops_total equals ggr_sweep_flops(4096, 4096)")
+    if disp is not None:
+        sec = disp.values[-1]
+        out["dense_gflops"] = model / sec / 1e9
+        print(f"  (d) ggr_qr_blocked 4096^2 f32 (\"auto\", {sched}): {model:.6g} flops "
+              f"by the sweep model in {sec * 1e3:.2f} ms = {model / sec / 1e9:.1f} "
+              f"GFLOP/s ({card})")
+    del M
+
+    # (e) the paper's baseline QRs against torch.linalg.qr
+    out["baselines_ms"] = {}
+    for name, shape in (("householder_qr2", (512, 256)), ("householder_qrf", (512, 256)),
+                        ("mht_qr", (512, 256)), ("mgs_qr", (512, 256)),
+                        ("givens_qr", (128, 128)), ("cgr_qr", (128, 128))):
+        X = torch.randn(shape, generator=g, device="cuda")
+        fn = getattr(baselines, name)
+        res, ms = wall_ms(lambda: fn(X))
+        R = res[1] if name == "mgs_qr" else res
+        R_lib = torch.linalg.qr(X, mode="r").R
+        k = min(shape)
+        gap = float(torch.linalg.norm(R[:k].abs() - R_lib[:k].abs()) / torch.linalg.norm(R_lib))
+        out["baselines_ms"][name] = ms
+        check(gap <= 1e-3, f"(e) {name} {shape} f32: |R| within {gap:.2e} of "
+                           f"torch.linalg.qr's (<= 1e-3), {ms:.1f} ms")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    out["launches"] = launches
+    out["shapes"] = {k: set(fn.shapes) for k, fn in kernels.items()}
+    print(f"  launches in phase 6: {launches} "
+          f"({(time.perf_counter() - t_phase):.1f} s wall)")
+    for k in ("batched_update", "panel_factor", "apply_factors"):
+        check(launches[k] > 0, f"phase 6 launched {k}")
+    return out
 
 
 def main() -> int:
@@ -591,14 +848,20 @@ def main() -> int:
         print(f"  {name} {shape} f32: {ms:.2f} ms ({card})")
 
     # ------------------------------------------------------------ phase 6
-    phase("6. kernels vs plain versions at every main-path shape")
+    phase("6. instrumented path and sketch least squares")
+    inst = instrumented_phase(server, reqs, kernels, card)
+    for name in kernels:
+        recorded[name] |= inst["shapes"][name]
+
+    # ------------------------------------------------------------ phase 7
+    phase("7. kernels vs plain versions at every main-path shape")
     n_shapes = sum(len(s) for s in recorded.values())
     recheck_worst = recheck_shapes(recorded, gen)
     print(f"  {n_shapes} (shape, dtype) launches rechecked; worst errors "
           f"{recheck_worst}")
 
-    # ------------------------------------------------------------ phase 7
-    phase("7. summary")
+    # ------------------------------------------------------------ phase 8
+    phase("8. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -617,7 +880,8 @@ def main() -> int:
         rows_out.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": serve_launches[name] + dense_launches[name],
+            "launches": (serve_launches[name] + dense_launches[name]
+                         + inst["launches"][name]),
             "max_abs_err": max(worst[name], recheck_worst[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -629,6 +893,7 @@ def main() -> int:
             for k, v in t.items()))
     print(f"  serving: {req_s:.1f} req/s; dense ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in dense_ms.items()) + f"; card {card}")
+    print(f"  phase 6: {json.dumps({k: v for k, v in inst.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -44,16 +44,27 @@ pairs into ONE ``batched_update`` launch per tree round; the fused schedule
 makes one ``panel_factor`` and one ``apply_factors`` launch per panel for the
 whole batch.
 
+With an ``obs`` collector installed, each panel's phases run under the
+spans ``repro/blocked/{panel,coupling,trailing}``, the whole call under
+``repro/blocked/triangularize``, and the call is recorded as one
+``blocked`` dispatch (its seconds, blocked on the result, and the flops of
+the sweep model ``ggr_sweep_mults``).
+
 ``ggr_geqrt`` / ``ggr_tsqrt`` are the explicit-Q tile primitives, and
 ``ggr_qr_blocked_reference`` is the Python-unrolled PLASMA-style tile
 algorithm with its serial TSQRT chain — plain PyTorch over ``core.ggr``.
 """
 from __future__ import annotations
 
+import contextlib
+import time
+
 import numpy as np
 import torch
 
-from repro_torch.kernels.backend import Precision, dtype_name, resolve_precision
+from repro_torch import obs
+from repro_torch.kernels.backend import (Precision, count_resolution, dtype_name,
+                                         resolve_precision)
 from repro_torch.kernels.backend import forced_schedule as backend_forced_schedule
 from repro_torch.kernels.ggr_apply import apply_factors
 from repro_torch.kernels.ggr_panel import batched_geqrt, panel_factor
@@ -197,6 +208,11 @@ def _gemm(lhs: torch.Tensor, rhs: torch.Tensor, accum_dtype) -> torch.Tensor:
     return torch.bmm(lhs.to(ad), rhs.to(ad)).to(lhs.dtype)
 
 
+def _span(name: str):
+    """A phase span when a collector is installed, else nothing."""
+    return obs.named_span(name) if obs.enabled() else contextlib.nullcontext()
+
+
 def _panel_step_tree(Xp: torch.Tensor, k: int, *, b: int, F: int, W: int,
                      block_b, accum_dtype=None) -> None:
     """One tree-scheduled panel, in place on ``Xp`` (B, rows, W): batched tile
@@ -214,31 +230,35 @@ def _panel_step_tree(Xp: torch.Tensor, k: int, *, b: int, F: int, W: int,
 
     # level 0: factor every row tile of every problem independently, identity
     # riding -> Qt_i; ONE launch for all B*p tiles
-    tiles = torch.cat([pan, eye.expand(B * p, b, b)], dim=2)
-    out0 = batched_geqrt(tiles, n_pivots=b, block_b=block_b or B * p,
-                         precision=prec)
-    R = out0[:, :, :b].reshape(B, p, b, b)
-    C = _gemm(out0[:, :, b:], frame.reshape(B * p, b, W),
-              accum_dtype).reshape(B, p, b, W)
+    with _span("repro/blocked/panel"):
+        tiles = torch.cat([pan, eye.expand(B * p, b, b)], dim=2)
+        out0 = batched_geqrt(tiles, n_pivots=b, block_b=block_b or B * p,
+                             precision=prec)
+        R = out0[:, :, :b].reshape(B, p, b, b)
+    with _span("repro/blocked/trailing"):
+        C = _gemm(out0[:, :, b:], frame.reshape(B * p, b, W),
+                  accum_dtype).reshape(B, p, b, W)
 
     # binary-tree coupling of the per-tile R factors (log2(p) rounds); each
     # round is ONE batched compact-active-set sweep + ONE batched GEMM
     for ai, bi in _tree_levels(p):
         npair = len(ai)
         ai, bi = torch.as_tensor(ai, device=dev), torch.as_tensor(bi, device=dev)
-        E = eye.expand(B, npair, b, b)
-        Z = torch.zeros((B, npair, b, b), dtype=dtype, device=dev)
-        stacked = torch.cat([torch.cat([R[:, ai], E, Z], dim=3),
-                             torch.cat([R[:, bi], Z, E], dim=3)], dim=2)
-        out = batched_update(stacked.reshape(B * npair, 2 * b, 3 * b),
-                             n_pivots=b, block_b=block_b or B * npair,
-                             precision=prec).reshape(B, npair, 2 * b, 3 * b)
-        R[:, ai] = out[:, :, :b, :b]
-        Qt = out[:, :, :, b:].reshape(B * npair, 2 * b, 2 * b)  # node transform
-        Ct = torch.cat([C[:, ai], C[:, bi]], dim=2).reshape(B * npair, 2 * b, W)
-        Ct = _gemm(Qt, Ct, accum_dtype).reshape(B, npair, 2 * b, W)
-        C[:, ai] = Ct[:, :, :b]
-        C[:, bi] = Ct[:, :, b:]
+        with _span("repro/blocked/coupling"):
+            E = eye.expand(B, npair, b, b)
+            Z = torch.zeros((B, npair, b, b), dtype=dtype, device=dev)
+            stacked = torch.cat([torch.cat([R[:, ai], E, Z], dim=3),
+                                 torch.cat([R[:, bi], Z, E], dim=3)], dim=2)
+            out = batched_update(stacked.reshape(B * npair, 2 * b, 3 * b),
+                                 n_pivots=b, block_b=block_b or B * npair,
+                                 precision=prec).reshape(B, npair, 2 * b, 3 * b)
+            R[:, ai] = out[:, :, :b, :b]
+            Qt = out[:, :, :, b:].reshape(B * npair, 2 * b, 2 * b)  # node transform
+        with _span("repro/blocked/trailing"):
+            Ct = torch.cat([C[:, ai], C[:, bi]], dim=2).reshape(B * npair, 2 * b, W)
+            Ct = _gemm(Qt, Ct, accum_dtype).reshape(B, npair, 2 * b, W)
+            C[:, ai] = Ct[:, :, :b]
+            C[:, bi] = Ct[:, :, b:]
 
     frame[:] = C.reshape(B, F, W)
     # exact panel-column write: [R; 0] (keeps finalized columns exactly zero
@@ -258,10 +278,13 @@ def _panel_step_fused(Xp: torch.Tensor, k: int, *, b: int, F: int,
             else Precision(dtype_name(dtype), accum_dtype, dtype_name(dtype)))
     c0 = k * b
     frame = Xp[:, c0:c0 + F]  # (B, F, W) view
-    Rp, V, T = panel_factor(frame[:, :, c0:c0 + b], pivot0=0, precision=prec)
+    with _span("repro/blocked/panel"):
+        Rp, V, T = panel_factor(frame[:, :, c0:c0 + b], pivot0=0, precision=prec)
     C = frame[:, :, c0 + b:]
     if C.shape[2]:  # a pure QR's last panel has no trailing columns
-        apply_factors(V, T, C, pivot0=0, block_w=block_w, precision=prec, out=C)
+        with _span("repro/blocked/trailing"):
+            apply_factors(V, T, C, pivot0=0, block_w=block_w, precision=prec,
+                          out=C)
     frame[:, :, c0:c0 + b] = Rp
 
 
@@ -341,6 +364,7 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
         raise ValueError(f"unknown schedule {schedule!r}")
     if block_w is not None and block_w <= 0:
         raise ValueError(f"block_w must be positive, got {block_w}")
+    count_resolution(X)
     sched = backend_forced_schedule() or schedule
     if sched == "auto":
         sched = "tree" if X.device.type == "cpu" else "fused"
@@ -350,9 +374,23 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
         X = X.to(prec.compute)
         accum_dtype = prec.accum_dtype
     batched = X.ndim == 3
-    out = _triangularize_blocked_impl(X if batched else X[None], n_pivots,
-                                      tile, sched, block_w, block_b,
-                                      accum_dtype=accum_dtype)
+    Xb = X if batched else X[None]
+    if not obs.enabled():
+        out = _triangularize_blocked_impl(Xb, n_pivots, tile, sched, block_w,
+                                          block_b, accum_dtype=accum_dtype)
+        return out if batched else out[0]
+    with obs.span("repro/blocked/triangularize"):
+        t0 = time.perf_counter()
+        out = _triangularize_blocked_impl(Xb, n_pivots, tile, sched, block_w,
+                                          block_b, accum_dtype=accum_dtype)
+        obs.block_ready(out)
+        sweep_flops = Xb.shape[0] * obs.ggr_sweep_flops(m, w, n_pivots)
+        dt = dtype_name(X.dtype)
+        obs.record_dispatch("blocked", sweep_flops, time.perf_counter() - t0,
+                            schedule=sched,
+                            by_dtype=obs.flops_by_dtype(sweep_flops, dt,
+                                                        accum_dtype),
+                            precision=dt)
     return out if batched else out[0]
 
 

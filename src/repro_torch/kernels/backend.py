@@ -3,7 +3,10 @@
 In the port **the tensor's device decides** how a kernel entry point runs: a
 CPU tensor takes the kernel's plain PyTorch version, a CUDA tensor takes the
 hand-written CUDA kernel or raises.  There is no interpret switch and no
-override that puts the plain version on the card.
+override that puts the plain version on the card.  With an ``obs``
+collector installed, each decision is counted as
+``kernels.interpret_resolutions`` under the JAX package's mode names:
+``"compiled"`` for the CUDA kernel, ``"interpret"`` for the plain version.
 """
 from __future__ import annotations
 
@@ -13,8 +16,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.obs import _state as _obs_state
+
 __all__ = ["degraded_mode", "forced_schedule", "Precision", "resolve_precision",
-           "DEFAULT_PRECISION", "dtype_name", "torch_dtype"]
+           "DEFAULT_PRECISION", "count_resolution", "dtype_name", "torch_dtype"]
 
 # Programmatic degraded-mode overrides (see ``degraded_mode``).
 _DEGRADED: dict = {}
@@ -48,6 +53,16 @@ def degraded_mode(schedule: str | None = None):
 def forced_schedule() -> str | None:
     """The ``degraded_mode`` schedule override, or None outside one."""
     return _DEGRADED.get("schedule")
+
+
+def count_resolution(x: torch.Tensor) -> None:
+    """Count one kernel entry point's device decision for ``x`` when an
+    ``obs`` collector is installed (``kernels.interpret_resolutions``,
+    ``mode="compiled"`` on a CUDA tensor, ``"interpret"`` on a CPU one)."""
+    reg = _obs_state._active()
+    if reg.enabled:
+        reg.counter("kernels.interpret_resolutions",
+                    mode="interpret" if x.device.type == "cpu" else "compiled").inc()
 
 
 _CANON = {
@@ -164,4 +179,8 @@ def resolve_precision(precision: "Precision | str | None") -> Precision:
         raise ValueError(
             f"accum_dtype {prec.accum_dtype!r} is narrower than "
             f"compute_dtype {prec.compute_dtype!r}")
+    reg = _obs_state._active()
+    if reg.enabled:
+        reg.counter("kernels.precision_resolutions",
+                    compute=prec.compute_dtype, accum=prec.accum_dtype).inc()
     return prec

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .backend import resolve_precision
+from .backend import count_resolution, resolve_precision
 from .ggr_panel import _EPS, _accum_dt, _kernel_dtype_check, _revcumsum
 
 __all__ = ["apply_factors", "apply_factors_plain"]
@@ -150,6 +150,7 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     if not batched:
         V, T, C = V[None], T[None], C[None]
         out = None if out is None else out[None]
+    count_resolution(C)
     if C.device.type == "cpu":
         res = apply_factors_plain(V, T, C, pivot0, accum)
         res = res if out is None else out.copy_(res)

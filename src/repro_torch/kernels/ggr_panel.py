@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .backend import dtype_name, resolve_precision
+from .backend import count_resolution, dtype_name, resolve_precision
 
 __all__ = ["batched_geqrt", "batched_geqrt_plain", "panel_factor",
            "panel_factor_plain"]
@@ -242,6 +242,7 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
         prec = resolve_precision(precision)
         tiles = tiles.to(prec.compute)
         accum = prec.accum_dtype
+    count_resolution(tiles)
     if tiles.device.type == "cpu":
         return batched_geqrt_plain(tiles, n_pivots, accum)
     return _batched_geqrt_cuda(tiles, n_pivots, accum)
@@ -378,6 +379,7 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
         accum = prec.accum_dtype
     batched = panel.ndim == 3
     x = panel if batched else panel[None]
+    count_resolution(x)
     if x.device.type == "cpu":
         out = panel_factor_plain(x, pivot0, accum)
     else:

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .backend import dtype_name, resolve_precision
+from .backend import count_resolution, dtype_name, resolve_precision
 from .ggr_panel import _EPS, _accum_dt, _check_stack, _kernel_dtype_check, _revcumsum
 
 __all__ = ["batched_update", "batched_update_plain", "pad_batch", "pad_to_tile"]
@@ -222,6 +222,7 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
         accum = prec.accum_dtype
     if m == n_pivots:  # no appended rows — nothing to annihilate
         return stacked
+    count_resolution(stacked)
     if stacked.device.type == "cpu":
         return batched_update_plain(stacked, n_pivots, accum)
     return _batched_update_cuda(stacked, n_pivots, accum)

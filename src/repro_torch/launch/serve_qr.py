@@ -26,18 +26,32 @@ the CPU; with no CUDA device and the default it raises.
 
 emits one CSV line per run with throughput; ``--check`` folds a cross-backend
 max-error into the ``derived`` column (rows always have exactly 3 fields).
-``--mesh N`` (N > 1), ``--resilient`` and ``--metrics`` are not ported yet
-and exit with code 2.
+``--mesh N`` (N > 1) and ``--resilient`` are not ported yet and exit with
+code 2.
+
+Observability: the serving layers are instrumented with ``repro_torch.obs``
+— per-kind queue-depth gauges, submit->flush queue-wait and flush-duration
+histograms, batch-size, batch-close-reason and padding-waste tracking,
+executable-cache-miss counters, factor-health gauges, and per-dispatch
+achieved-GFLOP/s from the ``core.counts`` models.  All of it is a no-op
+until a collector is installed (``obs.install``/``obs.collecting``);
+``--metrics PREFIX`` installs one for the CLI run and writes
+``PREFIX.jsonl`` + ``PREFIX.prom`` snapshots (also triggered by the
+``REPRO_OBS_SNAPSHOT`` environment variable); the CSV stays on stdout and
+the note naming the files goes to stderr.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.serve import ContinuousBatcher, Dispatcher, Ticket
 
 __all__ = ["QRServer", "make_workload"]
@@ -71,6 +85,17 @@ class QRServer:
                        device=self.device, block_b=self.block_b,
                        double_buffer=False, precision=self.precision),
             admit_max=None, retain_cycles=1)
+
+    @property
+    def _submit_times(self) -> dict:
+        """Pending per-group submit timestamps (empty when uninstrumented)."""
+        return {k: b.submit_times for k, b in self._engine._open.items()
+                if b.submit_times}
+
+    @property
+    def _seen_dispatch(self) -> set:
+        """(group, padded-batch) signatures already dispatched (obs-only)."""
+        return self._engine.dispatcher._seen_dispatch
 
     # ------------------------------------------------------------- submits
     def submit_append(self, R, U, d=None, Y=None) -> Ticket:
@@ -228,7 +253,9 @@ def main(argv=None):
     """Serving CLI: run a synthetic workload through one timed flush.
 
     Emits one 3-field CSV row (name, req_per_s, derived); ``--check`` folds a
-    cross-backend max-error into the derived column.
+    cross-backend max-error into the derived column, and ``--metrics P`` (or
+    ``REPRO_OBS_SNAPSHOT=P``) collects ``repro_torch.obs`` metrics for the
+    run and writes ``P.jsonl`` + ``P.prom`` snapshots.
     """
     ap = argparse.ArgumentParser(prog="serve_qr")
     ap.add_argument("--requests", type=int, default=64)
@@ -245,14 +272,20 @@ def main(argv=None):
                     help="cross-check a sample of results against the other backend")
     ap.add_argument("--resilient", action="store_true",
                     help="not ported yet: exits with code 2")
-    ap.add_argument("--metrics", default=None, metavar="PREFIX",
-                    help="not ported yet: exits with code 2")
+    ap.add_argument("--metrics", default=os.environ.get("REPRO_OBS_SNAPSHOT"),
+                    metavar="PREFIX",
+                    help="collect obs metrics and write PREFIX.jsonl + "
+                         "PREFIX.prom snapshots (default: $REPRO_OBS_SNAPSHOT)")
     args = ap.parse_args(argv)
     for flag, asked in (("--mesh N > 1", args.mesh > 1),
-                        ("--resilient", args.resilient),
-                        ("--metrics", args.metrics is not None)):
+                        ("--resilient", args.resilient)):
         if asked:
             ap.error(f"{flag} is not yet ported")
+
+    reg = None
+    if args.metrics:
+        reg = obs.MetricsRegistry()
+        obs.install(reg)
 
     server = QRServer(backend=args.backend, max_batch=args.max_batch,
                       device=args.device)
@@ -287,6 +320,16 @@ def main(argv=None):
     print("name,req_per_s,derived")
     print(f"serve_qr_{args.backend}_n{args.n}_p{args.rows},{served / dt:.1f},"
           f"max_batch={args.max_batch};device={args.device}{check}")
+
+    if reg is not None:
+        meta = {"cli": "serve_qr", "backend": args.backend, "mesh": args.mesh,
+                "device": args.device, "requests": args.requests, "n": args.n,
+                "rows": args.rows, "req_per_s": served / dt}
+        obs.write_jsonl(f"{args.metrics}.jsonl", reg, meta)
+        obs.write_prometheus(f"{args.metrics}.prom", reg)
+        obs.uninstall()
+        print(f"serve_qr: wrote {args.metrics}.jsonl and {args.metrics}.prom",
+              file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -26,10 +26,13 @@ oldest open batch (tickets resolve to ``ShedError``) — see ``serve.policy``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import torch
+
+from repro_torch import obs
 
 from .dispatch import Dispatcher
 from .policy import AdmissionPolicy, Rejected, ShedError
@@ -64,6 +67,7 @@ class OpenBatch:
     cycle: int
     opened_at: float
     requests: list = field(default_factory=list)
+    submit_times: list = field(default_factory=list)  # obs-only, may be empty
 
 
 class ContinuousBatcher:
@@ -122,6 +126,8 @@ class ContinuousBatcher:
         kind = request.kind
         action = self.policy.admit_action(kind, self._kind_depth(kind))
         if action == "reject":
+            if obs.enabled():
+                obs.counter("serve.admission_rejected", kind=kind).inc()
             raise Rejected(kind, self._kind_depth(kind),
                            self.policy.tier(kind).max_queue)
         if action == "shed_oldest":
@@ -133,6 +139,11 @@ class ContinuousBatcher:
             batch = OpenBatch(key, self._cycles.get(key, 0), self._clock())
             self._open[key] = batch
         batch.requests.append(request)
+        if obs.enabled():
+            batch.submit_times.append(time.perf_counter())
+            obs.counter("serve.requests_submitted", kind=kind).inc()
+            obs.gauge("serve.queue_depth",
+                      kind=kind).set(self._kind_depth(kind))
         ticket = Ticket(kind, key, len(batch.requests) - 1, batch.cycle)
         if self.admit_max is not None and len(batch.requests) >= self.admit_max:
             self._close(batch, "max_batch")
@@ -147,6 +158,11 @@ class ContinuousBatcher:
         del self._open[batch.key]
         self._store(batch.key, batch.cycle, _SHED)
         self._cycles[batch.key] = batch.cycle + 1
+        if obs.enabled():
+            obs.counter("serve.requests_shed",
+                        kind=kind).inc(len(batch.requests))
+            obs.gauge("serve.queue_depth",
+                      kind=kind).set(self._kind_depth(kind))
 
     # --------------------------------------------------------------- close
     def poll(self, now: float | None = None) -> int:
@@ -193,9 +209,34 @@ class ContinuousBatcher:
         ``reason`` ("max_batch" | "deadline" | "flush") names what closed it.
         """
         key = batch.key
+        kind = key[0]
         del self._open[key]
-        outs, handles = self.dispatcher.dispatch(key, batch.requests,
-                                                 cycle=batch.cycle)
+        rec = obs.enabled()
+        if rec:
+            now = time.perf_counter()
+            qwait = obs.histogram("serve.queue_wait_seconds", kind=kind)
+            for ts in batch.submit_times:
+                qwait.observe(now - ts)
+            obs.histogram("serve.batch_size",
+                          kind=kind).observe(len(batch.requests))
+            obs.counter("serve.batch_close", kind=kind, reason=reason).inc()
+            group_span = obs.span(f"repro/serve/flush/{kind}")
+        else:
+            now = 0.0
+            group_span = contextlib.nullcontext()
+        with group_span:
+            outs, handles = self.dispatcher.dispatch(key, batch.requests,
+                                                     cycle=batch.cycle)
+        if rec:
+            # with double buffering off, per-chunk dispatches blocked above,
+            # so this measures the whole cycle: stacking + dispatch + scatter;
+            # with it on, it measures host-side close cost only
+            obs.histogram("serve.flush_duration_seconds",
+                          kind=kind).observe(time.perf_counter() - now)
+            obs.counter("serve.requests_served",
+                        kind=kind).inc(len(batch.requests))
+            obs.gauge("serve.queue_depth",
+                      kind=kind).set(self._kind_depth(kind))
         self._store(key, batch.cycle, outs)
         self._handles[(key, batch.cycle)] = handles
         self._cycles[key] = batch.cycle + 1
@@ -206,6 +247,8 @@ class ContinuousBatcher:
             # fully-errored cycle: purge eagerly instead of lingering until
             # retain_cycles rotation — tickets still resolve (to the error)
             outs = _PurgedCycle(error=outs[0], count=len(outs))
+            if obs.enabled():
+                obs.counter("serve.cycles_purged", kind=key[0]).inc()
         cycles = self._results.setdefault(key, {})
         cycles[cycle] = outs
         if self.retain_cycles is not None:
@@ -259,8 +302,8 @@ class ContinuousBatcher:
     def drain(self) -> int:
         """Block until every stored result is device-complete.
 
-        Also finalizes every in-flight double-buffered chunk.  Returns the
-        number of results waited on.
+        Also finalizes (blocks + accounts) every in-flight double-buffered
+        chunk.  Returns the number of results waited on.
         """
         self.dispatcher.drain()
         outs = [o for cycles in self._results.values()

@@ -22,6 +22,14 @@ later (``pump`` polls the events without blocking, ``drain`` blocks), so the
 host stacks the next batch while the card works on the previous one.
 ``double_buffer=False`` finalizes each chunk before the next is stacked.
 
+**Accounting.**  With a ``repro_torch.obs`` collector installed, finalizing
+a chunk blocks on its CUDA event and records it: ``record_dispatch`` (the
+host clock from stacking to the event's completion, and the chunk's flops
+from the ``core.counts`` models), ``serve.padding_waste`` and, for the
+R-producing kinds, ``factor_health``; the first dispatch of each (group,
+padded batch) signature counts a ``serve.executable_cache_miss``.  Without
+a collector a chunk costs one ``enabled`` read more.
+
 Entry points run on the card: ``Dispatcher(device="cuda")`` is the default
 and raises when no CUDA device is present; tests pass ``device="cpu"``.
 """
@@ -33,6 +41,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import Precision, pad_batch, resolve_precision
 from repro_torch.kernels.backend import dtype_name, torch_dtype
 
@@ -117,12 +126,16 @@ class ExecutableCache:
 
 @dataclass
 class InFlight:
-    """One enqueued chunk awaiting finalization."""
+    """One enqueued chunk awaiting finalization (blocking + accounting)."""
 
     key: tuple             # group signature
     nb: int                # real (un-padded) request count in the chunk
     outs: list             # per-request results (tensors or tuples of tensors)
     event: object = None   # torch.cuda.Event recorded after the chunk, or None
+    t0: float = 0.0        # host perf_counter at stack start (obs only)
+    flops: object = None   # () -> analytic useful-work flops of the chunk
+    r_factor: object = None  # batched R for factor-health gauges (or None)
+    record: bool = False   # obs was collecting at dispatch time
     done_at: float | None = None
     finalized: bool = False
 
@@ -159,6 +172,7 @@ class Dispatcher:
     double_buffer: bool = False
     precision: object | None = None  # Precision | policy name | None
     _inflight: list = field(default_factory=list)
+    _seen_dispatch: set = field(default_factory=set)  # (group, padded_B), obs only
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -214,7 +228,12 @@ class Dispatcher:
         return x.to(torch_dtype(compute_dt))
 
     def _exec_append(self, chunk):
-        """Stack + pad one append chunk, dispatch the fused batched kernel."""
+        """Stack + pad one append chunk, dispatch the fused batched kernel.
+
+        Like every executor, returns ``(outs, flops, r_factor)``: the
+        per-request results, a callable giving the chunk's model flops (only
+        called when a collector records it) and the batched R factor for
+        the health gauges (None for the solve kinds)."""
         from repro_torch.solvers import qr_append_rows_batched
 
         nb = len(chunk)
@@ -223,16 +242,21 @@ class Dispatcher:
         P = self.padded_chunk(nb, "append", store_dt)
         store = torch_dtype(store_dt)
         Rb, Ub = (self._stack(chunk, i, P, compute_dt) for i in (0, 1))
+        n, p = Rb.shape[2], Ub.shape[1]
         if chunk[0].arrays[2] is not None:
             db, Yb = (self._stack(chunk, i, P, compute_dt) for i in (2, 3))
             Rn, dn = qr_append_rows_batched(Rb, Ub, db, Yb,
                                             **self._kernel_opts(store_dt))
             Rn = Rn[:nb].to(store)  # down-cast to storage on return
             dn = dn[:nb].to(store)
-            return [(Rn[i], dn[i]) for i in range(nb)]
-        Rn = qr_append_rows_batched(Rb, Ub, **self._kernel_opts(store_dt))
-        Rn = Rn[:nb].to(store)
-        return [Rn[i] for i in range(nb)]
+            outs = [(Rn[i], dn[i]) for i in range(nb)]
+            w = n + Yb.shape[2]
+        else:
+            Rn = qr_append_rows_batched(Rb, Ub, **self._kernel_opts(store_dt))
+            Rn = Rn[:nb].to(store)
+            outs = [Rn[i] for i in range(nb)]
+            w = n
+        return outs, lambda: nb * obs.ggr_append_flops(n, p, w), Rn
 
     def _exec_lstsq(self, chunk):
         """Stack + pad one lstsq chunk, dispatch the batched augmented sweep.
@@ -250,7 +274,10 @@ class Dispatcher:
         store = torch_dtype(store_dt)
         xs = fit.x[:nb].to(store)  # down-cast to storage on return
         rs = fit.resid[:nb].to(store)
-        return [(xs[i], rs[i]) for i in range(nb)]
+        m, n = Ab.shape[1], Ab.shape[2]
+        k = bb.shape[2] if bb.ndim > 2 else 1
+        return ([(xs[i], rs[i]) for i in range(nb)],
+                lambda: nb * obs.lstsq_flops(m, n, k), None)
 
     def _exec_kalman(self, chunk):
         """Stack + pad one kalman chunk, dispatch the fused SRIF step.
@@ -275,12 +302,16 @@ class Dispatcher:
             return self._stack(chunk, i, P, compute_dt)
 
         cols = [fld(i) for i in range(7 if has_G else 6)]
+        n, w, p = cols[0].shape[-1], cols[3].shape[-1], cols[4].shape[-2]
         Rn, dn = kf_step_batched(*cols[:6], cols[6] if has_G else None,
                                  **self._kernel_opts(store_dt))
         store = torch_dtype(store_dt)
         Rn = Rn[:nb].to(store)  # down-cast to storage on return
         dn = dn[:nb].to(store)
-        return [(Rn[i], dn[i]) for i in range(nb)]
+        # fused SRIF stack: (w + 2n + p, w + n + 1) with w + n pivots
+        # -> n + p rows ride below the (triangular-by-construction) top
+        return ([(Rn[i], dn[i]) for i in range(nb)],
+                lambda: nb * obs.ggr_append_flops(w + n, n + p, w + n + 1), Rn)
 
     def _exec_lstsq_pivoted(self, chunk):
         """Stack + pad one rank-revealing lstsq chunk: the batched QRCP
@@ -300,7 +331,12 @@ class Dispatcher:
         xs = fit.x[:nb].to(store)  # down-cast to storage on return
         rs = fit.resid[:nb].to(store)
         rk = fit.rank[:nb]
-        return [(xs[i], rs[i], rk[i]) for i in range(nb)]
+        m, n = Ab.shape[1], Ab.shape[2]
+        k = bb.shape[2] if bb.ndim > 2 else 1
+        # pivoting adds the per-step suffix-norm matrix + swap on top of the
+        # plain augmented sweep: ~2x the unpivoted macro-op count
+        return ([(xs[i], rs[i], rk[i]) for i in range(nb)],
+                lambda: nb * 2.0 * obs.lstsq_flops(m, n, k), None)
 
     _EXECUTORS = {"append": _exec_append, "lstsq": _exec_lstsq,
                   "kalman": _exec_kalman,
@@ -318,18 +354,29 @@ class Dispatcher:
         chunk is stacked.  ``cycle`` is the batch cycle being dispatched
         (unused here; part of the signature a resilient dispatcher keys on).
         """
-        exec_one = self._EXECUTORS[key[0]]
+        kind = key[0]
+        exec_one = self._EXECUTORS[kind]
         outs: list = []
         handles: list[InFlight] = []
         for lo in range(0, len(reqs), self.max_batch):
             chunk = reqs[lo:lo + self.max_batch]
-            chunk_outs = exec_one(self, chunk)
+            rec = obs.enabled()
+            t0 = time.perf_counter() if rec else 0.0
+            chunk_outs, flops, r_factor = exec_one(self, chunk)
             outs.extend(chunk_outs)
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
-            infl = InFlight(key, len(chunk), chunk_outs, event)
+            infl = InFlight(key, len(chunk), chunk_outs, event, t0, flops,
+                            r_factor, rec)
+            if rec:
+                # the first dispatch of a (group, padded batch) signature is
+                # the one a compiled path would build an executable for
+                sig = (key, self.padded_chunk(len(chunk), kind, key[2]))
+                if sig not in self._seen_dispatch:
+                    self._seen_dispatch.add(sig)
+                    obs.counter("serve.executable_cache_miss", kind=kind).inc()
             if self.double_buffer:
                 self._inflight.append(infl)
             else:
@@ -339,12 +386,34 @@ class Dispatcher:
 
     # -------------------------------------------------------- finalization
     def finalize(self, infl: InFlight) -> None:
-        """Mark one chunk finalized, stamping ``done_at`` once it is ready."""
+        """Mark one chunk finalized, stamping ``done_at`` once it is ready;
+        when it was dispatched under a collector, block on it and record its
+        dispatch metrics."""
         if infl.finalized:
             return
         infl.finalized = True
-        if infl.done_at is None and infl.ready():
+        if not infl.record:
+            if infl.done_at is None and infl.ready():
+                infl.done_at = time.perf_counter()
+            return
+        infl.block()
+        if infl.done_at is None:
             infl.done_at = time.perf_counter()
+        kind = infl.key[0]
+        store_dt = infl.key[2]  # first required operand's dtype name
+        compute_dt, kernel_prec = self._chunk_precision(store_dt)
+        accum_dt = (kernel_prec.accum_dtype if kernel_prec is not None
+                    else compute_dt)
+        flops = infl.flops()
+        obs.record_dispatch("serve", flops, infl.done_at - infl.t0,
+                            by_dtype=obs.flops_by_dtype(flops, compute_dt,
+                                                        accum_dt),
+                            kind=kind, precision=compute_dt)
+        padded = self.padded_chunk(infl.nb, kind, store_dt)
+        obs.gauge("serve.padding_waste", kind=kind).set(
+            (padded - infl.nb) / padded if padded else 0.0)
+        if infl.r_factor is not None:
+            obs.factor_health(infl.r_factor, "serve", kind=kind)
 
     def pump(self) -> int:
         """Finalize every in-flight chunk whose device work is done

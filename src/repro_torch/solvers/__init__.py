@@ -20,7 +20,8 @@ from .kalman import (
     kf_step_batched,
     whiten_measurement,
 )
-from .lstsq import LstsqResult, RecursiveLS, RLSState, ggr_lstsq, solve_triangular
+from .lstsq import (LstsqResult, RecursiveLS, RLSState, ggr_lstsq, solve_triangular,
+                    state_integrity)
 from .qr_update import (
     qr_append_rows,
     qr_append_rows_batched,
@@ -50,5 +51,6 @@ __all__ = [
     "qr_downdate_row",
     "qr_rank1_update",
     "solve_triangular",
+    "state_integrity",
     "whiten_measurement",
 ]

@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ggr import ggr_qr2, ggr_triangularize
 from repro_torch.kernels import resolve_precision
 
@@ -209,8 +210,8 @@ def _step_stacked(R, d, F, Qi, H, z, G):
     lead = R.shape[:-2]
     top, mid = _predict_blocks(R, d, F, Qi, G)
     zero_piv = R.new_zeros((*lead, n, w + n + 1))
-    obs = torch.cat([R.new_zeros((*lead, p, w)), H, z[..., None]], dim=-1)
-    return torch.cat([top, zero_piv, mid, obs], dim=-2)
+    meas = torch.cat([R.new_zeros((*lead, p, w)), H, z[..., None]], dim=-1)
+    return torch.cat([top, zero_piv, mid, meas], dim=-2)
 
 
 def kf_step(state: KalmanState, F: torch.Tensor, Qi: torch.Tensor, H: torch.Tensor,
@@ -225,8 +226,12 @@ def kf_step(state: KalmanState, F: torch.Tensor, Qi: torch.Tensor, H: torch.Tens
     w = Qi.shape[-2]
     X = _step_stacked(state.R, state.d, F, Qi, H, z, G)
     out = ggr_triangularize(X, w + n)
-    return KalmanState(R=torch.triu(out[..., w:w + n, w:w + n]),
-                       d=out[..., w:w + n, w + n], step=state.step + 1)
+    R_new = torch.triu(out[..., w:w + n, w:w + n])
+    # posterior-factor health (a no-op unless a collector is installed);
+    # fleets wanting per-track trend + alarms attach a
+    # ``ranks.ConditionMonitor`` to their results instead
+    obs.factor_health(R_new, "kalman")
+    return KalmanState(R=R_new, d=out[..., w:w + n, w + n], step=state.step + 1)
 
 
 def kf_step_batched(R: torch.Tensor, d: torch.Tensor, F: torch.Tensor,
@@ -264,7 +269,11 @@ def kf_step_batched(R: torch.Tensor, d: torch.Tensor, F: torch.Tensor,
     zb = z.expand((B,) + z.shape) if z.ndim == 1 else z
     stacked = _step_stacked(R, d, bcast(F), bcast(Qi), bcast(H), zb, bcast(G))
     out = _update_stacked(stacked, w + n, backend, block_b, precision=precision)
-    return torch.triu(out[:, w:w + n, w:w + n]), out[:, w:w + n, w + n]
+    R_new = torch.triu(out[:, w:w + n, w:w + n])
+    # batch-wide posterior condition gauge (worst member estimated; see
+    # obs.factor_health) — a no-op unless a collector is installed
+    obs.factor_health(R_new, "kalman")
+    return R_new, out[:, w:w + n, w + n]
 
 
 def kf_filter(state: KalmanState, F: torch.Tensor, Qi: torch.Tensor, H: torch.Tensor,

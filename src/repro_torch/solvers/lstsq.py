@@ -10,23 +10,64 @@
   optionally with exponential forgetting), ``forget`` (sliding-window
   downdate) and ``solve``, all O(n^2) per event.  State is the compact
   ``(R, d)`` pair — never the Gram matrix, never Q.
-
-``state_integrity`` (the serving vault's restore gate) needs the condition
-estimator of ``ranks.monitor`` and is not ported yet.
+* ``state_integrity`` — the finite / condition gate a serving vault runs on
+  a streaming state before it restores it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.blocked import ggr_triangularize_blocked
 from repro_torch.core.ggr import ggr_triangularize
 
 from .qr_update import _tri_solve_lower, qr_append_rows, qr_downdate_row
 
 __all__ = ["LstsqResult", "RLSState", "RecursiveLS", "ggr_lstsq",
-           "solve_triangular"]
+           "solve_triangular", "state_integrity"]
+
+
+def _leaves(state):
+    """The array leaves of a state: tensors, arrays and Python numbers inside
+    (named) tuples, lists and dicts, in order (None is no leaf)."""
+    if isinstance(state, dict):
+        for v in state.values():
+            yield from _leaves(v)
+    elif isinstance(state, (tuple, list)):
+        for v in state:
+            yield from _leaves(v)
+    elif state is not None:
+        yield state
+
+
+def state_integrity(state, max_cond: float | None = None) -> tuple[bool, str]:
+    """Integrity gate for a streaming factor state (``RLSState``,
+    ``KalmanState``, or any ``(R, d)``-carrying tuple).
+
+    Returns ``(ok, reason)``: every floating-point leaf must be finite, and —
+    when ``max_cond`` is given and the state exposes an ``R`` attribute — the
+    triangular factor's ``cond_estimate`` must not exceed it.  This is what a
+    serving vault runs at restore time so a corrupted snapshot is rejected
+    instead of resurrected; it reads each check to the host (one
+    synchronization per leaf on the card).
+    """
+    for leaf in _leaves(state):
+        a = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        if ((a.is_floating_point() or a.is_complex())
+                and not bool(torch.isfinite(a).all())):
+            return False, "non-finite leaf"
+    R = getattr(state, "R", None)
+    if max_cond is not None and R is not None:
+        from repro_torch.ranks.monitor import cond_estimate  # lazy: ranks -> solvers
+
+        cond = float(cond_estimate(torch.as_tensor(R)).cond)
+        if not cond <= max_cond:
+            return False, (f"cond estimate {cond:.3e} exceeds "
+                           f"bound {max_cond:.3e}")
+    return True, "ok"
 
 # Above this problem size the one-shot solvers dispatch their augmented sweep
 # to the blocked panel driver (``core.blocked.ggr_triangularize_blocked``):
@@ -118,6 +159,12 @@ def ggr_lstsq(A: torch.Tensor, b: torch.Tensor, rcond: float | None = None,
                 "relative).  The triangular solve would amplify noise by "
                 "1/|r_ii|.  Pass rcond= to get the pivoted min-norm solution "
                 "(ranks.lstsq_pivoted), e.g. rcond=1e-10 for f64.")
+    if obs.enabled() and A.ndim == 2:
+        # numerical-health sensors of one problem (the batched serving path
+        # records from its flush instead); the orthogonality audit is
+        # sampled — see obs.health
+        obs.factor_health(R, "lstsq")
+        obs.maybe_sample_orthogonality(A, R, "lstsq")
     x = solve_triangular(R, d)
     resid = torch.sqrt(torch.sum(X[..., n:, n:] ** 2, dim=-2))
     if vec:
@@ -191,7 +238,10 @@ class RecursiveLS:
 
         Only meaningful with lam == 1.0 (with exponential forgetting the old
         row's weight has decayed, so the unscaled downdate would overshoot).
-        ``guard`` is not ported yet (see ``qr_downdate_row``).
+        ``guard`` (a ``ranks.DowndateGuard``) bounds the hyperbolic step away
+        from the rank cliff — a shrinking window over nearly collinear
+        features is exactly where an unguarded forget destroys the factor;
+        see ``qr_downdate_row``.
         """
         y_row = torch.as_tensor(y, dtype=state.R.dtype, device=state.R.device).reshape(self.k)
         R, d = qr_downdate_row(state.R, u, state.d, y_row, guard=guard)

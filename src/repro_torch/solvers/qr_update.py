@@ -139,7 +139,7 @@ def qr_append_rows_batched(R: torch.Tensor, U: torch.Tensor,
     return R_new, out[:, :n, n:]
 
 
-def _downdate_core(R, u, d, y):
+def _downdate_core(R, u, d, y, guard=None):
     """Closed-form Givens downdate (macro-op form).  See module docstring.
 
     Solving R^T q = u places the removed row in the rotation cascade's last
@@ -147,11 +147,33 @@ def _downdate_core(R, u, d, y):
     (k, l) form because prod_{i<j} c_i = t_j / t_0.  The rhs recurrence
     zeta_k = (zeta_{k-1} - s_k d_k)/c_k telescopes the same way into a
     prefix dot:  zeta_{k-1} = (t_0 y - sum_{j<k} q_j d_j) / t_k.
+
+    ``guard`` (a ``ranks.DowndateGuard``) intercepts the hyperbolic blow-up:
+    ``alpha^2 = 1 - ||q||^2`` measures the distance to the rank cliff, and
+    the guard damps the removed row, refuses the downdate, or raises before
+    the cascade divides by a vanishing ``alpha``.
     """
     f32 = torch.promote_types(R.dtype, torch.float32)
     Ra = R.to(f32)
     qv = _tri_solve_lower(Ra.T, u.to(f32)[:, None])[:, 0]
     eps = _eps_for(f32)
+    triggered = None
+    if guard is not None:
+        # lazy: solvers <-> ranks would otherwise be a load-time cycle
+        from repro_torch.ranks.monitor import _record_guard_trigger, guard_downdate_q
+
+        guard.validate()
+        if guard.mode == "raise":
+            alpha2_0 = float(1.0 - qv @ qv)
+            if alpha2_0 < guard.tau:
+                raise FloatingPointError(
+                    f"downdate rejected by guard: alpha^2 = 1 - ||R^-T u||^2 "
+                    f"= {alpha2_0:.3e} < tau = {guard.tau:.1e} — removing "
+                    "this row would push the factor across the rank cliff.  "
+                    "Re-factorize the window, or use "
+                    "DowndateGuard(mode='damp'/'refuse').")
+        qv, triggered = guard_downdate_q(qv, guard)
+        _record_guard_trigger(triggered)
     alpha2 = torch.clamp(1.0 - qv @ qv, min=eps)  # <=0 means u not in the factorization
     suff = (qv * qv).flip(0).cumsum(0).flip(0)
     t = torch.sqrt(alpha2 + suff)  # seeded suffix norms, t_n = alpha
@@ -178,6 +200,12 @@ def _downdate_core(R, u, d, y):
     R_new = torch.triu(sg[:, None] * R_new)
     if d_new is not None:
         d_new = sg[:, None] * d_new
+    if triggered is not None and guard.mode == "refuse":
+        # keep the original state when the guard fired: a select on the
+        # device, so the unguarded path never reads ``triggered`` back
+        R_new = torch.where(triggered, Ra, R_new)
+        if d_new is not None:
+            d_new = torch.where(triggered, d.to(d_new.dtype), d_new)
     return R_new.to(R.dtype), None if d is None else d_new.to(R.dtype)
 
 
@@ -188,14 +216,20 @@ def qr_downdate_row(R: torch.Tensor, u: torch.Tensor, d: torch.Tensor | None = N
     ``u`` must be a row previously incorporated into R (a downdate of a row
     not in the span is clamped, not detected).  Returns R' or (R', d').
 
-    ``guard`` (a ``DowndateGuard`` from the rank monitor) is not ported yet:
-    passing one raises ``NotImplementedError``.
+    ``guard``: an optional ``ranks.DowndateGuard``.  Downdating is
+    hyperbolic — it removes information — and a row that carries (nearly)
+    all remaining mass in some direction drives ``alpha^2 = 1 - ||R^-T u||^2``
+    to zero, after which the factor is numerically singular.  The guard
+    bounds ``alpha^2`` from below by ``tau``: ``mode="damp"`` shrinks the
+    removed row to sit exactly at the floor, ``"refuse"`` keeps the state
+    unchanged bit for bit, ``"raise"`` throws a ``FloatingPointError``
+    diagnostic (PyTorch runs eagerly, so it always raises).  Trips are
+    counted as ``solvers.downdate_guard_trips`` when a collector is
+    installed.
     """
-    if guard is not None:
-        raise NotImplementedError("DowndateGuard (ranks.monitor) is not ported yet")
     if (d is None) != (y is None):
         raise ValueError("pass both d and y, or neither")
-    R_new, d_new = _downdate_core(R, u, d, y)
+    R_new, d_new = _downdate_core(R, u, d, y, guard=guard)
     if d is None:
         return R_new
     return R_new, d_new
@@ -207,7 +241,8 @@ def qr_rank1_update(R: torch.Tensor, v: torch.Tensor, weight: float,
     """Symmetric rank-1 Gram update: R'^T R' = R^T R + weight·v v^T.
 
     With rhs state: R'^T d' = R^T d + weight·v y.  ``weight >= 0`` appends the
-    scaled row sqrt(w)·v; ``weight < 0`` downdates it.
+    scaled row sqrt(w)·v; ``weight < 0`` downdates it.  ``guard`` protects
+    the downdate branch (see ``qr_downdate_row``).
     """
     if (d is None) != (y is None):
         raise ValueError("pass both d and y, or neither")

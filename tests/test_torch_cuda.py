@@ -332,3 +332,103 @@ def test_server_on_the_card_matches_the_cpu(card):
             assert y.device.type == "cuda"
             np.testing.assert_allclose(y.cpu().double().numpy(), x.double().numpy(),
                                        atol=1e-4 * max(1.0, float(x.abs().max())))
+
+
+# ------------------------------------------- the instrumented slice on the card
+@pytest.mark.gpu
+def test_sketch_lstsq_on_the_card_matches_its_cpu_run(card):
+    """The sketch QR runs the fused schedule's kernels on the card; the
+    CountSketch sums every bucket in row order on both devices, so the sketch
+    is the same bits, and the solve agrees with the CPU run."""
+    from repro_torch import ranks
+
+    g = torch.Generator().manual_seed(7)
+    A = torch.randn((4096, 160), generator=g, dtype=torch.float64)
+    A = A * torch.logspace(0, -6, 160, dtype=torch.float64)
+    b = torch.randn(4096, generator=g, dtype=torch.float64)
+    S_cpu = ranks.countsketch(A, 640, seed=3)
+    S_card = ranks.countsketch(A.to(card), 640, seed=3)
+    assert torch.equal(S_card.cpu(), S_cpu)
+    assert torch.equal(ranks.countsketch(A.to(card), 640, seed=3), S_card)
+    n0 = (ggr_panel.panel_factor.launches, ggr_apply.apply_factors.launches)
+    fit = ranks.sketch_lstsq(A.to(card), b.to(card), iters=50, tol=1e-12, seed=3)
+    assert ggr_panel.panel_factor.launches > n0[0]
+    assert ggr_apply.apply_factors.launches > n0[1]
+    ref = ranks.sketch_lstsq(A, b, iters=50, tol=1e-12, seed=3)
+    assert fit.x.device.type == "cuda"
+    np.testing.assert_allclose(fit.R.cpu().numpy(), ref.R.numpy(), rtol=0,
+                               atol=1e-11 * float(ref.R.abs().max()))
+    np.testing.assert_allclose(fit.x.cpu().numpy(), ref.x.numpy(), atol=1e-8, rtol=1e-5)
+    assert float(fit.resid) == pytest.approx(float(ref.resid), rel=1e-8)
+    again = ranks.sketch_lstsq(A.to(card), b.to(card), iters=50, tol=1e-12, seed=3)
+    assert torch.equal(again.R, fit.R) and torch.equal(again.x, fit.x)
+
+
+@pytest.mark.gpu
+def test_factor_health_of_a_card_batch_copies_one_factor(card, monkeypatch):
+    from repro_torch import obs
+    from repro_torch.obs import health
+
+    seen = []
+    real = health.condition_estimate
+    monkeypatch.setattr(health, "condition_estimate",
+                        lambda R, iters=6: seen.append(R) or real(R, iters))
+    g = torch.Generator(device=card).manual_seed(8)
+    R = torch.triu(torch.randn((64, 12, 12), generator=g, device=card, dtype=torch.float64))
+    R.diagonal(dim1=-2, dim2=-1).copy_(torch.linspace(1.0, 2.0, 12, device=card))
+    R[37, 4, 4] = 1e-7  # the worst ratio
+    with obs.collecting() as reg:
+        obs.factor_health(R, "unit")
+    assert len(seen) == 1 and seen[0].shape == (12, 12)
+    assert torch.equal(seen[0], R[37])
+    assert reg.find("unit.r_diag_min").value == pytest.approx(1e-7)
+    cpu = obs.MetricsRegistry()
+    with obs.collecting(cpu):
+        obs.factor_health(R.cpu(), "unit")
+    for name in ("r_diag_min", "r_diag_max", "r_cond_estimate"):
+        assert reg.find(f"unit.{name}").value == cpu.find(f"unit.{name}").value
+
+
+@pytest.mark.gpu
+def test_device_timer_blocks_on_card_results(card):
+    from repro_torch import obs
+
+    x = torch.randn((2048, 2048), device=card)
+    with obs.device_timer() as t:
+        t.stop({"y": [x @ x]})
+    assert t.blocked and t.seconds > 0.0
+    assert obs.block_ready(x) is True and obs.block_ready(x.cpu()) is False
+
+
+@pytest.mark.gpu
+def test_guard_integrity_and_metrics_on_the_card(card, tmp_path):
+    from repro_torch import obs, ranks, solvers
+
+    rls = solvers.RecursiveLS(n=4, delta=1e-10)
+    state = rls.init(torch.float64, device=card)
+    rows = torch.as_tensor(np.random.default_rng(10).standard_normal((6, 4)), device=card)
+    for r in rows:
+        state = rls.observe(state, r, r.sum().reshape(1))
+    bad = (1.5 / float(rls.residual_gram(state, rows[0]))) ** 0.5 * rows[0]
+    kept = rls.forget(state, bad, bad.sum().reshape(1), guard=ranks.DowndateGuard(1e-6, "refuse"))
+    assert torch.equal(kept.R, state.R) and torch.equal(kept.d, state.d)
+    with obs.collecting() as reg:
+        damped = rls.forget(state, bad, bad.sum().reshape(1), guard=ranks.DowndateGuard())
+    assert bool(damped.R.isfinite().all())
+    assert reg.find("solvers.downdate_guard_trips").value == 1
+    with pytest.raises(FloatingPointError):
+        rls.forget(state, bad, bad.sum().reshape(1), guard=ranks.DowndateGuard(mode="raise"))
+    assert solvers.state_integrity(damped) == (True, "ok")
+    assert not solvers.state_integrity(damped, max_cond=1.0)[0]
+    cpu = state._replace(R=state.R.cpu(), d=state.d.cpu(), count=state.count.cpu())
+    assert float(ranks.cond_estimate(state.R).cond) == pytest.approx(
+        float(ranks.cond_estimate(cpu.R).cond), rel=1e-10)
+    # the serving flush on the card under a collector records the contract
+    reqs = serve_qr.make_workload(num=24, n=8, rows=4, k=1, device="cpu")
+    srv = serve_qr.QRServer(device="cuda")
+    with obs.collecting() as reg:
+        serve_qr._submit_all(srv, reqs)
+        srv.flush()
+        srv.drain()
+    assert obs.missing_families(obs.snapshot(reg)) == []
+    assert reg.find("kernels.interpret_resolutions", mode="compiled").value >= 1

@@ -83,7 +83,8 @@ def test_cli_check_prints_three_csv_fields(capsys):
     assert err < 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--resilient"], ["--metrics", "m"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--resilient"],
+                                  ["--resilient", "--metrics", "m"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve_qr.main(["--device", "cpu", *flag])
@@ -101,13 +102,32 @@ def test_default_device_is_the_card():
             Dispatcher()
 
 
+# the modules of the instrumented slice; each must also import on its own
+_SLICE_MODULES = ("repro_torch.core.counts", "repro_torch.core.baselines",
+                  "repro_torch.obs", "repro_torch.obs.registry",
+                  "repro_torch.obs._state", "repro_torch.obs.export",
+                  "repro_torch.obs.tracing", "repro_torch.obs.timing",
+                  "repro_torch.obs.flops", "repro_torch.obs.health",
+                  "repro_torch.ranks.monitor", "repro_torch.ranks.sketch",
+                  "repro_torch.solvers.lstsq", "repro_torch.kernels.backend")
+
+
 def test_port_never_imports_jax():
     code = ("import sys, pkgutil, importlib, repro_torch\n"
+            "walked = set()\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "    walked.add(m.name)\n"
+            f"missing = set({_SLICE_MODULES!r}) - walked - {{'repro_torch.obs'}}\n"
+            "assert not missing, missing\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'repro' or k.startswith('repro.'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            # each slice module alone, from a clean slate: no import cycle
+            f"for name in {_SLICE_MODULES!r}:\n"
+            "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+            "        del sys.modules[k]\n"
+            "    importlib.import_module(name)\n")
     env = {"PYTHONPATH": str(_REPO / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
 

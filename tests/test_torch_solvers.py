@@ -50,8 +50,9 @@ def test_append_rows_matches_jax_and_updates_invert():
     down = solvers.qr_rank1_update(up[0], t[1][1], -0.7, up[1], t[3][1])
     _close(down[0], R, 1e-9)
     _close(down[1], d, 1e-9)
-    with pytest.raises(NotImplementedError):
-        solvers.qr_downdate_row(R2, t[1][0], guard=object())
+    # the downdate guard is ported: a malformed one is refused
+    with pytest.raises(ValueError):
+        solvers.qr_downdate_row(R2, t[1][0], guard=ranks.DowndateGuard(mode="explode"))
 
 
 @pytest.mark.parametrize("backend,rhs", [("pallas", True), ("pallas", False),
