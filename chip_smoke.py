@@ -50,14 +50,35 @@ Drives the port's main path on the card and checks it, phase by phase:
    ``ggr_qr_blocked`` of 4096^2 f32 under a collector: its ``blocked``
    flops (the sweep model) and the GFLOP/s they give (a reading); (e) the
    paper's baseline QRs (``core.baselines``) against ``torch.linalg.qr``;
-7. every (shape, dtype) the kernels were launched at by phases 4-6 is held
+7. resilient serving — (a) ``QRServer(resilient=True)`` and the plain server
+   serve the 8192-request mix: every result bitwise equal, every provenance
+   entry native after one attempt, no failure, degradation or quarantine
+   counted under a collector, ``batched_update`` launched as often; the
+   req/s of both over 5 alternating pairs and their medians; (b) chaos: the
+   mix with 1% NaN-poisoned requests (``poison_workload(seed=11)``) at
+   ``max_batch=512`` under ``FaultPlan(seed=7, transient_rate=0.2,
+   poison_rate=0.05)`` beside a fault-free resilient run of it: every
+   poisoned request quarantined in both, >= 99% of the rest served, native
+   results bitwise equal to the fault-free run's, degraded ones within 2e-4;
+   (c) every rung of ``DEFAULT_LADDER`` drilled on the mix's 4096 appends
+   (provenance, ``serve.degraded_dispatches``, within 2e-4 of native,
+   ``batched_update`` launches per rung: none on the reference rung) and a
+   purge drill; (d) a NaN lane through ``batched_update`` with the pre-check
+   off (quarantined, the other appends bitwise unchanged) and the condition
+   gate (exactly the 8 ill-conditioned appends quarantined); the snapshot of
+   (b)-(d) passes ``obs.export --validate --preset chaos``; (e) a (256, 256)
+   ``RecursiveLS`` state on the card through ``StateVault``: restore falls
+   back past a corrupted snapshot, bit-equal, and raises ``IntegrityError``
+   when every snapshot is corrupted; (f) ``serve_qr --resilient --check
+   --requests 512`` exits 0 with two CSV lines, ``--mesh 2`` exits 2;
+8. every (shape, dtype) the kernels were launched at by phases 4-7 is held
    against the plain version once more;
-8. a JSON line of per-kernel numbers, then the last line
+9. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before the serving run, the dense run and
-phase 6, and read just after each; a route that does not launch its kernels
-fails the run.  Any failed check exits non-zero without printing the last
+Launch counts are set to 0 just before the serving run, the dense run,
+phase 6 and phase 7, and read just after each; a route that does not launch
+its kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -640,6 +661,380 @@ def instrumented_phase(server, reqs, kernels, card: str) -> dict:
     return out
 
 
+def same_bits(a, b) -> bool:
+    """Two ticket results (a tensor or a tuple of tensors) equal bit for bit
+    (float leaves compared as integers, so a NaN equals the same NaN)."""
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.is_floating_point():
+            itype = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+            x, y = x.contiguous().view(itype), y.contiguous().view(itype)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def rel_gap(a, b) -> float:
+    """Worst |a - b| over max(1, |b|) across the leaves of two results (the
+    serving cross-check's scale); inf where a is not finite."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if not all(bool(x.isfinite().all()) for x in a):
+        return float("inf")
+    scale = max(1.0, max(float(y.abs().max()) for y in b))
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b)) / scale
+
+
+def resolve(engine, ticket):
+    """A ticket's result, or the ServeError it resolved to."""
+    from repro_torch.serve import ServeError
+
+    try:
+        return engine.result(ticket)
+    except ServeError as e:
+        return e
+
+
+def counter_sum(reg, name: str, /, **labels) -> float:
+    return sum(m.value for m in reg.collect() if m.name == name
+               and all(dict(m.labels).get(k) == v for k, v in labels.items()))
+
+
+def resilient_phase(reqs, kernels, card: str) -> dict:
+    """Phase 7 (a)-(f); returns the launches it made and its numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs, solvers
+    from repro_torch.convert import from_numpy
+    from repro_torch.launch.serve_qr import QRServer, _submit_all
+    from repro_torch.obs import export
+    from repro_torch.serve import (DEFAULT_LADDER, ContinuousBatcher, IntegrityError,
+                                   PoisonedError, ResilientDispatcher, RetryPolicy, Rung,
+                                   ServeError, StateVault)
+    from repro_torch.testing.faults import (FaultPlan, ScriptedInjector, inject,
+                                            poison_workload)
+
+    b1 = kernels["batched_update"]
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}}
+    no_sleep = lambda s: None  # noqa: E731 — the drills do not wait out backoffs
+    # the mix's operands as tensors on the card, made once (the fleet-shared
+    # models stay one tensor): submits then copy nothing, and the flushes do
+    # the same work as phase 4's
+    reqs = from_numpy(reqs, "cuda")
+    t_sub = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["wall_s"][part] = now - t_sub[0]
+        print(f"  ({part}) took {now - t_sub[0]:.1f} s")
+        t_sub[0] = now
+
+    # (a) fault-free at full width: resilient == plain, bit for bit
+    servers = {"plain": QRServer(device="cuda", max_batch=SERVE_MAX_BATCH),
+               "resilient": QRServer(device="cuda", max_batch=SERVE_MAX_BATCH,
+                                     resilient=True)}
+    res = {}
+    for name, srv in servers.items():
+        before = b1.launches
+        tickets = _submit_all(srv, reqs)
+        srv.flush()
+        srv.drain()
+        res[name] = ([srv.result(t) for t in tickets], b1.launches - before)
+    diff = sum(not same_bits(a, b) for a, b in zip(res["plain"][0], res["resilient"][0]))
+    check(diff == 0, f"(a) fault-free resilient flush of {len(reqs)} requests: every result "
+                     f"bitwise equal to the plain flush's ({diff} differ)")
+    dispatcher = servers["resilient"]._engine.dispatcher
+    provs = {(p.rung, p.attempts) for ps in dispatcher.provenance.values() for p in ps}
+    check(provs == {("native", 1)}, f"(a) every provenance entry is (native, 1 attempt): {provs}")
+    check(res["plain"][1] == res["resilient"][1] > 0,
+          f"(a) batched_update launches: plain flush {res['plain'][1]}, resilient "
+          f"{res['resilient'][1]}")
+    _submit_all(servers["resilient"], reqs)
+    with obs.collecting() as reg:
+        servers["resilient"].flush()
+        servers["resilient"].drain()
+    faults = {f: counter_sum(reg, f) for f in
+              ("serve.chunk_failures", "serve.degraded_dispatches", "serve.quarantined")}
+    check(not any(faults.values()), f"(a) under a collector, no failure, degradation or "
+                                    f"quarantine is counted: {faults}")
+    rates = {"plain": [], "resilient": []}
+    for name in ["plain", "resilient", "resilient", "plain"] * 2 + ["plain", "resilient"]:
+        srv = servers[name]
+        _submit_all(srv, reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = srv.flush()
+        srv.drain()
+        rates[name].append(served / (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    out["serve_req_s"] = dict(rates, median=med)
+    print(f"  (a) {len(reqs)}-request flush, 5 alternating pairs (plain, resilient, "
+          f"resilient, plain, ...): plain {', '.join(f'{r:.1f}' for r in rates['plain'])}; "
+          f"resilient {', '.join(f'{r:.1f}' for r in rates['resilient'])} req/s; medians "
+          f"{med['plain']:.1f} / {med['resilient']:.1f}, ratio "
+          f"{med['resilient'] / med['plain']:.3f} (the layer's bound >= 0.8: a reading, "
+          f"not checked, as the host's spread is wider; {card})")
+    del res, servers
+    lap("a")
+
+    # (b) chaos, as the JAX package's bench: a poisoned mix under a fault plan,
+    # beside a fault-free resilient run of the same mix at the same max_batch
+    poisoned, idx = poison_workload(reqs, rate=0.01, seed=11)
+    runs = {}
+    reg = obs.MetricsRegistry()
+    for name in ("fault-free", "chaos"):
+        srv = QRServer(device="cuda", max_batch=512, resilient=True)
+        tickets = _submit_all(srv, poisoned)
+        t0 = time.perf_counter()
+        if name == "chaos":
+            with obs.collecting(reg), inject(FaultPlan(seed=7, transient_rate=0.2,
+                                                       poison_rate=0.05)) as inj:
+                srv.flush()
+                srv.drain()
+        else:
+            srv.flush()
+            srv.drain()
+        wall = time.perf_counter() - t0
+        prov = srv._engine.dispatcher.provenance
+        runs[name] = [(resolve(srv._engine, t), prov[(t.group, t.cycle)][t.index])
+                      for t in tickets]
+        print(f"  (b) {name} run, max_batch 512: {wall * 1e3:.1f} ms")
+    counts = dict(inj.counts)
+    bad = set(idx)
+    for name, outs in runs.items():
+        wrong = [i for i in idx if not isinstance(outs[i][0], PoisonedError)]
+        check(not wrong, f"(b) {name}: all {len(idx)} poisoned requests resolve to "
+                         f"PoisonedError (not: {wrong[:5]})")
+    clean = [i for i in range(len(reqs)) if i not in bad]
+    served = sum(not isinstance(runs["chaos"][i][0], ServeError) for i in clean)
+    avail = served / len(clean)
+    native = degraded = 0
+    native_diff, worst = [], 0.0
+    rungs: dict = {}
+    for i in clean:
+        got, prov = runs["chaos"][i]
+        rungs[prov.rung] = rungs.get(prov.rung, 0) + 1
+        want = runs["fault-free"][i][0]
+        if isinstance(got, ServeError) or isinstance(want, ServeError):
+            continue
+        if prov.rung == "native":
+            native += 1
+            if not same_bits(got, want):
+                native_diff.append(i)
+        else:
+            degraded += 1
+            worst = max(worst, rel_gap(got, want))
+    out["chaos"] = dict(counts=counts, availability=avail, native=native,
+                        degraded=degraded, rungs=rungs, worst_degraded=worst)
+    print(f"  (b) injected {counts}; {len(idx)} poisoned; availability {avail:.4f} of "
+          f"{len(clean)} clean; served by rung {rungs}; worst degraded gap {worst:.2e}")
+    check(avail >= 0.99, f"(b) {served} of {len(clean)} clean requests served "
+                         f"({avail:.4f} >= 0.99)")
+    check(not native_diff, f"(b) every native-rung result ({native}) is bitwise equal to "
+                           f"the fault-free run's ({len(native_diff)} differ)")
+    check(worst <= 2e-4, f"(b) degraded results ({degraded}) within {worst:.2e} of the "
+                         "fault-free run (<= 2e-4 of max(1, |ref|))")
+    check(counts.get("transient", 0) >= 1 and counts.get("poison", 0) >= 1,
+          f"(b) the plan fired at least one transient and one poison: {counts}")
+    del runs
+    lap("b")
+
+    # (c) ladder drill at full width: the mix's 4096 appends (two groups, one
+    # chunk each), each group forced onto rung k by k scripted failures
+    appends = [r for r in reqs if r[0] == "append"]
+    groups = [[r for r in appends if len(r) == 5], [r for r in appends if len(r) == 3]]
+    drill = {}
+    native_res = None
+    with obs.collecting(reg):
+        for k, rung in enumerate(DEFAULT_LADDER):
+            d = ResilientDispatcher(device="cuda", max_batch=SERVE_MAX_BATCH,
+                                    retry=RetryPolicy(max_attempts=1), sleep=no_sleep)
+            eng = ContinuousBatcher(d)
+            before = b1.launches
+            got, served_by = [], set()
+            for group in groups:
+                with inject(ScriptedInjector(range(k))):
+                    tickets = [eng.submit(*r) for r in group]
+                    eng.flush()
+                got += [resolve(eng, t) for t in tickets]
+                served_by |= {p.rung for p in d.provenance[(tickets[0].group, tickets[0].cycle)]}
+            launches = b1.launches - before
+            gap = 0.0 if k == 0 else max(rel_gap(a, b) for a, b in zip(got, native_res))
+            if k == 0:
+                native_res = got
+            hops = counter_sum(reg, "serve.degraded_dispatches", to=rung.name)
+            drill[rung.name] = dict(launches=launches, gap=gap, hops=hops)
+            print(f"  (c) rung {k} {rung.name}: served by {sorted(served_by)}, "
+                  f"batched_update launches {launches}, gap to native {gap:.2e}, "
+                  f"degraded_dispatches to it {hops:g}")
+            check(served_by == {rung.name} and not any(isinstance(x, ServeError) for x in got),
+                  f"(c) {len(got)} appends forced onto rung {rung.name!r}: provenance "
+                  f"{sorted(served_by)}")
+            check(k == 0 or hops >= 1, f"(c) serve.degraded_dispatches{{to={rung.name}}} "
+                                       f"= {hops:g} (>= 1)")
+            check(gap <= 2e-4, f"(c) rung {rung.name!r} within {gap:.2e} of native (<= 2e-4)")
+            check((launches == 0) == (rung.name == "reference"),
+                  f"(c) rung {rung.name!r} launched batched_update {launches} times "
+                  "(the reference rung none)")
+        purged0 = counter_sum(reg, "serve.cycles_purged")
+        d = ResilientDispatcher(device="cuda", ladder=(Rung("native"),),
+                                retry=RetryPolicy(max_attempts=1), sleep=no_sleep)
+        eng = ContinuousBatcher(d)
+        with inject(ScriptedInjector(range(64))):
+            t = eng.submit(*groups[0][0])
+            eng.flush()
+        got = resolve(eng, t)
+        purged = counter_sum(reg, "serve.cycles_purged") - purged0
+        check(isinstance(got, ServeError) and got.classification == "transient"
+              and purged == 1, f"(c) purge drill: the ticket resolves to "
+                               f"{type(got).__name__}, serve.cycles_purged +{purged:g}")
+    out["ladder"] = drill
+    lap("c")
+
+    # (d) quarantine through the kernel: a NaN lane past a disabled pre-check,
+    # and the condition gate
+    def serve_appends(batch, **kw):
+        d = ResilientDispatcher(device="cuda", max_batch=SERVE_MAX_BATCH, sleep=no_sleep, **kw)
+        eng = ContinuousBatcher(d)
+        before = b1.launches
+        tickets = [eng.submit(*r) for r in batch]
+        eng.flush()
+        return [resolve(eng, t) for t in tickets], b1.launches - before
+
+    with obs.collecting(reg):
+        clean_res, _ = serve_appends(appends, precheck=False)
+        nan_i = next(i for i, r in enumerate(appends) if len(r) == 5 and i >= 100)
+        bad_reqs = list(appends)
+        R = bad_reqs[nan_i][1].clone()
+        R[3, 5] = float("nan")
+        bad_reqs[nan_i] = ("append", R, *bad_reqs[nan_i][2:])
+        got, launches = serve_appends(bad_reqs, precheck=False)
+        diff = [i for i, (a, b) in enumerate(zip(got, clean_res))
+                if i != nan_i and not same_bits(a, b)]
+        check(isinstance(got[nan_i], PoisonedError) and "post-dispatch" in got[nan_i].reason,
+              f"(d) the NaN lane through batched_update resolves to "
+              f"{type(got[nan_i]).__name__} ({launches} launches)")
+        check(not diff and launches >= 3, f"(d) the other {len(got) - 1} appends are "
+                                          f"bitwise equal to the fault-free run "
+                                          f"({len(diff)} differ)")
+        ill = [i for i, r in enumerate(appends) if len(r) == 5][7:7 + 8 * 300:300]
+        cond_reqs = list(appends)
+        for i in ill:
+            _, R, U, *rest = cond_reqs[i]
+            R, U = R.clone(), U.clone()
+            R[:, -1] *= 1e-12  # the last unknown barely observed: cond >= 1e10
+            U[:, -1] *= 1e-12
+            cond_reqs[i] = ("append", R, U, *rest)
+        got, _ = serve_appends(cond_reqs, max_cond=1e6)
+        caught = [i for i, x in enumerate(got) if isinstance(x, PoisonedError)]
+        check(caught == ill, f"(d) the condition gate (max_cond=1e6) quarantines exactly "
+                             f"the {len(ill)} ill-conditioned appends: {caught}")
+        ungated, _ = serve_appends([cond_reqs[i] for i in ill])
+        conds = [float(torch.linalg.cond(x[0].double())) for x in ungated]
+        check(min(conds) >= 1e10, f"(d) their factors' cond without the gate: "
+                                  f"{min(conds):.2e} .. {max(conds):.2e} (>= 1e10)")
+        del clean_res, got
+
+    # the chaos, drill and quarantine snapshot passes the chaos preset
+    path = ROOT / "build" / "smoke_metrics" / "chaos.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    obs.write_jsonl(str(path), reg, {"phase": "7 resilient serving"})
+    try:
+        export.main(["--validate", str(path), "--preset", "chaos"])
+        valid = "ok"
+    except SystemExit as e:
+        valid = str(e)
+    check(valid == "ok", f"(b-d) obs.export --validate --preset chaos accepts {path}: {valid}")
+    lap("d")
+
+    # (e) the state vault: a (256, 256) RecursiveLS state on the card
+    n = 256
+    rng = np.random.default_rng(31)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    rls = solvers.RecursiveLS(n=n)
+    state = rls.init(torch.float64, device="cuda")
+    root = ROOT / "build" / "smoke_vault"
+    shutil.rmtree(root, ignore_errors=True)
+    vault = StateVault(root=str(root), interval=4, keep=3)
+    saved = {}
+    t0 = time.perf_counter()
+    for step in range(1, 13):
+        U = torch.as_tensor(rng.standard_normal((4, n)), **f64)
+        state = rls.observe(state, U, torch.as_tensor(rng.standard_normal((4, 1)), **f64))
+        if vault.snapshot("rls", state):
+            saved[step] = state
+    kept = sorted(int(p.name.split("_")[1]) for p in (root / "rls").glob("step_*"))
+    newest = root / "rls" / f"step_{max(kept):08d}" / "leaves.npz"
+    with np.load(newest) as f:
+        leaves = dict(f)
+    leaves[".R"][n // 2, n // 2 + 1] = np.nan
+    np.savez(newest, **leaves)
+    with obs.collecting(reg):
+        got, step = vault.restore_latest("rls", like=state)
+    rejected = counter_sum(reg, "serve.state_restores", name="rls", outcome="rejected")
+    check(rejected == 1, f"(e) serve.state_restores{{outcome=rejected}} = {rejected:g}")
+    check(kept == [4, 8, 12] and step == 8 and got.R.device.type == "cuda"
+          and all(same_bits(a, b) for a, b in zip(got, saved[8])),
+          f"(e) vault: snapshots {kept}; with a NaN in the newest R, restore_latest returns "
+          f"step {step} on {got.R.device}, bit-equal to what was saved")
+    for s in kept:
+        p = root / "rls" / f"step_{s:08d}" / "leaves.npz"
+        with np.load(p) as f:
+            leaves = dict(f)
+        leaves[".d"][0, 0] = np.inf
+        np.savez(p, **leaves)
+    try:
+        vault.restore_latest("rls", like=state)
+        raised = "nothing"
+    except IntegrityError:
+        raised = "IntegrityError"
+    check(raised == "IntegrityError", f"(e) with every snapshot corrupted, restore_latest "
+                                      f"raises {raised}")
+    print(f"  (e) 12 updates of a ({n}, {n}) f64 state, 3 snapshots, two restores: "
+          f"{time.perf_counter() - t0:.1f} s")
+    lap("e")
+
+    # (f) the CLI
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
+                          "--resilient", "--check", "--requests", "512"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
+          f"(f) serve_qr --resilient --check --requests 512 exits {cli.returncode} with "
+          f"{len(lines)} CSV lines: {lines[-1:]}")
+    mesh = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
+                           "--mesh", "2"], capture_output=True, text=True, env=env,
+                          timeout=300)
+    check(mesh.returncode == 2, f"(f) serve_qr --mesh 2 exits {mesh.returncode} (2: not "
+                                "ported yet)")
+
+    lap("f")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    out["launches"] = launches
+    out["shapes"] = {k: set(fn.shapes) for k, fn in kernels.items()}
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  launches in phase 7: {launches} ({out['wall_s']['phase']:.1f} s wall)")
+    check(launches["batched_update"] > 0, "phase 7 launched batched_update")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run from the root of a checkout (src/repro_torch "
@@ -854,14 +1249,20 @@ def main() -> int:
         recorded[name] |= inst["shapes"][name]
 
     # ------------------------------------------------------------ phase 7
-    phase("7. kernels vs plain versions at every main-path shape")
+    phase("7. resilient serving")
+    resil = resilient_phase(reqs, kernels, card)
+    for name in kernels:
+        recorded[name] |= resil["shapes"][name]
+
+    # ------------------------------------------------------------ phase 8
+    phase("8. kernels vs plain versions at every main-path shape")
     n_shapes = sum(len(s) for s in recorded.values())
     recheck_worst = recheck_shapes(recorded, gen)
     print(f"  {n_shapes} (shape, dtype) launches rechecked; worst errors "
           f"{recheck_worst}")
 
-    # ------------------------------------------------------------ phase 8
-    phase("8. summary")
+    # ------------------------------------------------------------ phase 9
+    phase("9. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -881,7 +1282,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
             "launches": (serve_launches[name] + dense_launches[name]
-                         + inst["launches"][name]),
+                         + inst["launches"][name] + resil["launches"][name]),
             "max_abs_err": max(worst[name], recheck_worst[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -894,6 +1295,7 @@ def main() -> int:
     print(f"  serving: {req_s:.1f} req/s; dense ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in dense_ms.items()) + f"; card {card}")
     print(f"  phase 6: {json.dumps({k: v for k, v in inst.items() if k != 'shapes'})}")
+    print(f"  phase 7: {json.dumps({k: v for k, v in resil.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

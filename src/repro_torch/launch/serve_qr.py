@@ -26,8 +26,9 @@ the CPU; with no CUDA device and the default it raises.
 
 emits one CSV line per run with throughput; ``--check`` folds a cross-backend
 max-error into the ``derived`` column (rows always have exactly 3 fields).
-``--mesh N`` (N > 1) and ``--resilient`` are not ported yet and exit with
-code 2.
+``--resilient`` serves through the fault-tolerant dispatcher
+(``repro_torch.serve.resilience``).  ``--mesh N`` (N > 1) is not ported yet
+and exits with code 2.
 
 Observability: the serving layers are instrumented with ``repro_torch.obs``
 — per-kind queue-depth gauges, submit->flush queue-wait and flush-duration
@@ -52,7 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.serve import ContinuousBatcher, Dispatcher, Ticket
+from repro_torch.serve import (ContinuousBatcher, Dispatcher,
+                               ResilientDispatcher, Ticket)
 
 __all__ = ["QRServer", "make_workload"]
 
@@ -68,9 +70,11 @@ class QRServer:
     backend: "pallas" (the fused batched kernel path) or "reference" (plain
     PyTorch sweeps).  max_batch: dispatch granularity — each group is flushed
     in chunks of at most this many stacked requests.  device: where requests
-    are stacked and solved — the card by default.  Requests of the same shape
-    but different dtypes land in *different* groups — stacking never silently
-    promotes a request's dtype.
+    are stacked and solved — the card by default.  resilient: serve through
+    ``ResilientDispatcher`` (failure domains, retry/degrade, quarantine;
+    bitwise equal to the plain dispatcher when nothing fails).  Requests of
+    the same shape but different dtypes land in *different* groups —
+    stacking never silently promotes a request's dtype.
     """
 
     backend: str = "pallas"
@@ -78,12 +82,14 @@ class QRServer:
     device: str = "cuda"
     block_b: int = 8
     precision: object | None = None  # Precision | policy name | None
+    resilient: bool = False  # fault-tolerant dispatch (serve.resilience)
 
     def __post_init__(self):
+        dispatcher_cls = ResilientDispatcher if self.resilient else Dispatcher
         self._engine = ContinuousBatcher(
-            Dispatcher(backend=self.backend, max_batch=self.max_batch,
-                       device=self.device, block_b=self.block_b,
-                       double_buffer=False, precision=self.precision),
+            dispatcher_cls(backend=self.backend, max_batch=self.max_batch,
+                           device=self.device, block_b=self.block_b,
+                           double_buffer=False, precision=self.precision),
             admit_max=None, retain_cycles=1)
 
     @property
@@ -271,16 +277,17 @@ def main(argv=None):
     ap.add_argument("--check", action="store_true",
                     help="cross-check a sample of results against the other backend")
     ap.add_argument("--resilient", action="store_true",
-                    help="not ported yet: exits with code 2")
+                    help="serve through the fault-tolerant dispatcher "
+                         "(failure domains, retry/degrade, quarantine; "
+                         "bitwise equal to the plain path when nothing "
+                         "fails)")
     ap.add_argument("--metrics", default=os.environ.get("REPRO_OBS_SNAPSHOT"),
                     metavar="PREFIX",
                     help="collect obs metrics and write PREFIX.jsonl + "
                          "PREFIX.prom snapshots (default: $REPRO_OBS_SNAPSHOT)")
     args = ap.parse_args(argv)
-    for flag, asked in (("--mesh N > 1", args.mesh > 1),
-                        ("--resilient", args.resilient)):
-        if asked:
-            ap.error(f"{flag} is not yet ported")
+    if args.mesh > 1:
+        ap.error("--mesh N > 1 is not yet ported")
 
     reg = None
     if args.metrics:
@@ -288,7 +295,7 @@ def main(argv=None):
         obs.install(reg)
 
     server = QRServer(backend=args.backend, max_batch=args.max_batch,
-                      device=args.device)
+                      device=args.device, resilient=args.resilient)
     reqs = make_workload(args.requests, args.n, args.rows, args.nrhs,
                          device=args.device)
 

@@ -123,16 +123,16 @@ def enabled() -> bool:
     return _active().enabled
 
 
-def counter(name: str, **labels):
+def counter(name: str, /, **labels):
     """Counter series on the active registry (no-op handle when disabled)."""
     return _active().counter(name, **labels)
 
 
-def gauge(name: str, **labels):
+def gauge(name: str, /, **labels):
     """Gauge series on the active registry (no-op handle when disabled)."""
     return _active().gauge(name, **labels)
 
 
-def histogram(name: str, **labels):
+def histogram(name: str, /, **labels):
     """Histogram series on the active registry (no-op handle when disabled)."""
     return _active().histogram(name, **labels)

@@ -173,13 +173,13 @@ class MetricsRegistry:
                 f"requested {cls.kind}")
         return m
 
-    def counter(self, name: str, **labels) -> Counter:
+    def counter(self, name: str, /, **labels) -> Counter:
         return self._get(Counter, name, labels)
 
-    def gauge(self, name: str, **labels) -> Gauge:
+    def gauge(self, name: str, /, **labels) -> Gauge:
         return self._get(Gauge, name, labels)
 
-    def histogram(self, name: str, **labels) -> Histogram:
+    def histogram(self, name: str, /, **labels) -> Histogram:
         return self._get(Histogram, name, labels)
 
     def collect(self):
@@ -189,7 +189,7 @@ class MetricsRegistry:
     def families(self) -> set[str]:
         return {m.name for m in self._metrics.values()}
 
-    def find(self, name: str, **labels):
+    def find(self, name: str, /, **labels):
         """The series for (name, labels), or None — test/assertion helper."""
         return self._metrics.get((name, _label_key(labels)))
 
@@ -226,13 +226,13 @@ class NullRegistry:
 
     enabled = False
 
-    def counter(self, name: str, **labels) -> _NullMetric:
+    def counter(self, name: str, /, **labels) -> _NullMetric:
         return _NULL_METRIC
 
-    def gauge(self, name: str, **labels) -> _NullMetric:
+    def gauge(self, name: str, /, **labels) -> _NullMetric:
         return _NULL_METRIC
 
-    def histogram(self, name: str, **labels) -> _NullMetric:
+    def histogram(self, name: str, /, **labels) -> _NullMetric:
         return _NULL_METRIC
 
     def collect(self):
@@ -241,7 +241,7 @@ class NullRegistry:
     def families(self) -> set[str]:
         return set()
 
-    def find(self, name: str, **labels):
+    def find(self, name: str, /, **labels):
         return None
 
 

@@ -8,8 +8,8 @@ The serving stack, bottom-up:
     batcher.py    continuous batching: open batches close on max_batch /
                   deadline / flush; per-(group, cycle) results
     policy.py     admission control: per-kind latency tiers, reject/shed
-    resilience.py the typed ``ServeError`` results (the fault-tolerant
-                  dispatcher is not ported yet)
+    resilience.py failure domains: classify/retry/degrade/quarantine,
+                  circuit breakers, streaming-state snapshot vault
 
 ``repro_torch.launch.serve_qr.QRServer`` is the closed-loop facade over
 these layers.
@@ -18,24 +18,45 @@ from .batcher import ContinuousBatcher, OpenBatch
 from .dispatch import Dispatcher, DrainError, ExecutableCache, InFlight
 from .policy import AdmissionPolicy, LatencyTier, Rejected, ShedError
 from .requests import KINDS, Request, Ticket, group_signature, make_request
-from .resilience import PoisonedError, ServeError
+from .resilience import (
+    DEFAULT_LADDER,
+    CircuitBreaker,
+    IntegrityError,
+    PoisonedError,
+    Provenance,
+    ResilientDispatcher,
+    RetryPolicy,
+    Rung,
+    ServeError,
+    StateVault,
+    classify_failure,
+)
 
 __all__ = [
     "AdmissionPolicy",
+    "CircuitBreaker",
     "ContinuousBatcher",
+    "DEFAULT_LADDER",
     "Dispatcher",
     "DrainError",
     "ExecutableCache",
     "InFlight",
+    "IntegrityError",
     "KINDS",
     "LatencyTier",
     "OpenBatch",
     "PoisonedError",
+    "Provenance",
     "Rejected",
     "Request",
+    "ResilientDispatcher",
+    "RetryPolicy",
+    "Rung",
     "ServeError",
     "ShedError",
+    "StateVault",
     "Ticket",
+    "classify_failure",
     "group_signature",
     "make_request",
 ]

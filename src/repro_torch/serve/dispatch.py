@@ -2,10 +2,12 @@
 
 One ``Dispatcher`` owns everything between "a closed batch of typed
 requests" and "per-request results": per-kind executors (append / lstsq /
-kalman / lstsq_pivoted) and the double-buffering that overlaps host-side
-stacking of batch k+1 with batch k's device work.  Eager PyTorch builds no
-executables, so ``ExecutableCache`` (the JAX package's plain LRU) is kept
-for the compiled paths of later slices and no dispatcher holds one yet.
+kalman / lstsq_pivoted), the per-server executable cache and the
+double-buffering that overlaps host-side stacking of batch k+1 with batch
+k's device work.  Eager PyTorch builds no executables, so as in the JAX
+package's single-device path nothing fills the cache (``ExecutableCache``,
+a bounded LRU) until a compiled path — the sharded dispatch of a later
+slice — uses it; the fault injector's eviction hazard clears it.
 
 **Padding before dispatch.**  Every chunk is zero-padded to ``block_b``
 granularity (``padded_chunk``) before the executor sees it, so deadline
@@ -148,6 +150,17 @@ class InFlight:
             self.event.synchronize()
 
 
+class Lanes(list):
+    """One chunk's per-request results: views into the chunk's batched
+    outputs (a tuple per request, or the bare tensor when there is one
+    output), with those outputs kept in ``batched`` so a check over the
+    whole chunk reads them in one pass."""
+
+    def __init__(self, batched: tuple, bare: bool = False):
+        super().__init__(batched[0].unbind(0) if bare else zip(*batched))
+        self.batched = batched
+
+
 def _pad_to(x: torch.Tensor, batch: int) -> torch.Tensor:
     """Zero-pad dim 0 up to exactly ``batch`` rows (no-op when already there)."""
     if x.shape[0] == batch:
@@ -162,7 +175,8 @@ class Dispatcher:
     ``backend`` ("pallas" — the kernel path — | "reference"), ``max_batch``
     chunk granularity, ``block_b`` padding granularity, ``device`` the
     serving device (the card unless the caller asks for the CPU).
-    ``double_buffer`` selects async (see module docstring).
+    ``double_buffer`` selects async (see module docstring); ``cache_size``
+    bounds the executable cache.
     """
 
     backend: str = "pallas"
@@ -170,12 +184,16 @@ class Dispatcher:
     device: object = "cuda"
     block_b: int = 8
     double_buffer: bool = False
+    cache_size: int = 32
     precision: object | None = None  # Precision | policy name | None
+    executables: ExecutableCache = None  # built in __post_init__
     _inflight: list = field(default_factory=list)
     _seen_dispatch: set = field(default_factory=set)  # (group, padded_B), obs only
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.executables is None:
+            self.executables = ExecutableCache(self.cache_size)
         if self.precision is not None:
             self.precision = resolve_precision(self.precision)
 
@@ -249,12 +267,12 @@ class Dispatcher:
                                             **self._kernel_opts(store_dt))
             Rn = Rn[:nb].to(store)  # down-cast to storage on return
             dn = dn[:nb].to(store)
-            outs = [(Rn[i], dn[i]) for i in range(nb)]
+            outs = Lanes((Rn, dn))
             w = n + Yb.shape[2]
         else:
             Rn = qr_append_rows_batched(Rb, Ub, **self._kernel_opts(store_dt))
             Rn = Rn[:nb].to(store)
-            outs = [Rn[i] for i in range(nb)]
+            outs = Lanes((Rn,), bare=True)
             w = n
         return outs, lambda: nb * obs.ggr_append_flops(n, p, w), Rn
 
@@ -276,8 +294,7 @@ class Dispatcher:
         rs = fit.resid[:nb].to(store)
         m, n = Ab.shape[1], Ab.shape[2]
         k = bb.shape[2] if bb.ndim > 2 else 1
-        return ([(xs[i], rs[i]) for i in range(nb)],
-                lambda: nb * obs.lstsq_flops(m, n, k), None)
+        return Lanes((xs, rs)), lambda: nb * obs.lstsq_flops(m, n, k), None
 
     def _exec_kalman(self, chunk):
         """Stack + pad one kalman chunk, dispatch the fused SRIF step.
@@ -310,7 +327,7 @@ class Dispatcher:
         dn = dn[:nb].to(store)
         # fused SRIF stack: (w + 2n + p, w + n + 1) with w + n pivots
         # -> n + p rows ride below the (triangular-by-construction) top
-        return ([(Rn[i], dn[i]) for i in range(nb)],
+        return (Lanes((Rn, dn)),
                 lambda: nb * obs.ggr_append_flops(w + n, n + p, w + n + 1), Rn)
 
     def _exec_lstsq_pivoted(self, chunk):
@@ -335,7 +352,7 @@ class Dispatcher:
         k = bb.shape[2] if bb.ndim > 2 else 1
         # pivoting adds the per-step suffix-norm matrix + swap on top of the
         # plain augmented sweep: ~2x the unpivoted macro-op count
-        return ([(xs[i], rs[i], rk[i]) for i in range(nb)],
+        return (Lanes((xs, rs, rk)),
                 lambda: nb * 2.0 * obs.lstsq_flops(m, n, k), None)
 
     _EXECUTORS = {"append": _exec_append, "lstsq": _exec_lstsq,

@@ -432,3 +432,103 @@ def test_guard_integrity_and_metrics_on_the_card(card, tmp_path):
         srv.drain()
     assert obs.missing_families(obs.snapshot(reg)) == []
     assert reg.find("kernels.interpret_resolutions", mode="compiled").value >= 1
+
+
+# -------------------------------------- the fault-tolerant slice on the card
+def _bits(a, b) -> bool:
+    a, b = serve_qr._as_tuple(a), serve_qr._as_tuple(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_resilient_server_equals_plain_on_the_card(card):
+    reqs = serve_qr.make_workload(num=64, n=8, rows=4, k=1, device="cuda")
+    plain = serve_qr.QRServer(device="cuda")
+    resil = serve_qr.QRServer(device="cuda", resilient=True)
+    out = {}
+    for name, srv in (("plain", plain), ("resilient", resil)):
+        n0 = ggr_update.batched_update.launches
+        tickets = serve_qr._submit_all(srv, reqs)
+        srv.flush()
+        srv.drain()
+        out[name] = ([srv.result(t) for t in tickets],
+                     ggr_update.batched_update.launches - n0)
+    assert out["plain"][1] == out["resilient"][1] > 0
+    for a, b in zip(out["plain"][0], out["resilient"][0]):
+        assert _bits(a, b)
+    provs = resil._engine.dispatcher.provenance.values()
+    assert {(p.rung, p.attempts) for ps in provs for p in ps} == {("native", 1)}
+
+
+@pytest.mark.gpu
+def test_nan_lane_through_the_kernel_is_quarantined(card):
+    """precheck off: a NaN request runs through batched_update, its lane
+    comes back non-finite, the post-check quarantines it, and the others
+    (re-dispatched at the original padded width) keep their bits."""
+    from repro_torch.serve import ContinuousBatcher, PoisonedError, ResilientDispatcher
+
+    reqs = [r for r in serve_qr.make_workload(num=96, n=8, rows=4, k=1, device="cuda")
+            if r[0] == "append" and len(r) == 5]
+    bad = list(reqs)
+    R = bad[5][1].copy()
+    R[2, 3] = np.nan
+    bad[5] = ("append", R, *bad[5][2:])
+    res = {}
+    for name, rs in (("clean", reqs), ("bad", bad)):
+        eng = ContinuousBatcher(ResilientDispatcher(device="cuda", precheck=False,
+                                                    max_batch=256))
+        n0 = ggr_update.batched_update.launches
+        tickets = [eng.submit(*r) for r in rs]
+        eng.flush()
+        res[name] = (eng, tickets, ggr_update.batched_update.launches - n0)
+    assert res["bad"][2] == 2 and res["clean"][2] == 1  # the kernel ran it twice
+    eng, tickets, _ = res["bad"]
+    for i, (t, tc) in enumerate(zip(tickets, res["clean"][1])):
+        if i == 5:
+            with pytest.raises(PoisonedError):
+                eng.result(t)
+        else:
+            assert _bits(eng.result(t), res["clean"][0].result(tc))
+
+
+@pytest.mark.gpu
+def test_real_out_of_memory_is_transient(card):
+    from repro_torch.serve import classify_failure
+
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(1 << 50, dtype=torch.uint8, device=card)
+    assert classify_failure(ei.value) == "transient"
+
+
+@pytest.mark.gpu
+def test_vault_restores_onto_the_card(card, tmp_path):
+    from repro_torch import solvers
+    from repro_torch.serve import IntegrityError, StateVault
+
+    rls = solvers.RecursiveLS(n=6)
+    state = rls.init(torch.float64, device=card)
+    rows = torch.as_tensor(np.random.default_rng(11).standard_normal((12, 6)), device=card)
+    vault = StateVault(root=str(tmp_path), interval=4, keep=3)
+    saved = {}
+    for i, r in enumerate(rows):
+        state = rls.observe(state, r, r.sum().reshape(1))
+        if vault.snapshot("rls", state):
+            saved[i + 1] = state
+    assert sorted(saved) == [4, 8, 12]
+    newest = tmp_path / "rls" / "step_00000012" / "leaves.npz"
+    with np.load(newest) as f:
+        leaves = dict(f)
+    leaves[".R"][0, 0] = np.nan
+    np.savez(newest, **leaves)
+    got, step = vault.restore_latest("rls", like=state)
+    assert step == 8 and got.R.device.type == "cuda"
+    for a, b in zip(got, saved[8]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for s in (4, 8):
+        path = tmp_path / "rls" / f"step_{s:08d}" / "leaves.npz"
+        with np.load(path) as f:
+            leaves = dict(f)
+        leaves[".d"][-1] = np.inf
+        np.savez(path, **leaves)
+    with pytest.raises(IntegrityError):
+        vault.restore_latest("rls", like=state)

@@ -83,13 +83,24 @@ def test_cli_check_prints_three_csv_fields(capsys):
     assert err < 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--resilient"],
-                                  ["--resilient", "--metrics", "m"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--mesh", "2", "--resilient"],
+                                  ["--mesh", "4", "--resilient", "--metrics", "m"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve_qr.main(["--device", "cpu", *flag])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_resilient_check_prints_three_csv_fields(capsys):
+    serve_qr.main(["--device", "cpu", "--resilient", "--check", "--requests", "24",
+                   "--n", "8", "--rows", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 and lines[0] == "name,req_per_s,derived"
+    fields = lines[1].split(",")
+    assert len(fields) == 3 and float(fields[1]) > 0
+    err = float(re.search(r"xbackend_maxerr=([0-9.e+-]+)", fields[2]).group(1))
+    assert err < 1e-4
 
 
 def test_default_device_is_the_card():
@@ -102,14 +113,20 @@ def test_default_device_is_the_card():
             Dispatcher()
 
 
-# the modules of the instrumented slice; each must also import on its own
+# the modules of the instrumented and fault-tolerant slices; each must also
+# import on its own
 _SLICE_MODULES = ("repro_torch.core.counts", "repro_torch.core.baselines",
                   "repro_torch.obs", "repro_torch.obs.registry",
                   "repro_torch.obs._state", "repro_torch.obs.export",
                   "repro_torch.obs.tracing", "repro_torch.obs.timing",
                   "repro_torch.obs.flops", "repro_torch.obs.health",
                   "repro_torch.ranks.monitor", "repro_torch.ranks.sketch",
-                  "repro_torch.solvers.lstsq", "repro_torch.kernels.backend")
+                  "repro_torch.solvers.lstsq", "repro_torch.kernels.backend",
+                  # the fault-tolerant serving slice
+                  "repro_torch.serve.resilience", "repro_torch.serve.dispatch",
+                  "repro_torch.launch.serve_qr", "repro_torch.checkpoint",
+                  "repro_torch.checkpoint.ckpt", "repro_torch.testing",
+                  "repro_torch.testing.faults", "repro_torch.testing.error_harness")
 
 
 def test_port_never_imports_jax():
