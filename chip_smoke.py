@@ -70,15 +70,31 @@ Drives the port's main path on the card and checks it, phase by phase:
    ``RecursiveLS`` state on the card through ``StateVault``: restore falls
    back past a corrupted snapshot, bit-equal, and raises ``IntegrityError``
    when every snapshot is corrupted; (f) ``serve_qr --resilient --check
-   --requests 512`` exits 0 with two CSV lines, ``--mesh 2`` exits 2;
-8. every (shape, dtype) the kernels were launched at by phases 4-7 is held
+   --requests 512`` exits 0 with two CSV lines;
+8. sharded serving over a ``BatchMesh`` of 4 shards on ``cuda:0`` — (a)
+   ``QRServer(mesh=...)`` beside the plain server on the 8192-request mix:
+   append and kalman bitwise, lstsq and lstsq_pivoted within rtol = atol =
+   1e-6, ``batched_update`` launched 4x as often, one ``ExecutableCache``
+   miss per sharded lstsq kind and hits on the next flush, the req/s of both
+   over 5 alternating pairs, a trace of one sharded flush and each kind
+   flushed alone on both servers; (b) the same checks on the first 8075 requests,
+   whose five groups each pad to another width on the mesh than alone; (c)
+   ``qr_append_rows_batched`` at B = 1, 7, 67, 8191 bitwise against
+   ``mesh=None`` and a 1-shard mesh, ``kf_step_batched`` at B = 11 with
+   shared models bitwise; (d) ``QRServer(resilient=True, mesh=...)`` bitwise
+   equal to the plain sharded server, and phase 7's chaos run on the mesh
+   (every poisoned request quarantined, native survivors bitwise equal to a
+   fault-free run); (e) ``serve_qr --device cuda --mesh 4 --check``: with
+   fewer than 4 cards it must exit non-zero naming the "4-device batch mesh";
+   then ``batched_update``'s time at each shape the phase launched it at;
+9. every (shape, dtype) the kernels were launched at by phases 4-8 is held
    against the plain version once more;
-9. a JSON line of per-kernel numbers, then the last line
+10. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the serving run, the dense run,
-phase 6 and phase 7, and read just after each; a route that does not launch
-its kernels fails the run.  Any failed check exits non-zero without printing the last
+phase 6, phase 7 and phase 8, and read just after each; a route that does
+not launch its kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -1019,12 +1035,6 @@ def resilient_phase(reqs, kernels, card: str) -> dict:
     check(cli.returncode == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
           f"(f) serve_qr --resilient --check --requests 512 exits {cli.returncode} with "
           f"{len(lines)} CSV lines: {lines[-1:]}")
-    mesh = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
-                           "--mesh", "2"], capture_output=True, text=True, env=env,
-                          timeout=300)
-    check(mesh.returncode == 2, f"(f) serve_qr --mesh 2 exits {mesh.returncode} (2: not "
-                                "ported yet)")
-
     lap("f")
     launches = {k: fn.launches for k, fn in kernels.items()}
     out["launches"] = launches
@@ -1032,6 +1042,272 @@ def resilient_phase(reqs, kernels, card: str) -> dict:
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(f"  launches in phase 7: {launches} ({out['wall_s']['phase']:.1f} s wall)")
     check(launches["batched_update"] > 0, "phase 7 launched batched_update")
+    return out
+
+
+def close_to(a, b, tol: float = 1e-6) -> bool:
+    """Two ticket results within rtol = atol = ``tol`` leaf by leaf (integer
+    leaves, the pivoted solve's rank, equal)."""
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                return False
+        elif not bool(((x.double() - y.double()).abs() <= tol + tol * y.double().abs()).all()):
+            return False
+    return True
+
+
+def sharded_phase(reqs, kernels, card: str) -> dict:
+    """Phase 8 (a)-(e); returns the launches it made and its numbers."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import from_numpy
+    from repro_torch.launch.serve_qr import QRServer, _submit_all
+    from repro_torch.parallel import BatchMesh
+    from repro_torch.serve import KINDS, PoisonedError, ServeError
+    from repro_torch.solvers import kf_step_batched, qr_append_rows_batched
+    from repro_torch.testing.faults import FaultPlan, inject, poison_workload
+
+    b1 = kernels["batched_update"]
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}}
+    shards = 4
+    mesh = BatchMesh((torch.device("cuda", 0),) * shards)
+    reqs = from_numpy(reqs, "cuda")
+    t_sub = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        out["wall_s"][part] = now - t_sub[0]
+        print(f"  ({part}) took {now - t_sub[0]:.1f} s")
+        t_sub[0] = now
+
+    def serve(srv, batch):
+        before = b1.launches
+        tickets = _submit_all(srv, batch)
+        srv.flush()
+        srv.drain()
+        return tickets, [srv.result(t) for t in tickets], b1.launches - before
+
+    def compare(label, batch, plain, sharded):
+        """The two servers' results: kernel kinds bitwise, lstsq kinds within
+        1e-6; returns the number of kernel-kind results that differ."""
+        kinds = Counter(r[0] for r in batch)
+        diff = Counter(r[0] for r, a, b in zip(batch, plain, sharded)
+                       if r[0] in ("append", "kalman") and not same_bits(a, b))
+        far = Counter(r[0] for r, a, b in zip(batch, plain, sharded)
+                      if r[0] in ("lstsq", "lstsq_pivoted") and not close_to(b, a))
+        n_kernel = kinds["append"] + kinds["kalman"]
+        n_solve = kinds["lstsq"] + kinds["lstsq_pivoted"]
+        check(not diff, f"({label}) append and kalman: {sum(diff.values())} of {n_kernel} "
+                        f"sharded results differ from the plain server's bits {dict(diff)}")
+        check(not far, f"({label}) lstsq and lstsq_pivoted: {sum(far.values())} of "
+                       f"{n_solve} outside rtol = atol = 1e-6 {dict(far)}")
+        return sum(diff.values())
+
+    # (a) the full mix, sharded beside the plain server
+    servers = {"plain": QRServer(device="cuda", max_batch=SERVE_MAX_BATCH),
+               "sharded": QRServer(device="cuda", max_batch=SERVE_MAX_BATCH, mesh=mesh)}
+    cache = servers["sharded"]._engine.dispatcher.executables
+    res = {name: serve(srv, reqs) for name, srv in servers.items()}
+    misses = cache.misses
+    keys = sorted(k[0] for k in cache.keys())
+    serve(servers["sharded"], reqs)
+    check(misses == 2 and keys == ["lstsq", "lstsq_pivoted"] and cache.misses == 2
+          and cache.hits == 2, f"(a) ExecutableCache: {misses} misses on the first flush "
+                               f"({keys}), {cache.misses} misses and {cache.hits} hits "
+                               "after the second (one miss per sharded lstsq kind)")
+    out["full_differ"] = compare("a", reqs, res["plain"][1], res["sharded"][1])
+    launches = {k: v[2] for k, v in res.items()}
+    out["full_launches"] = launches
+    check(launches["sharded"] == shards * launches["plain"] > 0,
+          f"(a) batched_update launches: plain {launches['plain']}, sharded "
+          f"{launches['sharded']} (= {shards} x plain)")
+    rates = {"plain": [], "sharded": []}
+    for name in ["plain", "sharded", "sharded", "plain"] * 2 + ["plain", "sharded"]:
+        srv = servers[name]
+        _submit_all(srv, reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = srv.flush()
+        srv.drain()
+        rates[name].append(served / (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    out["serve_req_s"] = dict(rates, median=med)
+    print(f"  (a) {len(reqs)}-request flush, 5 alternating pairs (plain, sharded, sharded, "
+          f"plain, ...): plain {', '.join(f'{r:.1f}' for r in rates['plain'])}; sharded "
+          f"{', '.join(f'{r:.1f}' for r in rates['sharded'])} req/s; medians "
+          f"{med['plain']:.1f} / {med['sharded']:.1f}, ratio "
+          f"{med['sharded'] / med['plain']:.3f} (a reading, not checked; {card})")
+    srv = servers["sharded"]
+    _submit_all(srv, reqs)
+    profile_top(lambda: (srv.flush(), srv.drain()), "one sharded flush", host_ops=False)
+    out["kind_ms"] = {}
+    for kind in KINDS:  # where the flush time goes: each kind alone, both servers
+        sub = [r for r in reqs if r[0] == kind]
+        for name, srv in servers.items():
+            _submit_all(srv, sub)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.flush(kind)
+            srv.drain()
+            out["kind_ms"][f"{kind} {name}"] = (time.perf_counter() - t0) * 1e3
+    print("  (a) each kind flushed alone, plain / sharded ms: " + "; ".join(
+        f"{k} {out['kind_ms'][k + ' plain']:.2f} / {out['kind_ms'][k + ' sharded']:.2f}"
+        for k in KINDS))
+    del res
+    lap("a")
+
+    # (b) an odd count: every group pads to another width on the mesh than alone
+    odd = reqs[:8075]
+    res = {name: serve(srv, odd) for name, srv in servers.items()}
+    plain_d = servers["plain"]._engine.dispatcher
+    shard_d = servers["sharded"]._engine.dispatcher
+    widths = []
+    for group, nb in sorted(Counter(t.group for t in res["plain"][0]).items(), key=str):
+        kind, dt = group[0], group[2]
+        w1, w4 = plain_d.padded_chunk(nb, kind, dt), shard_d.padded_chunk(nb, kind, dt)
+        widths.append((kind, nb, w1, w4))
+    print("  (b) groups (kind, requests, padded alone, padded on the mesh): "
+          + "; ".join(f"{k} {nb}: {w1} / {w4}" for k, nb, w1, w4 in widths))
+    check(all(w1 != w4 for _, _, w1, w4 in widths),
+          f"(b) every one of the {len(widths)} groups pads to another width on the mesh")
+    out["odd_differ"] = compare("b", odd, res["plain"][1], res["sharded"][1])
+    launches = {k: v[2] for k, v in res.items()}
+    check(launches["sharded"] == shards * launches["plain"] > 0,
+          f"(b) batched_update launches: plain {launches['plain']}, sharded "
+          f"{launches['sharded']}")
+    out["widths"] = widths
+    del res
+    lap("b")
+
+    # (c) the batched functions alone, at the mix's append shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    one = BatchMesh((torch.device("cuda", 0),))
+    n, p = 32, 8
+    for B in (1, 7, 67, 8191):
+        R = torch.triu(torch.randn((B, n, n), generator=g, device="cuda"))
+        U = torch.randn((B, p, n), generator=g, device="cuda")
+        d = torch.randn((B, n, 1), generator=g, device="cuda")
+        Y = torch.randn((B, p, 1), generator=g, device="cuda")
+        alone = qr_append_rows_batched(R, U, d, Y)
+        on4 = qr_append_rows_batched(R, U, d, Y, mesh=mesh)
+        on1 = qr_append_rows_batched(R, U, d, Y, mesh=one)
+        check(same_bits(on4, alone) and same_bits(on1, alone),
+              f"(c) qr_append_rows_batched B={B}: 4 shards and 1 shard bitwise equal "
+              "to mesh=None")
+    small = [r for r in reqs if r[0] == "kalman" and r[3] is reqs[1][3]][:11]
+    R, d, F, Qi, H, z = (torch.stack([r[i] for r in small]) if i in (1, 2, 6)
+                         else small[0][i] for i in range(1, 7))
+    check(same_bits(kf_step_batched(R, d, F, Qi, H, z, mesh=mesh),
+                    kf_step_batched(R, d, F, Qi, H, z)),
+          "(c) kf_step_batched B=11, shared models: 4 shards bitwise equal to mesh=None")
+    lap("c")
+
+    # (d) resilient serving on the mesh
+    resil = QRServer(device="cuda", max_batch=SERVE_MAX_BATCH, mesh=mesh, resilient=True)
+    _, got, _ = serve(resil, reqs)
+    _, want, _ = serve(servers["sharded"], reqs)
+    diff = sum(not same_bits(a, b) for a, b in zip(got, want))
+    check(diff == 0, f"(d) resilient sharded flush of {len(reqs)} requests: {diff} differ "
+                     "from the plain sharded flush's bits")
+    del got, want, servers
+    poisoned, idx = poison_workload(reqs, rate=0.01, seed=11)
+    runs = {}
+    for name in ("fault-free", "chaos"):
+        srv = QRServer(device="cuda", max_batch=512, mesh=mesh, resilient=True)
+        tickets = _submit_all(srv, poisoned)
+        t0 = time.perf_counter()
+        if name == "chaos":
+            with inject(FaultPlan(seed=7, transient_rate=0.2, poison_rate=0.05)) as inj:
+                srv.flush()
+                srv.drain()
+        else:
+            srv.flush()
+            srv.drain()
+        prov = srv._engine.dispatcher.provenance
+        runs[name] = [(resolve(srv._engine, t), prov[(t.group, t.cycle)][t.index])
+                      for t in tickets]
+        print(f"  (d) {name} run on the mesh, max_batch 512: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name, outs in runs.items():
+        wrong = [i for i in idx if not isinstance(outs[i][0], PoisonedError)]
+        check(not wrong, f"(d) {name}: all {len(idx)} poisoned requests resolve to "
+                         f"PoisonedError (not: {wrong[:5]})")
+    bad = set(idx)
+    clean = [i for i in range(len(reqs)) if i not in bad]
+    native_diff, native, worst = [], 0, 0.0
+    served = 0
+    for i in clean:
+        got, prov = runs["chaos"][i]
+        want = runs["fault-free"][i][0]
+        if isinstance(got, ServeError) or isinstance(want, ServeError):
+            continue
+        served += 1
+        if prov.rung == "native":
+            native += 1
+            if not same_bits(got, want):
+                native_diff.append(i)
+        else:
+            worst = max(worst, rel_gap(got, want))
+    out["chaos"] = dict(counts=dict(inj.counts), served=served, clean=len(clean),
+                        native=native, worst_degraded=worst)
+    print(f"  (d) injected {dict(inj.counts)}; {served} of {len(clean)} clean served, "
+          f"{native} native; worst degraded gap {worst:.2e}")
+    check(served >= 0.99 * len(clean), f"(d) {served} of {len(clean)} clean requests served")
+    check(not native_diff, f"(d) every native-rung survivor ({native}) keeps the fault-free "
+                           f"run's bits ({len(native_diff)} differ)")
+    check(worst <= 2e-4, f"(d) degraded survivors within {worst:.2e} of the fault-free run")
+    del runs
+    lap("d")
+
+    # (e) the CLI
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cards = torch.cuda.device_count()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
+                          "--device", "cuda", "--mesh", "4", "--check"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    print(f"  (e) {cards} visible card(s); serve_qr --device cuda --mesh 4 --check exits "
+          f"{cli.returncode}: {(lines[-1:] or [cli.stderr.strip()[-160:]])[0]}")
+    if cards < 4:
+        check(cli.returncode != 0 and "4-device batch mesh" in cli.stderr,
+              "(e) with fewer than 4 cards, --mesh 4 exits non-zero naming the "
+              "4-device batch mesh")
+    else:
+        check(cli.returncode == 0 and len(lines) == 2 and "mesh=4" in lines[-1],
+              "(e) --mesh 4 serves with two CSV lines and mesh=4")
+    lap("e")
+
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    out["launches"] = launches
+    out["shapes"] = {k: set(fn.shapes) for k, fn in kernels.items()}
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  launches in phase 8: {launches} ({out['wall_s']['phase']:.1f} s wall)")
+    check(launches["batched_update"] > 0, "phase 8 launched batched_update")
+    # B1 per shard: the kernel alone at each shape the phase launched it at
+    out["b1_ms"] = {}
+    for shape, n_piv, dtype in sorted(out["shapes"]["batched_update"], key=str):
+        x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+        x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
+        out["b1_ms"][str(shape)] = cuda_ms(lambda: b1(x, n_piv), reps=20, warmup=2)
+    b1.launches = launches["batched_update"]  # the timing launches do not count
+    print("  batched_update per shard (kernel alone, 20 launches after 2): " + ", ".join(
+        f"{s} {ms:.4f} ms" for s, ms in out["b1_ms"].items()) + f" ({card})")
     return out
 
 
@@ -1255,14 +1531,20 @@ def main() -> int:
         recorded[name] |= resil["shapes"][name]
 
     # ------------------------------------------------------------ phase 8
-    phase("8. kernels vs plain versions at every main-path shape")
+    phase("8. sharded serving")
+    shard = sharded_phase(reqs, kernels, card)
+    for name in kernels:
+        recorded[name] |= shard["shapes"][name]
+
+    # ------------------------------------------------------------ phase 9
+    phase("9. kernels vs plain versions at every main-path shape")
     n_shapes = sum(len(s) for s in recorded.values())
     recheck_worst = recheck_shapes(recorded, gen)
     print(f"  {n_shapes} (shape, dtype) launches rechecked; worst errors "
           f"{recheck_worst}")
 
-    # ------------------------------------------------------------ phase 9
-    phase("9. summary")
+    # ------------------------------------------------------------ phase 10
+    phase("10. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -1282,7 +1564,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
             "launches": (serve_launches[name] + dense_launches[name]
-                         + inst["launches"][name] + resil["launches"][name]),
+                         + inst["launches"][name] + resil["launches"][name]
+                         + shard["launches"][name]),
             "max_abs_err": max(worst[name], recheck_worst[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1296,6 +1579,7 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in dense_ms.items()) + f"; card {card}")
     print(f"  phase 6: {json.dumps({k: v for k, v in inst.items() if k != 'shapes'})}")
     print(f"  phase 7: {json.dumps({k: v for k, v in resil.items() if k != 'shapes'})}")
+    print(f"  phase 8: {json.dumps({k: v for k, v in shard.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -21,14 +21,28 @@ predict+observe step, batched through ``kf_step_batched``), and
 The server runs on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no CUDA device and the default it raises.
 
+Sharded serving: pass ``mesh=`` (a 1-D ``parallel.BatchMesh``, e.g. from
+``repro_torch.parallel.make_batch_mesh``) and every flushed group is split
+over the mesh's batch axis — the fused kernel runs once per shard on its
+slice of the stacked requests.  Groups are zero-padded up to ``shards x
+block_b`` (``shards`` for the lstsq kinds) so every shard gets the same
+number of problems; results are gathered on the serving device and sliced
+back, so sharded and single-device flushes of the kernel kinds agree bit for
+bit.
+
     PYTHONPATH=src python -m repro_torch.launch.serve_qr --requests 64 \
         --n 16 --rows 8 --backend pallas --device cuda
+
+    # 4-way sharded flush on the host (four shards of the CPU):
+    PYTHONPATH=src python -m repro_torch.launch.serve_qr --device cpu \
+        --requests 67 --mesh 4
 
 emits one CSV line per run with throughput; ``--check`` folds a cross-backend
 max-error into the ``derived`` column (rows always have exactly 3 fields).
 ``--resilient`` serves through the fault-tolerant dispatcher
-(``repro_torch.serve.resilience``).  ``--mesh N`` (N > 1) is not ported yet
-and exits with code 2.
+(``repro_torch.serve.resilience``).  ``--mesh N`` shards over N distinct
+cards (``--device cuda``) or N shards of the host (``--device cpu``); more
+cards than are visible exits non-zero with the mesh's message.
 
 Observability: the serving layers are instrumented with ``repro_torch.obs``
 — per-kind queue-depth gauges, submit->flush queue-wait and flush-duration
@@ -70,7 +84,11 @@ class QRServer:
     backend: "pallas" (the fused batched kernel path) or "reference" (plain
     PyTorch sweeps).  max_batch: dispatch granularity — each group is flushed
     in chunks of at most this many stacked requests.  device: where requests
-    are stacked and solved — the card by default.  resilient: serve through
+    are stacked and solved — the card by default.  mesh/mesh_axis: optional
+    1-D ``parallel.BatchMesh`` (``device`` one of its devices); when set,
+    each chunk is split over ``mesh_axis`` with the batch padded to
+    ``shards x block_b`` (appends/kalman) or ``shards`` (lstsq kinds) and
+    gathered back on ``device``.  resilient: serve through
     ``ResilientDispatcher`` (failure domains, retry/degrade, quarantine;
     bitwise equal to the plain dispatcher when nothing fails).  Requests of
     the same shape but different dtypes land in *different* groups —
@@ -80,6 +98,8 @@ class QRServer:
     backend: str = "pallas"
     max_batch: int = 64
     device: str = "cuda"
+    mesh: object | None = None  # parallel.BatchMesh
+    mesh_axis: str = "batch"
     block_b: int = 8
     precision: object | None = None  # Precision | policy name | None
     resilient: bool = False  # fault-tolerant dispatch (serve.resilience)
@@ -88,7 +108,8 @@ class QRServer:
         dispatcher_cls = ResilientDispatcher if self.resilient else Dispatcher
         self._engine = ContinuousBatcher(
             dispatcher_cls(backend=self.backend, max_batch=self.max_batch,
-                           device=self.device, block_b=self.block_b,
+                           device=self.device, mesh=self.mesh,
+                           mesh_axis=self.mesh_axis, block_b=self.block_b,
                            double_buffer=False, precision=self.precision),
             admit_max=None, retain_cycles=1)
 
@@ -258,7 +279,8 @@ def _as_tuple(res) -> tuple:
 def main(argv=None):
     """Serving CLI: run a synthetic workload through one timed flush.
 
-    Emits one 3-field CSV row (name, req_per_s, derived); ``--check`` folds a
+    Emits one 3-field CSV row (name, req_per_s, derived); ``--mesh N``
+    shards flushed groups over an N-device batch mesh, ``--check`` folds a
     cross-backend max-error into the derived column, and ``--metrics P`` (or
     ``REPRO_OBS_SNAPSHOT=P``) collects ``repro_torch.obs`` metrics for the
     run and writes ``P.jsonl`` + ``P.prom`` snapshots.
@@ -273,7 +295,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="serving device (default: the card)")
     ap.add_argument("--mesh", type=int, default=1, metavar="N",
-                    help="not ported yet: N > 1 exits with code 2")
+                    help="shard flushed groups over an N-device batch mesh "
+                         "(N cards with --device cuda, N shards of the host "
+                         "with --device cpu)")
     ap.add_argument("--check", action="store_true",
                     help="cross-check a sample of results against the other backend")
     ap.add_argument("--resilient", action="store_true",
@@ -286,8 +310,15 @@ def main(argv=None):
                     help="collect obs metrics and write PREFIX.jsonl + "
                          "PREFIX.prom snapshots (default: $REPRO_OBS_SNAPSHOT)")
     args = ap.parse_args(argv)
+
+    mesh = None
     if args.mesh > 1:
-        ap.error("--mesh N > 1 is not yet ported")
+        from repro_torch.parallel import make_batch_mesh
+
+        try:
+            mesh = make_batch_mesh(args.mesh, device=args.device)
+        except ValueError as e:
+            sys.exit(str(e))
 
     reg = None
     if args.metrics:
@@ -295,7 +326,7 @@ def main(argv=None):
         obs.install(reg)
 
     server = QRServer(backend=args.backend, max_batch=args.max_batch,
-                      device=args.device, resilient=args.resilient)
+                      device=args.device, mesh=mesh, resilient=args.resilient)
     reqs = make_workload(args.requests, args.n, args.rows, args.nrhs,
                          device=args.device)
 
@@ -326,7 +357,7 @@ def main(argv=None):
     # derived column is ';'-separated key=val pairs — rows stay 3 CSV fields
     print("name,req_per_s,derived")
     print(f"serve_qr_{args.backend}_n{args.n}_p{args.rows},{served / dt:.1f},"
-          f"max_batch={args.max_batch};device={args.device}{check}")
+          f"max_batch={args.max_batch};mesh={args.mesh};device={args.device}{check}")
 
     if reg is not None:
         meta = {"cli": "serve_qr", "backend": args.backend, "mesh": args.mesh,

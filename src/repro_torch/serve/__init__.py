@@ -3,8 +3,10 @@
 The serving stack, bottom-up:
 
     requests.py   typed Request/Ticket + group signatures (what may stack)
-    dispatch.py   per-kind executors, pad-before-dispatch, double-buffered
-                  in-flight chunks (completion tracked with CUDA events)
+    dispatch.py   per-kind executors, pad-before-dispatch, the sharded path
+                  over a 1-D batch mesh, bounded executable cache,
+                  double-buffered in-flight chunks (completion tracked
+                  with CUDA events)
     batcher.py    continuous batching: open batches close on max_batch /
                   deadline / flush; per-(group, cycle) results
     policy.py     admission control: per-kind latency tiers, reject/shed

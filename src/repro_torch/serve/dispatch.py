@@ -2,18 +2,27 @@
 
 One ``Dispatcher`` owns everything between "a closed batch of typed
 requests" and "per-request results": per-kind executors (append / lstsq /
-kalman / lstsq_pivoted), the per-server executable cache and the
-double-buffering that overlaps host-side stacking of batch k+1 with batch
-k's device work.  Eager PyTorch builds no executables, so as in the JAX
-package's single-device path nothing fills the cache (``ExecutableCache``,
-a bounded LRU) until a compiled path — the sharded dispatch of a later
-slice — uses it; the fault injector's eviction hazard clears it.
+kalman / lstsq_pivoted), the sharded path over a 1-D batch mesh, the
+per-server executable cache and the double-buffering that overlaps
+host-side stacking of batch k+1 with batch k's device work.
 
-**Padding before dispatch.**  Every chunk is zero-padded to ``block_b``
-granularity (``padded_chunk``) before the executor sees it, so deadline
-closes of arbitrary size run at a few batch shapes only.  Zero problems are
-exact fixed points of the eps-guarded sweeps, so the pad rows are sliced off
-afterwards unchanged.
+**Padding before dispatch.**  Every chunk is zero-padded to the granularity
+its path runs at (``padded_chunk``: mesh → ``shards x block_b``, or
+``shards`` for the lstsq kinds; one device → ``block_b``) before the
+executor sees it, so deadline closes of arbitrary size run at a few batch
+shapes only.  Zero problems are exact fixed points of the eps-guarded
+sweeps, so the pad rows are sliced off afterwards unchanged.
+
+**Sharded dispatch.**  With ``mesh=`` (a ``parallel.BatchMesh``) each chunk
+is stacked on ``device`` (a device of the mesh), split into one contiguous
+slice per shard, each slice runs the single-device executor on its shard's
+device, and the slices are gathered in order on ``device``.  The
+append/kalman sweep goes through ``solvers.qr_update``'s per-mesh executor;
+the lstsq kinds get theirs from the per-server ``ExecutableCache`` (a bounded
+LRU keyed on ``(kind, mesh, mesh_axis)``, so a server that cycles meshes
+holds at most ``cache_size`` of them), which the fault injector's eviction
+hazard clears.  A chunk is one dispatch, whatever its shard count: it is
+counted, timed and its padding waste recorded once.
 
 **Double buffering.**  CUDA work is asynchronous: an executor enqueues
 kernels on the current stream and returns tensors that are not yet
@@ -46,6 +55,7 @@ import torch
 from repro_torch import obs
 from repro_torch.kernels import Precision, pad_batch, resolve_precision
 from repro_torch.kernels.backend import dtype_name, torch_dtype
+from repro_torch.parallel.sharding import canonical_device, shard_batch
 
 __all__ = ["Dispatcher", "DrainError", "ExecutableCache", "InFlight",
            "resolve_device"]
@@ -161,6 +171,29 @@ class Lanes(list):
         self.batched = batched
 
 
+def _batched_lstsq(Ab, bb):
+    """(x, resid) of a batch of lstsq problems.  The zero problems that pad a
+    chunk are rank-collapsed by construction, so the eager rank check is
+    switched off explicitly."""
+    from repro_torch.solvers import ggr_lstsq
+
+    fit = ggr_lstsq(Ab, bb, check_rank=False)
+    return fit.x, fit.resid
+
+
+def _batched_lstsq_pivoted(Ab, bb):
+    """(x, resid, rank) of a batch of rank-revealing problems.  Padded lanes
+    are all-zero problems, whose pivoted sweep is an exact fixed point
+    (rank 0, x = 0), so slicing them off is lossless."""
+    from repro_torch.ranks import lstsq_pivoted
+
+    fit = lstsq_pivoted(Ab, bb)
+    return fit.x, fit.resid, fit.rank
+
+
+_SOLVES = {"lstsq": _batched_lstsq, "lstsq_pivoted": _batched_lstsq_pivoted}
+
+
 def _pad_to(x: torch.Tensor, batch: int) -> torch.Tensor:
     """Zero-pad dim 0 up to exactly ``batch`` rows (no-op when already there)."""
     if x.shape[0] == batch:
@@ -170,18 +203,21 @@ def _pad_to(x: torch.Tensor, batch: int) -> torch.Tensor:
 
 @dataclass
 class Dispatcher:
-    """Chunked, padded executor for closed batches.
+    """Chunked, padded, optionally sharded executor for closed batches.
 
     ``backend`` ("pallas" — the kernel path — | "reference"), ``max_batch``
     chunk granularity, ``block_b`` padding granularity, ``device`` the
-    serving device (the card unless the caller asks for the CPU).
-    ``double_buffer`` selects async (see module docstring); ``cache_size``
-    bounds the executable cache.
+    serving device (the card unless the caller asks for the CPU), optional
+    ``mesh``/``mesh_axis`` for sharded dispatch (``device`` must be one of
+    the mesh's devices).  ``double_buffer`` selects async (see module
+    docstring); ``cache_size`` bounds the executable cache.
     """
 
     backend: str = "pallas"
     max_batch: int = 64
     device: object = "cuda"
+    mesh: object | None = None  # parallel.BatchMesh
+    mesh_axis: str = "batch"
     block_b: int = 8
     double_buffer: bool = False
     cache_size: int = 32
@@ -192,6 +228,11 @@ class Dispatcher:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if (self.mesh is not None
+                and canonical_device(self.device) not in self.mesh.devices):
+            raise ValueError(f"serving device {self.device} is not a device of the "
+                             f"mesh {self.mesh.devices}: chunks are stacked and "
+                             "gathered there")
         if self.executables is None:
             self.executables = ExecutableCache(self.cache_size)
         if self.precision is not None:
@@ -228,18 +269,38 @@ class Dispatcher:
         return dtype_name(cd), None
 
     # ------------------------------------------------------------- padding
+    def _granularity(self, kind: str, dtype=None) -> int:
+        """The multiple a chunk of ``kind`` is padded to: ``block_b``
+        (``block_b_for(dtype)`` for a group stored at ``dtype``) on one
+        device; on a mesh ``shards x block_b``, or ``shards`` for the lstsq
+        kinds, whose sweep has no ``block_b`` grid."""
+        bb = self.block_b if dtype is None else self.block_b_for(dtype)
+        if self.mesh is None:
+            return bb
+        return self.mesh.shape[self.mesh_axis] * (1 if kind in _SOLVES else bb)
+
     def padded_chunk(self, nb: int, kind: str, dtype=None) -> int:
         """Batch size a dispatch of ``nb`` requests actually runs at, after
-        pad_batch rounding to ``block_b`` (``block_b_for(dtype)`` for a
-        group stored at ``dtype``) — for every kind and backend, so deadline
-        closes of arbitrary size run at few batch shapes."""
-        gran = self.block_b if dtype is None else self.block_b_for(dtype)
+        pad_batch rounding to ``_granularity`` — for every kind and backend,
+        so deadline closes of arbitrary size run at few batch shapes."""
+        gran = self._granularity(kind, dtype)
         return -(-nb // gran) * gran
 
     # ----------------------------------------------------------- executors
     def _kernel_opts(self, store_dtype: str) -> dict:
         return dict(backend=self.backend, block_b=self.block_b_for(store_dtype),
+                    mesh=self.mesh, mesh_axis=self.mesh_axis,
                     precision=self._chunk_precision(store_dtype)[1])
+
+    def _solve(self, kind: str, Ab, bb):
+        """The batched solve of an lstsq kind, sharded over the mesh through
+        the executable cache when one is set."""
+        if self.mesh is None:
+            return _SOLVES[kind](Ab, bb)
+        fn = self.executables.get(
+            (kind, self.mesh, self.mesh_axis),
+            lambda: shard_batch(_SOLVES[kind], self.mesh, self.mesh_axis))
+        return fn(Ab, bb)
 
     def _stack(self, chunk, i: int, P: int, compute_dt: str) -> torch.Tensor:
         x = _pad_to(torch.stack([r.arrays[i] for r in chunk]), P)
@@ -277,21 +338,17 @@ class Dispatcher:
         return outs, lambda: nb * obs.ggr_append_flops(n, p, w), Rn
 
     def _exec_lstsq(self, chunk):
-        """Stack + pad one lstsq chunk, dispatch the batched augmented sweep.
-
-        The zero problems that pad the chunk are rank-collapsed by
-        construction, so the eager rank check is switched off explicitly."""
-        from repro_torch.solvers import ggr_lstsq
-
+        """Stack + pad one lstsq chunk, dispatch the batched augmented sweep
+        (sharded over the mesh when one is set)."""
         nb = len(chunk)
         store_dt = dtype_name(chunk[0].arrays[0].dtype)
         compute_dt, _ = self._chunk_precision(store_dt)
         P = self.padded_chunk(nb, "lstsq", store_dt)
         Ab, bb = (self._stack(chunk, i, P, compute_dt) for i in (0, 1))
-        fit = ggr_lstsq(Ab, bb, check_rank=False)
+        xs, rs = self._solve("lstsq", Ab, bb)
         store = torch_dtype(store_dt)
-        xs = fit.x[:nb].to(store)  # down-cast to storage on return
-        rs = fit.resid[:nb].to(store)
+        xs = xs[:nb].to(store)  # down-cast to storage on return
+        rs = rs[:nb].to(store)
         m, n = Ab.shape[1], Ab.shape[2]
         k = bb.shape[2] if bb.ndim > 2 else 1
         return Lanes((xs, rs)), lambda: nb * obs.lstsq_flops(m, n, k), None
@@ -332,22 +389,19 @@ class Dispatcher:
 
     def _exec_lstsq_pivoted(self, chunk):
         """Stack + pad one rank-revealing lstsq chunk: the batched QRCP
-        min-norm solve (``ranks.lstsq_pivoted``).  Per-request result is
-        ``(x, resid, rank)`` — rank stays int32.  Padded lanes are all-zero
-        problems, whose pivoted sweep is an exact fixed point (rank 0,
-        x = 0), so slicing them off is lossless."""
-        from repro_torch.ranks import lstsq_pivoted
-
+        min-norm solve (``ranks.lstsq_pivoted``), sharded over the mesh when
+        one is set.  Per-request result is ``(x, resid, rank)`` — rank stays
+        int32."""
         nb = len(chunk)
         store_dt = dtype_name(chunk[0].arrays[0].dtype)
         compute_dt, _ = self._chunk_precision(store_dt)
         P = self.padded_chunk(nb, "lstsq_pivoted", store_dt)
         Ab, bb = (self._stack(chunk, i, P, compute_dt) for i in (0, 1))
-        fit = lstsq_pivoted(Ab, bb)
+        xs, rs, rk = self._solve("lstsq_pivoted", Ab, bb)
         store = torch_dtype(store_dt)
-        xs = fit.x[:nb].to(store)  # down-cast to storage on return
-        rs = fit.resid[:nb].to(store)
-        rk = fit.rank[:nb]
+        xs = xs[:nb].to(store)  # down-cast to storage on return
+        rs = rs[:nb].to(store)
+        rk = rk[:nb]
         m, n = Ab.shape[1], Ab.shape[2]
         k = bb.shape[2] if bb.ndim > 2 else 1
         # pivoting adds the per-step suffix-norm matrix + swap on top of the
@@ -383,6 +437,7 @@ class Dispatcher:
             outs.extend(chunk_outs)
             event = None
             if self.device.type == "cuda":
+                # after the gather: the chunk's results are on ``device``
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
             infl = InFlight(key, len(chunk), chunk_outs, event, t0, flops,

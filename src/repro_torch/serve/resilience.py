@@ -363,15 +363,19 @@ class ResilientDispatcher(Dispatcher):
                 raise ValueError(
                     f"rung {rung.name!r} overrides {unknown}, which this "
                     "dispatcher does not have (the port has no interpret "
-                    "or mesh knob)")
+                    "knob)")
 
     # ------------------------------------------------------------- padding
     def padded_chunk(self, nb: int, kind: str, dtype=None) -> int:
         # the pad floor pins quarantine/bisect re-dispatches to the original
         # chunk's padded width: survivors run at the same shapes and keep
-        # their fault-free bits
+        # their fault-free bits.  It is rounded up to the granularity in
+        # force, which a rung that overrides the mesh changes.
         p = super().padded_chunk(nb, kind, dtype)
-        return max(p, self._pad_floor) if self._pad_floor else p
+        if not self._pad_floor:
+            return p
+        gran = self._granularity(kind, dtype)
+        return max(p, -(-self._pad_floor // gran) * gran)
 
     # ------------------------------------------------------------ dispatch
     def dispatch(self, key: tuple, reqs: list,
@@ -528,7 +532,9 @@ class ResilientDispatcher(Dispatcher):
             exec_one = self._EXECUTORS[kind]
             outs, flops, r_factor = exec_one(self, sub)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                devices = {self.device} if self.mesh is None else set(self.mesh.devices)
+                for dev in devices:
+                    torch.cuda.synchronize(dev)
         return outs, flops, r_factor
 
     @contextlib.contextmanager

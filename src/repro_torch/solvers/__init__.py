@@ -3,7 +3,8 @@ filtering on GGR.
 
 Instead of re-factorizing an ever-growing matrix, maintain a compact
 ``(R, d)`` state and apply Givens-based up/downdates; batches of independent
-small updates run as one launch of the batched row-append kernel.
+small updates run as one launch of the batched row-append kernel (one a
+shard over a ``parallel.BatchMesh``).
 """
 from .kalman import (
     KalmanState,

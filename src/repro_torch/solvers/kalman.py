@@ -48,7 +48,7 @@ from repro_torch.core.ggr import ggr_qr2, ggr_triangularize
 from repro_torch.kernels import resolve_precision
 
 from .lstsq import solve_triangular
-from .qr_update import _update_stacked, qr_append_rows
+from .qr_update import _sweep, qr_append_rows
 
 __all__ = [
     "KalmanState",
@@ -238,7 +238,7 @@ def kf_step_batched(R: torch.Tensor, d: torch.Tensor, F: torch.Tensor,
                     Qi: torch.Tensor, H: torch.Tensor, z: torch.Tensor,
                     G: torch.Tensor | None = None,
                     *, backend: str = "pallas", block_b: int = 8, mesh=None,
-                    precision=None):
+                    mesh_axis: str = "batch", precision=None):
     """Advance B independent SRIF filters one predict+observe step at once.
 
     R: (B, n, n), d: (B, n), z: (B, p); the model matrices ``F`` (n, n),
@@ -249,13 +249,14 @@ def kf_step_batched(R: torch.Tensor, d: torch.Tensor, F: torch.Tensor,
 
     The B stacked step matrices run through the batched row-append kernel
     (``backend="pallas"``, one launch per call) or the plain batched
-    ``ggr_triangularize`` (``backend="reference"``).  ``mesh=`` is not
-    ported yet and raises ``NotImplementedError``.
+    ``ggr_triangularize`` (``backend="reference"``).  With ``mesh=`` the
+    step matrices are stacked on the whole batch, then the batch is
+    zero-padded to ``shards x block_b`` and the sweep runs once per shard
+    over ``mesh_axis``, exactly like ``qr_append_rows_batched``: sharded and
+    single-device results agree bitwise.
 
     ``precision``: mixed-precision policy (``Precision`` / name / None).
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded (mesh=) dispatch is not ported yet")
     B, n = R.shape[0], R.shape[2]
     w = Qi.shape[-1]
     if precision is not None:
@@ -268,7 +269,7 @@ def kf_step_batched(R: torch.Tensor, d: torch.Tensor, F: torch.Tensor,
 
     zb = z.expand((B,) + z.shape) if z.ndim == 1 else z
     stacked = _step_stacked(R, d, bcast(F), bcast(Qi), bcast(H), zb, bcast(G))
-    out = _update_stacked(stacked, w + n, backend, block_b, precision=precision)
+    out = _sweep(stacked, w + n, backend, block_b, mesh, mesh_axis, precision)
     R_new = torch.triu(out[:, w:w + n, w:w + n])
     # batch-wide posterior condition gauge (worst member estimated; see
     # obs.factor_health) — a no-op unless a collector is installed

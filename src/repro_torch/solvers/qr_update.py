@@ -26,10 +26,13 @@ rows.  Invariants maintained: ``R^T R = sum_i u_i u_i^T`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.ggr import _eps_for, ggr_triangularize
-from repro_torch.kernels import batched_update, resolve_precision
+from repro_torch.kernels import batched_update, pad_batch, resolve_precision
+from repro_torch.parallel.sharding import shard_batch
 
 __all__ = [
     "qr_append_rows",
@@ -105,12 +108,38 @@ def _update_stacked(stacked: torch.Tensor, n: int, backend: str, block_b: int,
                           precision=precision)
 
 
+@functools.lru_cache(maxsize=32)
+def _sharded_update_fn(mesh, mesh_axis: str, n: int, backend: str, block_b: int,
+                       precision=None):
+    """The sweep mapped over ``mesh``'s shards, built once per (mesh,
+    schedule).  Bounded: an unbounded cache would pin every mesh a
+    long-lived server ever cycled through (the serving layer's per-server
+    ``ExecutableCache`` is the primary cache; this is the backstop)."""
+    return shard_batch(functools.partial(_update_stacked, n=n, backend=backend,
+                                         block_b=block_b, precision=precision),
+                       mesh, mesh_axis)
+
+
+def _sweep(stacked: torch.Tensor, n: int, backend: str, block_b: int, mesh,
+           mesh_axis: str, precision) -> torch.Tensor:
+    """The batched sweep on one device, or over ``mesh``: zero-padded to
+    ``shards x block_b`` so every shard gets the same whole number of
+    ``block_b`` groups, one sweep a shard, the padding sliced off."""
+    if mesh is None:
+        return _update_stacked(stacked, n, backend, block_b, precision=precision)
+    B = stacked.shape[0]
+    padded = pad_batch(stacked, mesh.shape[mesh_axis] * block_b)
+    fn = _sharded_update_fn(mesh, mesh_axis, n, backend, block_b, precision)
+    return fn(padded)[:B]
+
+
 def qr_append_rows_batched(R: torch.Tensor, U: torch.Tensor,
                            d: torch.Tensor | None = None,
                            Y: torch.Tensor | None = None,
                            *, backend: str = "pallas",
                            block_b: int = 8,
-                           mesh=None, precision=None):
+                           mesh=None, mesh_axis: str = "batch",
+                           precision=None):
     """Batch of independent row-append updates in one fused kernel launch.
 
     R: (B, n, n) upper triangular, U: (B, p, n), optional d: (B, n, k),
@@ -121,18 +150,22 @@ def qr_append_rows_batched(R: torch.Tensor, U: torch.Tensor,
     stacked sweep.  Both produce the unique non-negative-diagonal factor,
     agreeing to roundoff.
 
-    ``mesh=`` (sharded dispatch) is not ported yet and raises
-    ``NotImplementedError``.
+    Sharded mode: pass a ``parallel.BatchMesh`` and the name of its batch
+    axis (default "batch") to split the batch over the mesh with one kernel
+    launch per shard.  The batch is zero-padded up to ``shards x block_b``,
+    each contiguous shard runs on its device, and the results are gathered
+    in order on the device the batch was stacked on and the padding sliced
+    off — so any batch size (prime sizes and B < shards too) is legal and
+    bitwise equal to the single-device dispatch.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded (mesh=) dispatch is not ported yet")
     n = R.shape[2]
     if (d is None) != (Y is None):
         raise ValueError("pass both d and Y, or neither")
     if precision is not None:
+        # resolved here so the cached sharded path sees only hashable values
         precision = resolve_precision(precision)
-    out = _update_stacked(_stack_update(R, U, d, Y), n, backend, block_b,
-                          precision=precision)
+    out = _sweep(_stack_update(R, U, d, Y), n, backend, block_b, mesh, mesh_axis,
+                 precision)
     R_new = torch.triu(out[:, :n, :n])
     if d is None:
         return R_new

@@ -309,10 +309,11 @@ def _fleet_lti(n: int, w: int, p: int, seed: int):
 
 def fleet_nis(B: int = 8, n: int = 4, w: int = 4, p: int = 2, T: int = 150,
               seed: int = 0, precision=None, backend: str = "pallas",
-              block_b: int = 8, device="cuda") -> np.ndarray:
+              block_b: int = 8, mesh=None, mesh_axis: str = "batch",
+              device="cuda") -> np.ndarray:
     """Mean NIS per fleet member for B filters stepped via
     ``kf_step_batched`` on ``device`` (the card unless the caller asks for
-    the CPU) at ``precision``.
+    the CPU) at ``precision``, sharded over ``mesh`` when one is given.
 
     One shared dynamics model, B independently simulated trajectories.  At
     each step the predicted mean/covariance are reconstructed on host in
@@ -360,5 +361,5 @@ def fleet_nis(B: int = 8, n: int = 4, w: int = 4, p: int = 2, T: int = 150,
         zw = torch.as_tensor((W @ zs[t].T).T, **f32)
         R_state, d_state = kf_step_batched(
             R_state, d_state, Ft, Qi, Hw, zw, Gt, backend=backend,
-            block_b=block_b, precision=precision)
+            block_b=block_b, mesh=mesh, mesh_axis=mesh_axis, precision=precision)
     return nis.mean(axis=0)

@@ -532,3 +532,64 @@ def test_vault_restores_onto_the_card(card, tmp_path):
         np.savez(path, **leaves)
     with pytest.raises(IntegrityError):
         vault.restore_latest("rls", like=state)
+
+
+# --------------------------------------------- the sharded slice on the card
+def _card_mesh():
+    from repro_torch.parallel import BatchMesh
+
+    return BatchMesh((torch.device("cuda", 0),) * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 7, 67])
+def test_sharded_append_on_the_card_is_bitwise(card, B):
+    """Four shards on cuda:0: one B1 launch a shard, each problem's bits as
+    in the single-device launch."""
+    from repro_torch.solvers import qr_append_rows_batched
+
+    g = torch.Generator(device=card).manual_seed(50 + B)
+    R = torch.triu(torch.randn((B, 32, 32), generator=g, device=card))
+    U, d, Y = (torch.randn(s, generator=g, device=card)
+               for s in ((B, 8, 32), (B, 32, 1), (B, 8, 1)))
+    n0 = batched_update.launches
+    sharded = qr_append_rows_batched(R, U, d, Y, mesh=_card_mesh())
+    assert batched_update.launches - n0 == 4
+    assert _bits(sharded, qr_append_rows_batched(R, U, d, Y))
+
+
+@pytest.mark.gpu
+def test_sharded_kalman_on_the_card_is_bitwise(card):
+    from repro_torch.solvers import kf_step_batched
+
+    """B = 11 filters with shared models: 32 on the mesh, 16 alone."""
+    g = torch.Generator(device=card).manual_seed(72)
+    B, n, w, p = 11, 4, 2, 2
+    R, d, F, H, z, G = (torch.randn(s, generator=g, device=card, dtype=torch.float64)
+                        for s in ((B, n, n), (B, n), (n, n), (p, n), (B, p), (n, w)))
+    R = torch.triu(R) + 2.0 * torch.eye(n, device=card, dtype=torch.float64)
+    F = torch.eye(n, device=card, dtype=torch.float64) + 0.1 * F
+    Qi = torch.eye(w, device=card, dtype=torch.float64)
+    for dtype in (torch.float64, torch.float32):
+        ops = [x.to(dtype) for x in (R, d, F, Qi, H, z, G)]
+        assert _bits(kf_step_batched(*ops, mesh=_card_mesh()), kf_step_batched(*ops))
+
+
+@pytest.mark.gpu
+def test_sharded_server_on_the_card_is_bitwise(card):
+    """A 19-request mix (odd groups: every one pads wider on the mesh):
+    append and kalman bitwise, the lstsq kinds within 1e-6."""
+    reqs = serve_qr.make_workload(num=19, n=6, rows=3, k=1, seed=53, device="cuda")
+    out = {}
+    for name, mesh in (("sharded", _card_mesh()), ("single", None)):
+        srv = serve_qr.QRServer(device="cuda", mesh=mesh)
+        tickets = serve_qr._submit_all(srv, reqs)
+        assert srv.flush() == len(reqs)
+        srv.drain()
+        out[name] = [srv.result(t) for t in tickets]
+    for r, a, b in zip(reqs, out["sharded"], out["single"]):
+        if r[0] in ("append", "kalman"):
+            assert _bits(a, b), r[0]
+        else:
+            for x, y in zip(a, b):
+                torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)

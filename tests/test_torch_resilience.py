@@ -776,8 +776,15 @@ class TestParityWithReference:
 
     @pytest.mark.parametrize("override", [("interpret", True), ("mesh", None)])
     def test_a_rung_naming_a_missing_knob_is_refused(self, override):
-        with pytest.raises(ValueError, match="does not have"):
-            _fast(ladder=(Rung("native"), Rung("x", overrides=(override,))))
+        """The port has no interpret knob at all; ``mesh`` is a dispatcher
+        field (sharded serving), so a rung may override it — but it is no
+        knob of ``degraded_mode``."""
+        rung = Rung("x", overrides=(override,))
+        if override[0] == "mesh":
+            assert _fast(ladder=(Rung("native"), rung)).ladder[1] == rung
+        else:
+            with pytest.raises(ValueError, match="does not have"):
+                _fast(ladder=(Rung("native"), rung))
         with pytest.raises(ValueError, match="does not have"):
             _fast(ladder=(Rung("native"), Rung("x", kernel=(override,))))
         assert "interpret" not in [r.name for r in DEFAULT_LADDER]

@@ -85,11 +85,20 @@ def test_cli_check_prints_three_csv_fields(capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"], ["--mesh", "2", "--resilient"],
                                   ["--mesh", "4", "--resilient", "--metrics", "m"]])
-def test_cli_unported_flags_exit_2(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve_qr.main(["--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_unported_flags_exit_2(flag, capsys, tmp_path, monkeypatch):
+    """The flags that exited 2 before sharded serving was ported now serve
+    on shards of the host and print the mesh in the derived column."""
+    monkeypatch.chdir(tmp_path)
+    serve_qr.main(["--device", "cpu", "--requests", "12", "--n", "6", "--rows", "3",
+                   *flag])
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == 2 and lines[0] == "name,req_per_s,derived"
+    fields = lines[1].split(",")
+    assert len(fields) == 3 and float(fields[1]) > 0
+    assert f"mesh={flag[1]}" in fields[2].split(";")
+    if "--metrics" in flag:
+        assert (tmp_path / "m.jsonl").exists() and "m.jsonl" in out.err
 
 
 def test_cli_resilient_check_prints_three_csv_fields(capsys):
@@ -126,7 +135,9 @@ _SLICE_MODULES = ("repro_torch.core.counts", "repro_torch.core.baselines",
                   "repro_torch.serve.resilience", "repro_torch.serve.dispatch",
                   "repro_torch.launch.serve_qr", "repro_torch.checkpoint",
                   "repro_torch.checkpoint.ckpt", "repro_torch.testing",
-                  "repro_torch.testing.faults", "repro_torch.testing.error_harness")
+                  "repro_torch.testing.faults", "repro_torch.testing.error_harness",
+                  # the sharded serving slice
+                  "repro_torch.parallel", "repro_torch.parallel.sharding")
 
 
 def test_port_never_imports_jax():

@@ -11,6 +11,7 @@ import repro.solvers as jsolvers
 from repro.solvers import kalman as jkalman
 from repro_torch import ranks, solvers
 from repro_torch.convert import from_numpy, to_numpy
+from repro_torch.parallel import BatchMesh
 from repro_torch.solvers import kalman
 
 
@@ -73,8 +74,11 @@ def test_append_rows_batched_matches_jax(backend, rhs):
         out, ref = (out,), (ref,)
     for a, b in zip(out, ref):
         _close(a, b, 5e-5)
-    with pytest.raises(NotImplementedError):
-        solvers.qr_append_rows_batched(*from_numpy((R, U), "cpu"), mesh=object())
+    # a mesh axis the mesh lacks raises, as the reference's mesh.shape[axis]
+    mesh = BatchMesh(("cpu",) * 2)
+    with pytest.raises(KeyError):
+        solvers.qr_append_rows_batched(*from_numpy((R, U), "cpu"), mesh=mesh,
+                                       mesh_axis="model")
 
 
 @pytest.mark.parametrize("m,n,vec", [(20, 5, True), (300, 130, False)])
