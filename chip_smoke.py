@@ -87,14 +87,35 @@ Drives the port's main path on the card and checks it, phase by phase:
    fault-free run); (e) ``serve_qr --device cuda --mesh 4 --check``: with
    fewer than 4 cards it must exit non-zero naming the "4-device batch mesh";
    then ``batched_update``'s time at each shape the phase launched it at;
-9. every (shape, dtype) the kernels were launched at by phases 4-8 is held
-   against the plain version once more;
-10. a JSON line of per-kernel numbers, then the last line
+9. distributed QR and the Orthant optimizer — (a)
+   ``distributed_ggr_qr_1d`` of a seeded (8192, 4096) f32 matrix, panel 64,
+   in both layouts on 4 gloo ranks sharing ``cuda:0`` and on 1 NCCL rank
+   (spawned processes, ``repro_torch.testing.spawn``): |R| within 1e-3 of
+   ``torch.linalg.qr``'s (relative Frobenius), P = 4 within 1e-5 of P = 1,
+   the wall of each and the count of R elements whose bits differ; (b)
+   ``tsqr`` and ``distributed_orthogonalize`` of a (65536, 256) f64 matrix
+   on the 4 ranks: R the same bits on every rank, |R| within 1e-10 of
+   ``torch.linalg.qr``'s, max|QᵀQ - I| <= 1e-6; (c) one ``orthant.update``
+   over olmo-1b's parameter tree at full width (``olmo_tree``), its wall
+   and peak memory, every direction's orthogonality and agreement with
+   ``torch.linalg.qr``'s Q held against its direction through the kernels'
+   plain versions (``direction_check``); (d) ``restore(shardings=)`` of a saved tree onto
+   2 ranks, the blocks bitwise the saved leaves; then panel_factor and
+   apply_factors timed at the largest shape each sub-run launched them at;
+10. every (shape, dtype) the kernels were launched at by phases 4-9, the
+   spawned ranks' included, is held against the plain version once more;
+11. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
+A kernel's f32 reading over its bound against the f32 plain version is
+taken again against the plain version run in f64 on the same inputs
+(``KernelCase.against_f64``): the kernel must land within the same bound of
+it.
+
 Launch counts are set to 0 just before the serving run, the dense run,
-phase 6, phase 7 and phase 8, and read just after each; a route that does
-not launch its kernels fails the run.  Any failed check exits non-zero without printing the last
+phase 6, phase 7, phase 8 and each call of phase 9 (in the ranks too), and
+read just after each; a route that does not launch its kernels fails the
+run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -168,6 +189,23 @@ SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chun
 FAILURES: list[str] = []
 # phase 6's sketch least squares: the tall system, its spectrum and the oracle
 SKETCH_M, SKETCH_N, SKETCH_COND, SKETCH_R0 = 65536, 256, 1e8, 0.1
+# phase 9: the distributed QR's matrix, panel and ranks; TSQR at the sketch's
+# shape (f64, random, TSQR_M / 4 rows a rank)
+DQR_M, DQR_N, DQR_PANEL, DQR_RANKS = 8192, 4096, 64, 4
+TSQR_M, TSQR_N = SKETCH_M, SKETCH_N
+# olmo-1b's widths: repro_torch.testing.orthant_check.OLMO (the port has no
+# configs/ yet)
+OLMO_DEPTH = 16  # layers the Orthant step runs: all of olmo-1b's (cut past 60 s)
+# an Orthant direction Q = M·R⁻¹ (f32, no refinement) loses u·cond(M) of
+# orthogonality whichever R it takes (square Gaussian momenta reach cond
+# 1e4-1e5 and more), so each matrix's two readings are held to DIR_FACTOR x
+# those of its direction through the kernels' plain versions, plus DIR_FLOOR
+# (tools/orthant_readings.py: the sound and the faulty ratios either side)
+DIR_FACTOR, DIR_FLOOR = 3.0, 1e-7
+# phase 9 (d): leaf -> (shape, dtype, placement: a dim to shard, None or
+# "replicate")
+CKPT_SPEC = {"wq": ((2048, 2048), "float32", 1), "w2": ((4, 1024, 512), "float32", 0),
+             "norm": ((2048,), "float32", None), "step": ((), "int32", "replicate")}
 
 
 def check(ok: bool, what: str, quiet: bool = False) -> None:
@@ -294,6 +332,7 @@ class KernelCase:
             x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
             self.fn = lambda z: ggr_update.batched_update(z, n_piv)
             self.plain = lambda: ggr_update.batched_update_plain(x, n_piv)
+            self.plain64 = lambda: ggr_update.batched_update_plain(x.double(), n_piv)
             # R of the stacked matrix (same top n_piv rows up to signs; at the
             # tree-coupling shape it also triangularizes the riding columns)
             self.library = lambda: torch.linalg.qr(x, mode="r")
@@ -308,6 +347,7 @@ class KernelCase:
                 self.fixed = slice(B // 2, B)
             self.fn = lambda z: ggr_panel.batched_geqrt(z, n_piv)
             self.plain = lambda: ggr_panel.batched_geqrt_plain(x, n_piv)
+            self.plain64 = lambda: ggr_panel.batched_geqrt_plain(x.double(), n_piv)
             # Q and R of the tile's pivot columns: [R | Qt] up to signs
             self.library = lambda: torch.linalg.qr(x[:, :, :n_piv])
             self.flops = geqrt_flops(shape, n_piv)
@@ -317,6 +357,7 @@ class KernelCase:
             pivot0 = param
             self.fn = lambda z: ggr_panel.panel_factor(z, pivot0)
             self.plain = lambda: ggr_panel.panel_factor_plain(x, pivot0)
+            self.plain64 = lambda: ggr_panel.panel_factor_plain(x.double(), pivot0)
             # Householder QR of the same panel (Q and R)
             self.library = lambda: torch.linalg.qr(x)
             self.flops = panel_flops(shape, pivot0)
@@ -327,6 +368,8 @@ class KernelCase:
             _, V, T = ggr_panel.panel_factor_plain(pans, pivot0)
             self.fn = lambda z: ggr_apply.apply_factors(V, T, z, pivot0)
             self.plain = lambda: ggr_apply.apply_factors_plain(V, T, x, pivot0)
+            self.plain64 = lambda: ggr_apply.apply_factors_plain(
+                V.double(), T.double(), x.double(), pivot0)
             # the same work in Householder's basis: Q^T C from geqrf's factors
             a, tau = torch.geqrf(pans)
             self.library = lambda: torch.ormqr(a, tau, x, left=True, transpose=True)
@@ -359,6 +402,9 @@ class KernelCase:
                             * max(1.0, float(r.abs().max())) / rms)
             ok = ok and rels[-1] <= self.rel_tol and bool(o.isfinite().all())
             err = max(err, e)
+        note = ""
+        if not ok and self.dname == "float32" and all(o.isfinite().all() for o in outs):
+            ok, note = self.against_f64(outs, refs)
         self.rel = max(rels)
         self.old = min(olds) if olds else float("inf")
         if self.fixed is not None:
@@ -368,8 +414,28 @@ class KernelCase:
         old = f" (old rule {self.old:.1e})" if olds else ""
         check(ok, f"{self.label()}: max_abs_err {err:.3e}, max|err| / rms(out) "
                   f"{', '.join(f'{q:.2e}' for q in rels)}; each within "
-                  f"{self.rel_tol:.1e}{old}", quiet)
+                  f"{self.rel_tol:.1e}{old}{note}", quiet and not note)
         return err
+
+    def against_f64(self, outs, refs) -> tuple:
+        """An f32 reading over its bound, taken again against the plain
+        version run in f64 on the same inputs: each output of the kernel
+        within the same bound of it.  Returns (ok, a note of the kernel's
+        and the f32 plain version's distances from it)."""
+        ref64 = self.plain64()
+        ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        ok, dists = True, []
+        for o, r, r64 in zip(outs, refs, ref64):
+            rms = float(r64.square().mean().sqrt())
+            if rms == 0:
+                ok = ok and bool((o == 0).all())
+                continue
+            d_kernel = float((o.double() - r64).abs().max()) / rms
+            d_plain = float((r.double() - r64).abs().max()) / rms
+            ok = ok and d_kernel <= self.rel_tol
+            dists.append(f"{d_kernel:.2e} / {d_plain:.2e}")
+        return ok, ("; over its bound, so against the f64 plain version (kernel / "
+                    f"f32 plain, the kernel's within the bound): {', '.join(dists)}")
 
     def zero_batch(self) -> None:
         import torch
@@ -1311,6 +1377,278 @@ def sharded_phase(reqs, kernels, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 9
+def _kernel_fns() -> dict:
+    """The four kernel wrappers by name (each counts its launches)."""
+    from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
+
+    return {"batched_update": ggr_update.batched_update,
+            "batched_geqrt": ggr_panel.batched_geqrt,
+            "panel_factor": ggr_panel.panel_factor,
+            "apply_factors": ggr_apply.apply_factors}
+
+
+def _zero_counts(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+
+
+def _counts(kernels) -> tuple:
+    return ({k: fn.launches for k, fn in kernels.items()},
+            {k: set(fn.shapes) for k, fn in kernels.items()})
+
+
+def qr_ranks(tsqr_too: bool) -> dict:
+    """Phase 9 (a), and (b) when ``tsqr_too``, on one rank on cuda:0:
+    ``distributed_ggr_qr_1d`` of the seeded (DQR_M, DQR_N) f32 matrix in both
+    layouts, then ``tsqr`` and ``distributed_orthogonalize`` of the seeded
+    (TSQR_M, TSQR_N) f64 matrix, TSQR_M / P rows a rank.  Each call runs once
+    untimed, then once timed between barriers with the launch counts zeroed
+    just before it; returns this rank's results on the host (for
+    orthogonalize its block's Gram QᵀQ), walls, launches and shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import (cyclic_perm, distributed_ggr_qr_1d,
+                                  distributed_orthogonalize, tsqr)
+
+    torch.cuda.set_device(0)
+    kernels = _kernel_fns()
+    P, r = dist.get_world_size(), dist.get_rank()
+    g = torch.Generator(device="cuda").manual_seed(91)
+    A = torch.randn((DQR_M, DQR_N), generator=g, device="cuda")
+    nl = DQR_N // P
+    perm, _ = cyclic_perm(DQR_N, P, DQR_PANEL)
+    stored = torch.as_tensor(perm[r * nl:(r + 1) * nl], device="cuda")
+    shards = {"logical": A[:, r * nl:(r + 1) * nl].contiguous(), "cyclic": A[:, stored]}
+    del A
+    calls = {f"qr {layout}": (lambda X=X, layout=layout: distributed_ggr_qr_1d(
+        X, panel=DQR_PANEL, layout=layout)) for layout, X in shards.items()}
+    if tsqr_too:
+        B = torch.randn((TSQR_M, TSQR_N), generator=g, device="cuda",
+                        dtype=torch.float64)
+        ml = TSQR_M // P
+        Bl = B[r * ml:(r + 1) * ml].contiguous()
+        del B
+        calls["tsqr"] = lambda: tsqr(Bl)
+        calls["orthogonalize"] = lambda: distributed_orthogonalize(Bl)
+    for call in calls.values():
+        call()
+    out = {"wall_s": {}, "launches": {}, "shapes": {}}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        dist.barrier()
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        out["wall_s"][name] = time.perf_counter() - t0
+        out["launches"][name], out["shapes"][name] = _counts(kernels)
+        out[name] = (res.mT @ res if name == "orthogonalize" else res).cpu()
+    return out
+
+
+def restore_ranks(ckpt_dir: str) -> dict:
+    """Phase 9 (d) on one rank: ``restore(shardings=)`` of the saved tree
+    onto cuda:0; returns each leaf's device and this rank's block on the
+    host."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.checkpoint import restore
+
+    torch.cuda.set_device(0)
+    like = {k: torch.empty(shape, dtype=getattr(torch, dt), device="cuda")
+            for k, (shape, dt, _) in CKPT_SPEC.items()}
+    shardings = {k: Replicate() if d == "replicate" else None if d is None else Shard(d)
+                 for k, (_, _, d) in CKPT_SPEC.items()}
+    tree, _ = restore(ckpt_dir, 1, like, shardings=shardings)
+    return {k: (str(v.device), v.cpu()) for k, v in tree.items()}
+
+
+def _work(kernel: str, shape, param, dtype) -> int:
+    """Elements a B3 / B4 launch sweeps: its active rows times its width."""
+    B, m, w = shape
+    return B * (m - (param if kernel == "panel_factor" else param[1])) * w
+
+
+def direction_check(mom) -> dict:
+    """Phase 9 (c) on one momentum leaf: each matrix's Orthant direction Q
+    (``orthant._orthogonalize``, the kernels) read for max|QᵀQ - I| and for
+    max|Q - Q_lib·D| (Q_lib ``torch.linalg.qr``'s Q, D each column's sign
+    matched to the port's diag(R)), each within DIR_FACTOR x the same
+    reading of its direction through the kernels' plain versions, plus
+    DIR_FLOOR.  The ratios to the same formula with cuSOLVER's R are kept
+    as readings."""
+    import torch
+
+    from repro_torch.testing.orthant_check import direction_readings
+
+    rd = direction_readings(mom.reshape(-1, *mom.shape[-2:]))
+    got, plain, lib = rd["kernels"], rd["plain"], rd["cusolver"]
+    ok = torch.ones_like(got[0], dtype=torch.bool)
+    for i in (0, 1):
+        ok &= got[i] <= DIR_FACTOR * plain[i] + DIR_FLOOR
+    return {"orth": float(got[0].max()), "agree": float(got[1].max()),
+            "plain": [float(plain[i].max()) for i in (0, 1)],
+            "over_plain": [float((got[i] / plain[i]).max()) for i in (0, 1)],
+            "over_cusolver": [float((got[i] / lib[i]).max()) for i in (0, 1)],
+            "ok": bool(ok.all())}
+
+
+def distributed_phase(kernels, card: str, gen) -> dict:
+    """Phase 9 (a)-(d); returns the launches it made and its numbers."""
+    import torch
+
+    from repro_torch.checkpoint import save
+    from repro_torch.core import cyclic_perm
+    from repro_torch.optim import orthant
+    from repro_torch.testing.orthant_check import OLMO, olmo_leaves, olmo_tree
+    from repro_torch.testing.spawn import spawn_ranks
+
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}, "launches": {k: 0 for k in kernels}}
+    parts = {}  # sub-run -> kernel -> the (shape, param, dtype) it launched
+
+    def tally(part, launches, launched):
+        for k in kernels:
+            out["launches"][k] += launches[k]
+            parts.setdefault(part, {}).setdefault(k, set()).update(launched[k])
+
+    # (a) distributed_ggr_qr_1d over 4 gloo ranks and 1 NCCL rank of cuda:0
+    t0 = time.perf_counter()
+    gloo = spawn_ranks(qr_ranks, DQR_RANKS, True, backend="gloo", timeout_s=900)
+    one = spawn_ranks(qr_ranks, 1, False, backend="nccl", timeout_s=900)
+    out["wall_s"]["spawned runs"] = time.perf_counter() - t0
+    for res in gloo + one:
+        for name in res["launches"]:
+            tally("qr" if name.startswith("qr") else "tsqr", res["launches"][name],
+                  res["shapes"][name])
+    g = torch.Generator(device="cuda").manual_seed(91)
+    A = torch.randn((DQR_M, DQR_N), generator=g, device="cuda")
+    R_lib = torch.linalg.qr(A, mode="r").R
+    _, inv = cyclic_perm(DQR_N, DQR_RANKS, DQR_PANEL)
+    out["qr"] = {}
+    for layout in ("logical", "cyclic"):
+        R4 = torch.cat([res[f"qr {layout}"] for res in gloo], dim=1).cuda()
+        if layout == "cyclic":  # back to logical order, then R's triangle
+            R4 = torch.triu(R4[:, torch.as_tensor(inv, device="cuda")])
+        R1_l = torch.triu(one[0][f"qr {layout}"].cuda())
+        rows = {"P=4": R4, "P=1": R1_l}
+        gaps = {p: float(torch.linalg.norm(R[:DQR_N].abs() - R_lib.abs())
+                         / torch.linalg.norm(R_lib)) for p, R in rows.items()}
+        differ = int((R4.view(torch.int32) != R1_l.view(torch.int32)).sum())
+        walls = {"P=4": max(res["wall_s"][f"qr {layout}"] for res in gloo),
+                 "P=1": one[0]["wall_s"][f"qr {layout}"]}
+        out["qr"][layout] = {"rel_gap": gaps, "bits_differ": differ, "wall_s": walls}
+        for p, gap in gaps.items():
+            check(gap <= 1e-3, f"(a) distributed_ggr_qr_1d ({DQR_M}, {DQR_N}) f32 panel "
+                               f"{DQR_PANEL}, {layout}, {p}: |R| within {gap:.3e} of "
+                               "torch.linalg.qr's |R| (relative Frobenius, <= 1e-3)")
+        gap41 = float(torch.linalg.norm(R4 - R1_l) / torch.linalg.norm(R1_l))
+        check(gap41 <= 1e-5, f"(a) {layout}: P=4 gloo within {gap41:.3e} of P=1 NCCL "
+                             "(relative Frobenius, <= 1e-5)")
+        print(f"  (a) {layout}: wall P=4 (gloo, 4 ranks on one card) "
+              f"{walls['P=4'] * 1e3:.1f} ms, P=1 (NCCL) {walls['P=1'] * 1e3:.1f} ms; "
+              f"{differ} of {R4.numel()} R elements differ in bits between P=4 and "
+              f"P=1 ({card})")
+    del A, R_lib
+
+    # (b) tsqr and distributed_orthogonalize of the sketch shape, f64, P = 4
+    g = torch.Generator(device="cuda").manual_seed(91)
+    torch.randn((DQR_M, DQR_N), generator=g, device="cuda")  # (a)'s draw first
+    B = torch.randn((TSQR_M, TSQR_N), generator=g, device="cuda", dtype=torch.float64)
+    R_lib = torch.linalg.qr(B, mode="r").R
+    del B
+    Rt = gloo[0]["tsqr"].cuda()
+    same = all(torch.equal(res["tsqr"], gloo[0]["tsqr"]) for res in gloo)
+    t_gap = float(torch.linalg.norm(Rt.abs() - R_lib.abs()) / torch.linalg.norm(R_lib))
+    gram = sum(res["orthogonalize"] for res in gloo)
+    orth = float((gram - torch.eye(TSQR_N, dtype=gram.dtype)).abs().max())
+    walls = {k: max(res["wall_s"][k] for res in gloo) for k in ("tsqr", "orthogonalize")}
+    out["tsqr"] = {"rel_gap": t_gap, "orth": orth, "wall_s": walls}
+    check(same, "(b) tsqr: every rank holds the same R, bit for bit")
+    check(t_gap <= 1e-10, f"(b) tsqr ({TSQR_M}, {TSQR_N}) f64 over {DQR_RANKS} ranks: "
+                          f"|R| within {t_gap:.3e} of torch.linalg.qr's (<= 1e-10)")
+    check(orth <= 1e-6, f"(b) distributed_orthogonalize: max|QᵀQ - I| {orth:.3e} "
+                        "(<= 1e-6)")
+    print(f"  (b) wall tsqr {walls['tsqr'] * 1e3:.1f} ms, orthogonalize "
+          f"{walls['orthogonalize'] * 1e3:.1f} ms (4 gloo ranks on one card; {card})")
+    del gloo, one, R_lib, Rt
+
+    # (c) one Orthant step over olmo-1b's tree at full width
+    g = torch.Generator(device="cuda").manual_seed(92)
+    params = olmo_tree(g, OLMO_DEPTH, scale=True)
+    grads = olmo_tree(g, OLMO_DEPTH, scale=False)
+    state = orthant.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    new_params, state = orthant.update(grads, state, params, lr=0.02)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    tally("orthant", *_counts(kernels))
+    peak = torch.cuda.max_memory_allocated()
+    out["orthant"] = {"step_s": step_s, "peak_bytes": peak, "depth": OLMO_DEPTH,
+                      "leaves": {}}
+    print(f"  (c) olmo-1b Orthant step, {OLMO_DEPTH} of {OLMO['n_layers']} layers "
+          f"({'no cut' if OLMO_DEPTH == OLMO['n_layers'] else 'depth cut'}): "
+          f"{step_s:.2f} s wall, peak {peak / 2**30:.2f} GiB allocated ({card})")
+    check(step_s <= 60, f"(c) the step takes {step_s:.2f} s (<= 60 s at this depth)")
+    del grads, params
+    for key, mom in olmo_leaves(state.momentum).items():
+        res = direction_check(mom)
+        out["orthant"]["leaves"][key] = res
+        check(res["ok"], f"(c) {key} {tuple(mom.shape)}: max|QᵀQ - I| {res['orth']:.3e}, "
+                         f"max|Q - Q_lib·D| {res['agree']:.3e} (plain versions "
+                         f"{res['plain'][0]:.3e} / {res['plain'][1]:.3e}); each matrix's at "
+                         f"most {res['over_plain'][0]:.2f}x / {res['over_plain'][1]:.2f}x its "
+                         f"plain versions' (<= {DIR_FACTOR:g}x + {DIR_FLOOR:g}); "
+                         f"{res['over_cusolver'][0]:.2f}x / {res['over_cusolver'][1]:.2f}x "
+                         "the same formula with cuSOLVER's R")
+    check(all(bool(p.isfinite().all()) for p in olmo_leaves(new_params).values()),
+          "(c) every updated parameter is finite")
+    del new_params, state
+    torch.cuda.empty_cache()
+
+    # (d) restore(shardings=) of a saved tree onto 2 ranks
+    g = torch.Generator().manual_seed(93)
+    tree = {k: (torch.randn(shape, generator=g).to(getattr(torch, dt)) if dt != "int32"
+                else torch.randint(0, 2**31 - 1, shape, generator=g, dtype=torch.int32))
+            for k, (shape, dt, _) in CKPT_SPEC.items()}
+    ckpt_dir = ROOT / "build" / "smoke_ckpt"
+    save(str(ckpt_dir), 1, tree)
+    blocks = spawn_ranks(restore_ranks, 2, str(ckpt_dir), backend="gloo", timeout_s=300)
+    for k, (shape, dt, d) in CKPT_SPEC.items():
+        devs = {blk[k][0] for blk in blocks}
+        got = [blk[k][1] for blk in blocks]
+        same = (all(same_bits(x, tree[k]) for x in got) if d in (None, "replicate")
+                else same_bits(torch.cat(got, dim=d), tree[k]))
+        check(same and devs == {"cuda:0"},
+              f"(d) restore {k} {shape} {dt} ({'Shard(%d)' % d if isinstance(d, int) else d}) "
+              f"onto 2 ranks: blocks on {sorted(devs)}, bitwise equal to the saved leaf")
+
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    # B3 and B4 alone at the largest shape each sub-run launched them at
+    out["timed"] = {}
+    for part, launched in parts.items():
+        for k in ("panel_factor", "apply_factors"):
+            if launched[k]:
+                shape, param, dtype = max(launched[k], key=lambda s: _work(k, *s))
+                case = KernelCase(k, shape, param, dtype, gen)
+                case.compare()
+                out["timed"][f"{part}: {case.label()}"] = case.times()
+    out["shapes"] = {k: set().union(*(launched[k] for launched in parts.values()))
+                     for k in kernels}
+    print(f"  launches in phase 9: {out['launches']} "
+          f"({out['wall_s']['phase']:.1f} s wall)")
+    check(out["launches"]["panel_factor"] > 0 and out["launches"]["apply_factors"] > 0,
+          "phase 9 launched panel_factor and apply_factors")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run from the root of a checkout (src/repro_torch "
@@ -1336,16 +1674,13 @@ def main() -> int:
           "float32 matmuls run in full float32 (allow_tf32 is False)")
 
     from repro_torch.core import ggr_qr_blocked
-    from repro_torch.kernels import _cuda, ggr_apply, ggr_panel, ggr_qr_pallas, ggr_update
+    from repro_torch.kernels import _cuda, ggr_qr_pallas
     from repro_torch.kernels.backend import degraded_mode
     from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all, make_workload
     from repro_torch.serve import KINDS
     from repro_torch.solvers import ggr_lstsq
 
-    kernels = {"batched_update": ggr_update.batched_update,
-               "batched_geqrt": ggr_panel.batched_geqrt,
-               "panel_factor": ggr_panel.panel_factor,
-               "apply_factors": ggr_apply.apply_factors}
+    kernels = _kernel_fns()
 
     # ------------------------------------------------------------ phase 2
     phase("2. build")
@@ -1537,14 +1872,20 @@ def main() -> int:
         recorded[name] |= shard["shapes"][name]
 
     # ------------------------------------------------------------ phase 9
-    phase("9. kernels vs plain versions at every main-path shape")
+    phase("9. distributed QR and the Orthant optimizer")
+    dist_out = distributed_phase(kernels, card, gen)
+    for name in kernels:
+        recorded[name] |= dist_out["shapes"][name]
+
+    # ------------------------------------------------------------ phase 10
+    phase("10. kernels vs plain versions at every main-path shape")
     n_shapes = sum(len(s) for s in recorded.values())
     recheck_worst = recheck_shapes(recorded, gen)
     print(f"  {n_shapes} (shape, dtype) launches rechecked; worst errors "
           f"{recheck_worst}")
 
-    # ------------------------------------------------------------ phase 10
-    phase("10. summary")
+    # ------------------------------------------------------------ phase 11
+    phase("11. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -1565,7 +1906,7 @@ def main() -> int:
             "replaces": meta[name][1],
             "launches": (serve_launches[name] + dense_launches[name]
                          + inst["launches"][name] + resil["launches"][name]
-                         + shard["launches"][name]),
+                         + shard["launches"][name] + dist_out["launches"][name]),
             "max_abs_err": max(worst[name], recheck_worst[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1580,6 +1921,7 @@ def main() -> int:
     print(f"  phase 6: {json.dumps({k: v for k, v in inst.items() if k != 'shapes'})}")
     print(f"  phase 7: {json.dumps({k: v for k, v in resil.items() if k != 'shapes'})}")
     print(f"  phase 8: {json.dumps({k: v for k, v in shard.items() if k != 'shapes'})}")
+    print(f"  phase 9: {json.dumps({k: v for k, v in dist_out.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -10,8 +10,11 @@
   ``manifest.json`` with the sorted keys and the caller's ``extra`` dict.  A
   snapshot written by either package restores in the other.
 * ``restore`` places each leaf on the device of ``like``'s leaf, with that
-  leaf's dtype.  Restoring onto a sharded layout (the JAX package's
-  ``shardings=``) waits for the port's distributed paths.
+  leaf's dtype.  With ``shardings=`` (a tree shaped like ``like`` of
+  ``torch.distributed.tensor.Shard(dim)`` / ``Replicate()`` / ``None``) each
+  rank of the default process group keeps its contiguous block of a sharded
+  leaf — the shard ``jax.device_put(arr, NamedSharding(mesh, P(...)))`` gives
+  device r — as a plain tensor, so a job resumes on another number of ranks.
 """
 from __future__ import annotations
 
@@ -101,14 +104,47 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _placements(like, shardings):
+    """One placement per leaf of ``like``, in ``_walk``'s order: the leaf of
+    ``shardings`` at the same path, or the placement (``None`` replicates)
+    that ``shardings`` holds over the subtree around it."""
+    tree = (tuple, list, dict)
+    if not (isinstance(like, tree) and isinstance(shardings, tree)):
+        yield from (shardings for _ in _walk(like))
+    elif isinstance(like, dict):
+        for k in sorted(like):
+            yield from _placements(like[k], shardings[k])
+    else:
+        for v, s in zip(like, shardings, strict=True):
+            yield from _placements(v, s)
+
+
+def _local_block(arr: np.ndarray, placement, world: int, rank: int) -> np.ndarray:
+    """This rank's block of ``arr`` under ``placement``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if placement is None or isinstance(placement, Replicate):
+        return arr
+    if not isinstance(placement, Shard):
+        raise ValueError(f"restore: unsupported placement {placement!r}")
+    dim = placement.dim % arr.ndim
+    if arr.shape[dim] % world:
+        raise ValueError(f"restore: dimension {dim} of a {arr.shape} leaf does not "
+                         f"split evenly over {world} ranks")
+    size = arr.shape[dim] // world
+    return np.take(arr, range(rank * size, (rank + 1) * size), axis=dim)
+
+
 def restore(ckpt_dir: str, step: int, like, shardings=None):
     """Restore into the structure of ``like``: each leaf becomes a tensor on
     the device of ``like``'s leaf, with that leaf's dtype.  Returns
-    ``(tree, extra)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves on a device mesh; the port's "
-            "distributed paths are not ported yet")
+    ``(tree, extra)``.
+
+    ``shardings`` (optional) is a tree shaped like ``like`` whose leaves are
+    ``Shard(dim)``, ``Replicate()`` or ``None`` (replicated), over the default
+    process group: rank r gets the r-th contiguous block of a sharded leaf's
+    ``dim`` (``ValueError`` if it does not split evenly), as a plain tensor.
+    """
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -117,12 +153,22 @@ def restore(ckpt_dir: str, step: int, like, shardings=None):
         raise ValueError(
             f"checkpoint/structure mismatch: {path} holds {manifest['keys']}, "
             f"like has {sorted(k for k, _ in pairs)}")
+    if shardings is None:
+        places, world, rank = [None] * len(pairs), 1, 0
+    else:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise ValueError("restore(shardings=...) places leaves over the default "
+                             "process group, which is not initialized")
+        places = list(_placements(like, shardings))
+        world, rank = dist.get_world_size(), dist.get_rank()
     with np.load(os.path.join(path, "leaves.npz")) as data:
         out = []
-        for key, leaf in pairs:
+        for (key, leaf), place in zip(pairs, places):
+            arr = _local_block(data[key], place, world, rank)
             if isinstance(leaf, torch.Tensor):
-                out.append(torch.as_tensor(data[key]).to(device=leaf.device,
-                                                         dtype=leaf.dtype))
+                out.append(torch.as_tensor(arr).to(device=leaf.device, dtype=leaf.dtype))
             else:
-                out.append(torch.as_tensor(data[key].astype(np.asarray(leaf).dtype)))
+                out.append(torch.as_tensor(arr.astype(np.asarray(leaf).dtype)))
     return _rebuild(like, iter(out)), manifest["extra"]

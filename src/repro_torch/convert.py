@@ -1,9 +1,10 @@
 """Carry state across packages: numpy-array trees <-> the port's tensor trees.
 
-This system has no model weights; its state is the ``(R, d)`` factor pairs
-and the model matrices of the requests.  ``from_numpy`` and ``to_numpy``
-convert whole trees of them — ``KalmanState``, ``RLSState``,
-``LstsqResult``, ``PivotedLstsq``, the request tuples of ``make_workload``,
+The serving engine's state is the ``(R, d)`` factor pairs and the model
+matrices of the requests; the optimizers' is their moment trees.
+``from_numpy`` and ``to_numpy`` convert whole trees of them —
+``KalmanState``, ``RLSState``, ``LstsqResult``, ``PivotedLstsq``, the request
+tuples of ``make_workload``, ``AdamWState``, ``EFState``, ``OrthantState``,
 and any tuple/list/dict nesting of arrays — so the same inputs can be handed
 to the JAX package (as numpy) and to the port (as tensors), and results
 compared.
@@ -19,13 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.optim import AdamWState, EFState, OrthantState
 from repro_torch.ranks import PivotedLstsq, PivotedQR
 from repro_torch.solvers import KalmanState, LstsqResult, RLSState
 
 __all__ = ["from_numpy", "to_numpy"]
 
 _PORT_TYPES = {cls.__name__: cls for cls in
-               (KalmanState, LstsqResult, PivotedLstsq, PivotedQR, RLSState)}
+               (AdamWState, EFState, KalmanState, LstsqResult, OrthantState,
+                PivotedLstsq, PivotedQR, RLSState)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -1,5 +1,6 @@
 """Core GGR library — closed-form column steps, the blocked driver, the
-paper's multiplication-count models and the baseline QR routines."""
+paper's multiplication-count models, the baseline QR routines and the
+distributed QR over ``torch.distributed``."""
 from .baselines import (
     cgr_qr,
     givens_qr,
@@ -27,6 +28,12 @@ from .counts import (
     gr_mults,
     mults_to_flops,
 )
+from .distributed import (
+    cyclic_perm,
+    distributed_ggr_qr_1d,
+    distributed_orthogonalize,
+    tsqr,
+)
 from .ggr import (
     GGRFactors,
     apply_ggr_factors,
@@ -46,6 +53,9 @@ __all__ = [
     "cgr_mults",
     "cgr_qr",
     "count_mults",
+    "cyclic_perm",
+    "distributed_ggr_qr_1d",
+    "distributed_orthogonalize",
     "flops_by_dtype",
     "ggr_append_mults",
     "ggr_column_step",
@@ -68,4 +78,5 @@ __all__ = [
     "mults_to_flops",
     "suffix_col_norms",
     "suffix_norms",
+    "tsqr",
 ]

@@ -1,0 +1,126 @@
+"""The Orthant direction check: olmo-1b's parameter tree at full width, the
+blocked driver through the kernels' plain versions, and the readings that
+hold each Orthant direction against its plain-version direction and against
+``torch.linalg.qr``.
+
+    from repro_torch.testing.orthant_check import direction_readings, olmo_tree
+
+``chip_smoke.py`` phase 9 (c) applies its rule to these readings;
+``tools/orthant_readings.py`` prints them, with those of two faulty
+directions, to show where the rule's factor sits.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = ["OLMO", "direction_readings", "olmo_leaves", "olmo_tree", "plain_driver"]
+
+# olmo-1b (src/repro/configs/olmo_1b.py): the widths of its parameter tree
+OLMO = {"d_model": 2048, "d_ff": 8192, "vocab": 50304, "n_layers": 16}
+
+
+def olmo_tree(gen: torch.Generator, depth: int, scale: bool) -> dict:
+    """olmo-1b's parameter tree as ``init_lm`` builds it
+    (src/repro/models/transformer.py:58-72): embed (vocab, d), ``depth``
+    stacked layers of wq/wk/wv/wo (d, d) and the gated MLP's w1, w3 (d, ff)
+    and w2 (ff, d); the non-parametric norms hold no leaves.  Normal entries
+    drawn from ``gen`` on its device, scaled as ``init_lm`` scales them
+    (``scale``) or unit (gradients)."""
+    d, ff, vocab = OLMO["d_model"], OLMO["d_ff"], OLMO["vocab"]
+
+    def normal(shape, s):
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        return x.mul_(s) if scale else x
+
+    return {"embed": normal((vocab, d), d ** -0.5), "final_norm": {},
+            "layers": {"attn": {k: normal((depth, d, d), d ** -0.5)
+                                for k in ("wq", "wk", "wv", "wo")},
+                       "n1": {}, "n2": {},
+                       "mlp": {"w1": normal((depth, d, ff), d ** -0.5),
+                               "w2": normal((depth, ff, d), ff ** -0.5),
+                               "w3": normal((depth, d, ff), d ** -0.5)}}}
+
+
+def olmo_leaves(tree: dict) -> dict:
+    """The matrices of an ``olmo_tree``-shaped tree by path."""
+    layers = tree["layers"]
+    return {"embed": tree["embed"],
+            **{f"layers/attn/{k}": v for k, v in layers["attn"].items()},
+            **{f"layers/mlp/{k}": v for k, v in layers["mlp"].items()}}
+
+
+@contextlib.contextmanager
+def plain_driver():
+    """The blocked driver's fused steps through the kernels' plain versions,
+    on the tensors' own device: the whole-driver counterpart of holding a
+    kernel against its plain version.  Launches nothing."""
+    from repro_torch.core import blocked
+    from repro_torch.kernels import ggr_apply, ggr_panel
+
+    def apply(V, T, C, pivot0=0, block_w=256, precision=None, out=None):
+        res = ggr_apply.apply_factors_plain(V, T, C, pivot0)
+        return res if out is None else out.copy_(res)
+
+    saved = blocked.panel_factor, blocked.apply_factors
+    blocked.panel_factor = lambda panel, pivot0=0, precision=None: \
+        ggr_panel.panel_factor_plain(panel, pivot0)
+    blocked.apply_factors = apply
+    try:
+        yield
+    finally:
+        blocked.panel_factor, blocked.apply_factors = saved
+
+
+def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
+    """Readings of the Orthant directions of a (B, a, b) f32 stack: under
+    each name a pair of (B,) tensors, (max|QᵀQ - I|, max|Q - Q_lib·D|), of
+    the tall orientation's Q.  Q_lib is ``torch.linalg.qr``'s Q of the same
+    scaled tall matrix, and D matches each column's sign to the sign of the
+    diag(R) the direction was made from.
+
+    "kernels": ``orthant._orthogonalize`` (on the card, the kernels);
+    "plain": its formula with the R of the same driver through the kernels'
+    plain versions; "cusolver": its formula with ``torch.linalg.qr``'s R.
+    With ``faults``, two faulty directions too — "flipped": the kernels'
+    with its last column's sign flipped (the square sign case); "half": the
+    formula with the R of the matrix rounded to float16 (a tile stored at
+    half precision)."""
+    from repro_torch.core.blocked import ggr_triangularize_blocked
+    from repro_torch.optim import orthant
+
+    def r_factor(x):  # orthant's own R call
+        return torch.triu(ggr_triangularize_blocked(
+            x, min(x.shape[-2] - 1, x.shape[-1]), schedule="fused"))[..., :n, :]
+
+    def formula(R, x):  # orthant's Q = M·R⁻¹ with its eps shift
+        diag = R.diagonal(dim1=-2, dim2=-1).abs()
+        Rs = R + 1e-7 * (diag.amax(-1) + 1e-20)[:, None, None] * eye
+        q = torch.linalg.solve_triangular(Rs, x, upper=True, left=False)
+        return torch.where(torch.isfinite(q), q, 0.0)
+
+    tall = M if M.shape[-2] >= M.shape[-1] else M.mT
+    mf = tall / torch.sqrt((tall * tall).mean((-2, -1), keepdim=True) + 1e-20)
+    n = mf.shape[-1]
+    eye = torch.eye(n, dtype=mf.dtype, device=mf.device)
+    Q_lib, R_lib = torch.linalg.qr(mf)
+    sign_lib = torch.sign(R_lib.diagonal(dim1=-2, dim2=-1))
+
+    def read(Q, R):
+        d = torch.sign(R.diagonal(dim1=-2, dim2=-1)) * sign_lib
+        return ((Q.mT @ Q - eye).abs().amax((-2, -1)),
+                (Q - Q_lib * d[:, None, :]).abs().amax((-2, -1)))
+
+    Q = orthant._orthogonalize(M)
+    Q, R = (Q if M.shape[-2] >= M.shape[-1] else Q.mT), r_factor(mf)
+    out = {"kernels": read(Q, R), "cusolver": read(formula(R_lib, mf), R_lib)}
+    with plain_driver():
+        R_plain = r_factor(mf)
+    out["plain"] = read(formula(R_plain, mf), R_plain)
+    if faults:
+        Q[..., -1] *= -1
+        out["flipped"] = read(Q, R)
+        R_half = r_factor(mf.half().float())
+        out["half"] = read(formula(R_half, mf), R_half)
+    return out

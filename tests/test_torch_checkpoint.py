@@ -134,9 +134,12 @@ def test_snapshots_restore_across_packages(tmp_path, name):
 
 
 def test_shardings_raise(tmp_path):
+    """``shardings=`` places leaves over the default process group, so it
+    raises where none is initialized (the placements themselves are held
+    against the JAX package's in tests/test_torch_distributed.py)."""
     tree = {"x": torch.ones(2)}
     save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="shardings"):
+    with pytest.raises(ValueError, match="shardings.*process group"):
         restore(str(tmp_path), 1, tree, shardings={"x": None})
 
 

@@ -593,3 +593,71 @@ def test_sharded_server_on_the_card_is_bitwise(card):
         else:
             for x, y in zip(a, b):
                 torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------ the distributed slice on the card
+def _card_rank_cases() -> dict:
+    """On one of 2 gloo ranks: the three distributed functions on cuda:0
+    tensors and on the same CPU tensors, and the B3/B4 launches the card
+    calls made."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+
+    torch.cuda.set_device(0)
+    P, r = dist.get_world_size(), dist.get_rank()
+    gen = torch.Generator().manual_seed(61)
+    A = torch.randn((256, 128), generator=gen, dtype=torch.float64)
+    Bt = torch.randn((512, 64), generator=gen, dtype=torch.float64)
+    perm, _ = distributed.cyclic_perm(128, P, 32)
+    shards = {"logical": A[:, 64 * r:64 * (r + 1)],
+              "cyclic": A[:, torch.as_tensor(perm[64 * r:64 * (r + 1)])]}
+    rows = Bt[256 * r:256 * (r + 1)]
+    out = {}
+    launches = (ggr_panel.panel_factor.launches, ggr_apply.apply_factors.launches)
+    for dev in ("cuda", "cpu"):
+        for layout, X in shards.items():
+            out[f"qr/{layout}/{dev}"] = distributed.distributed_ggr_qr_1d(
+                X.to(dev), panel=32, layout=layout).cpu()
+        out[f"tsqr/{dev}"] = distributed.tsqr(rows.to(dev)).cpu()
+        out[f"orth/{dev}"] = distributed.distributed_orthogonalize(rows.to(dev)).cpu()
+        if dev == "cuda":
+            out["launches"] = (ggr_panel.panel_factor.launches - launches[0],
+                               ggr_apply.apply_factors.launches - launches[1])
+    return out
+
+
+@pytest.mark.gpu
+def test_distributed_functions_on_two_gloo_ranks_of_the_card(card):
+    """Two gloo ranks share cuda:0: B3 and B4 launch in the ranks, and each
+    result is the one the same ranks give on CPU tensors (plain versions)."""
+    from repro_torch.testing.spawn import spawn_ranks
+
+    for res in spawn_ranks(_card_rank_cases, 2, timeout_s=300):
+        assert min(res["launches"]) > 0
+        for key in ("qr/logical", "qr/cyclic", "tsqr", "orth"):
+            got, want = res[f"{key}/cuda"], res[f"{key}/cpu"]
+            assert (got - want).abs().max() <= 1e-10 * want.abs().max(), key
+
+
+@pytest.mark.gpu
+def test_orthant_step_on_the_card_matches_the_cpu(card):
+    """One Orthant step on a (2, 512, 256) stack: the fused schedule's
+    kernels against the port's own CPU run."""
+    from repro_torch.optim import orthant
+
+    gen = torch.Generator().manual_seed(62)
+    params = {"w": torch.randn((2, 512, 256), generator=gen) * 0.05,
+              "b": torch.randn(256, generator=gen)}
+    grads = {k: torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    n0 = ggr_panel.panel_factor.launches
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        new, state = orthant.update({k: v.to(dev) for k, v in grads.items()},
+                                    orthant.init(p), p, lr=0.02)
+        out[dev] = {k: v.cpu() for k, v in new.items()}
+    assert ggr_panel.panel_factor.launches > n0
+    for k in params:
+        want = out["cpu"][k]
+        assert (out["cuda"][k] - want).abs().max() <= 1e-4 * want.abs().max(), k

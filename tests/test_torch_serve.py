@@ -137,7 +137,12 @@ _SLICE_MODULES = ("repro_torch.core.counts", "repro_torch.core.baselines",
                   "repro_torch.checkpoint.ckpt", "repro_torch.testing",
                   "repro_torch.testing.faults", "repro_torch.testing.error_harness",
                   # the sharded serving slice
-                  "repro_torch.parallel", "repro_torch.parallel.sharding")
+                  "repro_torch.parallel", "repro_torch.parallel.sharding",
+                  # the distributed slice
+                  "repro_torch.core.distributed", "repro_torch.optim",
+                  "repro_torch.optim.adamw", "repro_torch.optim.compress",
+                  "repro_torch.optim.orthant", "repro_torch.testing.spawn",
+                  "repro_torch.testing.orthant_check")
 
 
 def test_port_never_imports_jax():
