@@ -104,7 +104,21 @@ Drives the port's main path on the card and checks it, phase by phase:
    apply_factors timed at the largest shape each sub-run launched them at;
 10. every (shape, dtype) the kernels were launched at by phases 4-9, the
    spawned ranks' included, is held against the plain version once more;
-11. a JSON line of per-kernel numbers, then the last line
+11. LM serving — (a) every arch of ``repro_torch.configs`` at smoke size on
+   the card: 8 decode steps at float32 and 8 at bfloat16 compute (finite
+   logits, caches of ``cache_spec``'s shapes and dtypes), and for olmo-1b,
+   mixtral-8x22b (capacity_factor = n_experts / top_k), zamba2-1.2b,
+   xlstm-125m, phi-3-vision-4.2b (text) and seamless-m4t 24 decode steps
+   against one prefill at float32 (the 16-slot window wraps), within 1e-4
+   of the logits' rms; (b) olmo-1b at its published widths (16 x 2048, ff
+   8192, vocab 50304) at float32: 64 decode steps against the prefill (B =
+   2), and the card's first 2 steps against the port on the CPU with the
+   same weights, each within 1e-4 of rms; then ``python -m
+   repro_torch.launch.serve --arch A --batch 8 --tokens 32 --cache-len
+   2048`` (bfloat16) for olmo-1b, zamba2-1.2b and xlstm-125m must exit 0;
+   their tok/s and peak memory are printed.  The path runs no GGR kernel:
+   the counts, zeroed before it, must read 0 after it;
+12. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
@@ -113,9 +127,9 @@ taken again against the plain version run in f64 on the same inputs
 it.
 
 Launch counts are set to 0 just before the serving run, the dense run,
-phase 6, phase 7, phase 8 and each call of phase 9 (in the ranks too), and
-read just after each; a route that does not launch its kernels fails the
-run.  Any failed check exits non-zero without printing the last
+phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too) and
+phase 11, and read just after each; a route that does not launch its
+kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -193,8 +207,8 @@ SKETCH_M, SKETCH_N, SKETCH_COND, SKETCH_R0 = 65536, 256, 1e8, 0.1
 # shape (f64, random, TSQR_M / 4 rows a rank)
 DQR_M, DQR_N, DQR_PANEL, DQR_RANKS = 8192, 4096, 64, 4
 TSQR_M, TSQR_N = SKETCH_M, SKETCH_N
-# olmo-1b's widths: repro_torch.testing.orthant_check.OLMO (the port has no
-# configs/ yet)
+# olmo-1b's widths: repro_torch.testing.orthant_check.OLMO, the port's
+# configs.get_config("olmo-1b")
 OLMO_DEPTH = 16  # layers the Orthant step runs: all of olmo-1b's (cut past 60 s)
 # an Orthant direction Q = M·R⁻¹ (f32, no refinement) loses u·cond(M) of
 # orthogonality whichever R it takes (square Gaussian momenta reach cond
@@ -1593,8 +1607,8 @@ def distributed_phase(kernels, card: str, gen) -> dict:
     peak = torch.cuda.max_memory_allocated()
     out["orthant"] = {"step_s": step_s, "peak_bytes": peak, "depth": OLMO_DEPTH,
                       "leaves": {}}
-    print(f"  (c) olmo-1b Orthant step, {OLMO_DEPTH} of {OLMO['n_layers']} layers "
-          f"({'no cut' if OLMO_DEPTH == OLMO['n_layers'] else 'depth cut'}): "
+    print(f"  (c) olmo-1b Orthant step, {OLMO_DEPTH} of {OLMO.n_layers} layers "
+          f"({'no cut' if OLMO_DEPTH == OLMO.n_layers else 'depth cut'}): "
           f"{step_s:.2f} s wall, peak {peak / 2**30:.2f} GiB allocated ({card})")
     check(step_s <= 60, f"(c) the step takes {step_s:.2f} s (<= 60 s at this depth)")
     del grads, params
@@ -1646,6 +1660,153 @@ def distributed_phase(kernels, card: str, gen) -> dict:
           f"({out['wall_s']['phase']:.1f} s wall)")
     check(out["launches"]["panel_factor"] > 0 and out["launches"]["apply_factors"] > 0,
           "phase 9 launched panel_factor and apply_factors")
+    return out
+
+
+
+# ------------------------------------------------------------ phase 11
+# the LM serving path: every arch at smoke size, then olmo-1b at full width;
+# decode against prefill and card against CPU within LM_REL of the logits'
+# rms (float32 compute, TF32 off)
+LM_REL = 1e-4
+LM_SMOKE_S, LM_FULL_S, LM_FULL_B, LM_CPU_STEPS = 24, 64, 2, 2
+# launch.serve at full width, default bfloat16 compute
+LM_SERVE_ARCHS = ("olmo-1b", "zamba2-1.2b", "xlstm-125m")
+LM_SERVE_ARGS = ("--batch", "8", "--tokens", "32", "--cache-len", "2048")
+
+
+def lm_phase(kernels, card: str) -> dict:
+    """Phase 11: (a) every arch at smoke size on the card — 8 decode steps
+    at float32 and 8 at bfloat16 compute (finite logits, the cache of
+    ``cache_spec``), and decode against prefill at float32 for each decoder
+    family and seamless-m4t; (b) olmo-1b at its published widths — decode
+    against prefill (S = 64, B = 2) and the card's first 2 decode steps
+    against the port on the CPU with the same weights, a trace of 4 served
+    olmo-1b steps (batch 8, cache 2048, bf16), then ``python -m
+    repro_torch.launch.serve`` at full width for LM_SERVE_ARCHS.  The path
+    reaches none of the four kernels: their counts, zeroed before it, must
+    read 0 after it."""
+    import re
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.serve import greedy_decode, load
+    from repro_torch.models import encdec, serve, transformer
+    from repro_torch.testing.lm_check import decode_vs_prefill, no_drop_f32, rel_err
+
+    def init(cfg, gen):
+        f = encdec.init_encdec if cfg.family == "encdec" else transformer.init_lm
+        return f(cfg, gen)
+
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}, "decode_vs_prefill": {}}
+    _zero_counts(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    with torch.inference_mode():
+        # (a) every arch at smoke size
+        for arch in list_archs():
+            base = get_config(arch, smoke=True)
+            params = init(base, gen)
+            for compute in ("float32", "bfloat16"):
+                cfg = base.scaled(compute_dtype=compute)
+                cache = serve.init_cache(cfg, 2, 32, device="cuda")
+                tok = torch.zeros((2,), dtype=torch.int32, device="cuda")
+                finite = True
+                for i in range(8):
+                    logits, cache = serve.decode_step(params, cache, tok, i, cfg)
+                    finite &= bool(torch.isfinite(logits).all())
+                    tok = logits.argmax(-1).int()
+                spec = serve.cache_spec(cfg, 2, 32)
+                shaped = all(tuple(cache[k].shape) == sp.shape and cache[k].dtype == sp.dtype
+                             for k, sp in spec.items())
+                check(finite and shaped and logits.shape == (2, cfg.vocab),
+                      f"(a) {arch} smoke, {compute}: 8 decode steps, finite logits, "
+                      "cache of cache_spec", quiet=True)
+            if arch in ("olmo-1b", "mixtral-8x22b", "zamba2-1.2b", "xlstm-125m",
+                        "phi-3-vision-4.2b", "seamless-m4t-large-v2"):
+                cfg = no_drop_f32(base)
+                toks = torch.randint(0, cfg.vocab, (2, LM_SMOKE_S), generator=gen,
+                                     device="cuda")
+                frames = (torch.randn((2, LM_SMOKE_S // cfg.enc_downsample, cfg.d_model),
+                                      generator=gen, device="cuda")
+                          if cfg.family == "encdec" else None)
+                e = decode_vs_prefill(cfg, params, toks, frames)
+                out["decode_vs_prefill"][arch] = e
+                check(e <= LM_REL, f"(a) {arch} smoke ({cfg.family}) f32: {LM_SMOKE_S} "
+                                   f"decode steps vs prefill {e:.3e} of rms (<= {LM_REL})")
+        out["wall_s"]["smoke"] = time.perf_counter() - t_phase
+        print(f"  (a) 10 archs at smoke size, f32 and bf16 decode: "
+              f"{out['wall_s']['smoke']:.1f} s")
+
+        # (b) olmo-1b at full width, float32 compute
+        t0 = time.perf_counter()
+        cfg = get_config("olmo-1b").scaled(compute_dtype="float32")
+        params = transformer.init_lm(cfg, gen)
+        toks = torch.randint(0, cfg.vocab, (LM_FULL_B, LM_FULL_S), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        e = decode_vs_prefill(cfg, params, toks)
+        torch.cuda.synchronize()
+        out["wall_s"]["full_decode_vs_prefill"] = time.perf_counter() - t1
+        out["decode_vs_prefill"]["olmo-1b full"] = e
+        check(e <= LM_REL, f"(b) olmo-1b full width ({cfg.param_count()} parameters) f32: "
+                           f"{LM_FULL_S} decode steps vs prefill, B = {LM_FULL_B}: "
+                           f"{e:.3e} of rms (<= {LM_REL})")
+        def to_cpu(t):
+            return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+
+        cpu = to_cpu(params)
+        caches = {d: serve.init_cache(cfg, LM_FULL_B, LM_FULL_S, device=d)
+                  for d in ("cuda", "cpu")}
+        worst = 0.0
+        for i in range(LM_CPU_STEPS):
+            lc, _ = serve.decode_step(params, caches["cuda"], toks[:, i], i, cfg)
+            lh, _ = serve.decode_step(cpu, caches["cpu"], toks[:, i].cpu(), i, cfg)
+            worst = max(worst, rel_err(lc, lh))
+        out["card_vs_cpu"] = worst
+        check(worst <= LM_REL, f"(b) olmo-1b full width f32: the card's first "
+                               f"{LM_CPU_STEPS} decode steps vs the CPU's, {worst:.3e} "
+                               f"of rms (<= {LM_REL})")
+        del params, cpu, caches
+        # where a served step's time goes: launch.serve's own model and loop
+        cfg = get_config("olmo-1b")
+        params, cache = load(cfg, 8, 2048, torch.device("cuda"))
+        tok = torch.zeros((8,), dtype=torch.int32, device="cuda")
+        greedy_decode(params, cache, cfg, tok, 2)
+        profile_top(lambda: greedy_decode(params, cache, cfg, tok, 4),
+                    "4 olmo-1b decode steps, batch 8, cache 2048, bf16", host_ops=False)
+        del params, cache
+        torch.cuda.empty_cache()
+        out["wall_s"]["full"] = time.perf_counter() - t0
+    launches, _ = _counts(kernels)
+    out["launches"] = launches
+    check(not any(launches.values()),
+          f"the LM path launched none of the GGR kernels: {launches}")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out["serve"] = {}
+    for arch in LM_SERVE_ARCHS:
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                              "--arch", arch, *LM_SERVE_ARGS],
+                             capture_output=True, text=True, env=env, timeout=300)
+        wall = time.perf_counter() - t0
+        text = cli.stdout.strip()
+        tok_s = re.search(r": ([0-9.]+) tok/s", text)
+        peak = re.findall(r"(load|decode) ([0-9.]+) GiB", text)
+        out["serve"][arch] = {"rc": cli.returncode, "wall_s": wall,
+                              "tok_s": float(tok_s.group(1)) if tok_s else None,
+                              "peak_gib": {k: float(v) for k, v in peak}}
+        for line in text.splitlines():
+            print(f"    {line}")
+        check(cli.returncode == 0 and tok_s is not None,
+              f"(b) launch.serve --arch {arch} {' '.join(LM_SERVE_ARGS)} (bf16) exits "
+              f"{cli.returncode} in {wall:.1f} s ({card})"
+              + ("" if cli.returncode == 0 else f": {cli.stderr.strip()[-400:]}"))
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 11 wall {out['wall_s']['phase']:.1f} s; weights cast to bf16 once "
+          "at load, embedding rows gathered before the cast")
     return out
 
 
@@ -1885,7 +2046,11 @@ def main() -> int:
           f"{recheck_worst}")
 
     # ------------------------------------------------------------ phase 11
-    phase("11. summary")
+    phase("11. LM serving")
+    lm = lm_phase(kernels, card)
+
+    # ------------------------------------------------------------ phase 12
+    phase("12. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -1922,6 +2087,7 @@ def main() -> int:
     print(f"  phase 7: {json.dumps({k: v for k, v in resil.items() if k != 'shapes'})}")
     print(f"  phase 8: {json.dumps({k: v for k, v in shard.items() if k != 'shapes'})}")
     print(f"  phase 9: {json.dumps({k: v for k, v in dist_out.items() if k != 'shapes'})}")
+    print(f"  phase 11: {json.dumps(lm)}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

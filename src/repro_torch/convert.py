@@ -51,29 +51,42 @@ def _convert(tree, leaf, types, memo):
     return out
 
 
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A tensor of ``a``'s values; a bfloat16 array (``ml_dtypes``' type, as
+    JAX hands it out) goes across bit for bit through its 16-bit pattern,
+    so neither side needs ``ml_dtypes``."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
 def from_numpy(tree, device="cuda"):
     """Every array leaf (numpy, or anything ``np.asarray`` takes, such as a
     JAX array) becomes a tensor on ``device`` — the card unless the caller
-    asks for the CPU.  Tensors move to ``device``."""
+    asks for the CPU; bfloat16 leaves keep their bits.  Tensors move to
+    ``device``."""
     dev = torch.device(device)
 
     def leaf(x):
         if isinstance(x, torch.Tensor):
             return x.to(dev)
         if isinstance(x, np.ndarray) or hasattr(x, "__array__"):
-            return torch.as_tensor(np.array(x), device=dev)
+            return _tensor(np.array(x)).to(dev)
         return x
 
     return _convert(tree, leaf, _PORT_TYPES, {})
 
 
 def to_numpy(tree):
-    """Every tensor leaf becomes a numpy array on the host; numpy arrays and
-    other leaves pass through.  Named tuples keep their class."""
+    """Every tensor leaf becomes a numpy array on the host; a bfloat16
+    tensor becomes float32, which holds each of its values exactly (numpy
+    has no bfloat16).  Numpy arrays and other leaves pass through.  Named
+    tuples keep their class."""
 
     def leaf(x):
         if isinstance(x, torch.Tensor):
-            return x.detach().cpu().numpy()
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
         return x
 
     return _convert(tree, leaf, {}, {})

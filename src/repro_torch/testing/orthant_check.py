@@ -15,23 +15,27 @@ import contextlib
 
 import torch
 
+from repro_torch.configs import get_config
+
 __all__ = ["OLMO", "direction_readings", "olmo_leaves", "olmo_tree", "plain_driver"]
 
-# olmo-1b (src/repro/configs/olmo_1b.py): the widths of its parameter tree
-OLMO = {"d_model": 2048, "d_ff": 8192, "vocab": 50304, "n_layers": 16}
+# olmo-1b at its published widths
+OLMO = get_config("olmo-1b")
 
 
-def olmo_tree(gen: torch.Generator, depth: int, scale: bool) -> dict:
-    """olmo-1b's parameter tree as ``init_lm`` builds it
-    (src/repro/models/transformer.py:58-72): embed (vocab, d), ``depth``
-    stacked layers of wq/wk/wv/wo (d, d) and the gated MLP's w1, w3 (d, ff)
-    and w2 (ff, d); the non-parametric norms hold no leaves.  Normal entries
-    drawn from ``gen`` on its device, scaled as ``init_lm`` scales them
-    (``scale``) or unit (gradients)."""
-    d, ff, vocab = OLMO["d_model"], OLMO["d_ff"], OLMO["vocab"]
+def olmo_tree(gen: torch.Generator, depth: int, scale: bool, device=None) -> dict:
+    """olmo-1b's parameter tree as ``models.transformer.init_lm`` lays it out
+    (its paths, shapes and dtypes at ``depth`` = 16): embed (vocab, d),
+    ``depth`` stacked layers of wq/wk/wv/wo (d, d) and the gated MLP's w1,
+    w3 (d, ff) and w2 (ff, d); the non-parametric norms hold no leaves.
+    Normal entries drawn from ``gen`` in this order on ``device`` (default:
+    the generator's), scaled as ``init_lm`` scales them (``scale``) or unit
+    (gradients)."""
+    d, ff, vocab = OLMO.d_model, OLMO.d_ff, OLMO.vocab
+    device = gen.device if device is None else device
 
     def normal(shape, s):
-        x = torch.randn(shape, generator=gen, device=gen.device)
+        x = torch.randn(shape, generator=gen, device=device)
         return x.mul_(s) if scale else x
 
     return {"embed": normal((vocab, d), d ** -0.5), "final_norm": {},

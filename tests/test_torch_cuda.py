@@ -661,3 +661,57 @@ def test_orthant_step_on_the_card_matches_the_cpu(card):
     for k in params:
         want = out["cpu"][k]
         assert (out["cuda"][k] - want).abs().max() <= 1e-4 * want.abs().max(), k
+
+
+# ------------------------------------------------------------ the LM serving path
+_LM_ARCHS = ("olmo-1b", "mixtral-8x22b", "zamba2-1.2b", "xlstm-125m",
+             "phi-3-vision-4.2b", "seamless-m4t-large-v2")
+
+
+def _lm_init(cfg, gen):
+    from repro_torch.models import encdec, transformer
+
+    init = encdec.init_encdec if cfg.family == "encdec" else transformer.init_lm
+    return init(cfg, gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_decode_matches_prefill_on_the_card(card, arch):
+    """Smoke size at float32 compute: 24 decode steps against one prefill
+    (the 16-slot SWA ring wraps; MoE drops no token), within 1e-4 of the
+    logits' rms."""
+    from repro_torch.configs import get_config
+    from repro_torch.testing.lm_check import decode_vs_prefill, no_drop_f32
+
+    cfg = no_drop_f32(get_config(arch, smoke=True))
+    gen = torch.Generator(device=card).manual_seed(17)
+    params = _lm_init(cfg, gen)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=gen, device=card)
+    frames = (torch.randn((2, 6, cfg.d_model), generator=gen, device=card)
+              if cfg.family == "encdec" else None)
+    with torch.inference_mode():
+        assert decode_vs_prefill(cfg, params, toks, frames) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "zamba2-1.2b", "xlstm-125m", "arctic-480b"])
+def test_lm_bf16_decode_on_the_card(card, arch):
+    """8 decode steps at the default bfloat16 compute: finite logits and a
+    cache of ``cache_spec``'s shapes and dtypes on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import serve
+
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator(device=card).manual_seed(18)
+    params = _lm_init(cfg, gen)
+    cache = serve.init_cache(cfg, 2, 32, device=card)
+    tok = torch.zeros((2,), dtype=torch.int32, device=card)
+    with torch.inference_mode():
+        for i in range(8):
+            logits, cache = serve.decode_step(params, cache, tok, i, cfg)
+            tok = logits.argmax(-1).int()
+    assert logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all())
+    for k, s in serve.cache_spec(cfg, 2, 32).items():
+        assert tuple(cache[k].shape) == s.shape and cache[k].dtype == s.dtype
+        assert cache[k].device.type == "cuda"

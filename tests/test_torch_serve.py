@@ -142,7 +142,17 @@ _SLICE_MODULES = ("repro_torch.core.counts", "repro_torch.core.baselines",
                   "repro_torch.core.distributed", "repro_torch.optim",
                   "repro_torch.optim.adamw", "repro_torch.optim.compress",
                   "repro_torch.optim.orthant", "repro_torch.testing.spawn",
-                  "repro_torch.testing.orthant_check")
+                  "repro_torch.testing.orthant_check",
+                  # the LM serving slice
+                  "repro_torch.models", "repro_torch.models.config",
+                  "repro_torch.models.blocks", "repro_torch.models.ssm",
+                  "repro_torch.models.transformer", "repro_torch.models.encdec",
+                  "repro_torch.models.serve", "repro_torch.configs",
+                  *(f"repro_torch.configs.{m}" for m in (
+                      "arctic_480b", "granite_34b", "mixtral_8x22b", "nemotron_4_15b",
+                      "olmo_1b", "phi_3_vision_4_2b", "seamless_m4t_large_v2",
+                      "stablelm_3b", "xlstm_125m", "zamba2_1_2b")),
+                  "repro_torch.launch.serve", "repro_torch.testing.lm_check")
 
 
 def test_port_never_imports_jax():
