@@ -99,7 +99,9 @@ Drives the port's main path on the card and checks it, phase by phase:
    over olmo-1b's parameter tree at full width (``olmo_tree``), its wall
    and peak memory, every direction's orthogonality and agreement with
    ``torch.linalg.qr``'s Q held against its direction through the kernels'
-   plain versions (``direction_check``); (d) ``restore(shardings=)`` of a saved tree onto
+   plain versions (``direction_check``), at OLMO_DEPTH of its 16 layers
+   (batch 2; phase 12 (b) runs all 16, and phase 12 (e) holds the kernels
+   at the batch-16 shapes); (d) ``restore(shardings=)`` of a saved tree onto
    2 ranks, the blocks bitwise the saved leaves; then panel_factor and
    apply_factors timed at the largest shape each sub-run launched them at;
 10. every (shape, dtype) the kernels were launched at by phases 4-9, the
@@ -118,7 +120,32 @@ Drives the port's main path on the card and checks it, phase by phase:
    2048`` (bfloat16) for olmo-1b, zamba2-1.2b and xlstm-125m must exit 0;
    their tok/s and peak memory are printed.  The path runs no GGR kernel:
    the counts, zeroed before it, must read 0 after it;
-12. a JSON line of per-kernel numbers, then the last line
+12. LM training — (a) every arch at smoke size: the loss and every leaf's
+   gradient on the card against the port on the CPU with the same weights
+   and batch (float32 compute, TF32 off; within 1e-5 relative and 1e-4 of
+   each gradient's rms), then one AdamW ``train_step`` on the card (params
+   moved, finite; no GGR kernel launched); (b) olmo-1b at its published
+   widths (16 x 2048, ff 8192, vocab 50304; float32 params, bfloat16
+   compute, remat "full") through ``Trainer`` at seq 256, batch 8: 4 Orthant
+   steps, then 4 AdamW steps — finite losses, each step's wall split into
+   forward+backward and optimizer (CUDA events), tok/s, peak memory, a
+   trace of one more step of each; Orthant must launch panel_factor and
+   apply_factors and AdamW neither; the last Orthant step's momenta (the
+   first and last layer of each stack) through ``momentum_check``: each R
+   through the kernels within 1e-5 backward error, each column of its
+   direction that float32 determines within 20 x u·cond_k of orthant's
+   formula in float64 and of its sign, both planted faults (a flipped
+   first column, a float16 R) failing that, the direction readings
+   printed; (c) an Orthant run at olmo-1b's widths and
+   RESUME_DEPTH layers saved at step 2 (``build/smoke_train_ckpt``) and
+   resumed by a new ``Trainer(resume=True)`` for step 3: its loss, params
+   and optimizer state bitwise those of the uninterrupted run; (d) ``python
+   -m repro_torch.launch.train --arch olmo-1b --steps 4 --optimizer X`` for
+   Orthant and AdamW must exit 0 (s/step, tok/s and peak memory printed);
+   (e) every (shape, dtype) phase 12 launched B3/B4 at that phase 10 did not
+   hold is held against the plain version, and B3/B4 are timed at the
+   largest shape each launched at;
+13. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
@@ -127,8 +154,9 @@ taken again against the plain version run in f64 on the same inputs
 it.
 
 Launch counts are set to 0 just before the serving run, the dense run,
-phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too) and
-phase 11, and read just after each; a route that does not launch its
+phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too), phase
+11, phase 12 (a) and each training run of phase 12 (b)-(c), and read just
+after each; a route that does not launch its
 kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
 """
@@ -209,7 +237,9 @@ DQR_M, DQR_N, DQR_PANEL, DQR_RANKS = 8192, 4096, 64, 4
 TSQR_M, TSQR_N = SKETCH_M, SKETCH_N
 # olmo-1b's widths: repro_torch.testing.orthant_check.OLMO, the port's
 # configs.get_config("olmo-1b")
-OLMO_DEPTH = 16  # layers the Orthant step runs: all of olmo-1b's (cut past 60 s)
+# layers phase 9 (c)'s Orthant step runs at olmo-1b's widths: a depth cut,
+# since phase 12 (b) trains all 16 layers with Orthant through the Trainer
+OLMO_DEPTH = 2
 # an Orthant direction Q = M·R⁻¹ (f32, no refinement) loses u·cond(M) of
 # orthogonality whichever R it takes (square Gaussian momenta reach cond
 # 1e4-1e5 and more), so each matrix's two readings are held to DIR_FACTOR x
@@ -1810,6 +1840,331 @@ def lm_phase(kernels, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12
+# the LM training path: every arch at smoke size (card against CPU at f32
+# compute, TF32 off, within TRAIN_REL of the gradients' rms and
+# TRAIN_LOSS_REL of the loss), then olmo-1b at its published widths with the
+# reference launcher's defaults (f32 params, bf16 compute, remat "full")
+TRAIN_REL, TRAIN_LOSS_REL = 1e-4, 1e-5
+TRAIN_SMOKE_S, TRAIN_SMOKE_B = 32, 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
+# the bitwise-resume run: olmo-1b's widths at a cut depth (its checkpoint of
+# params and Orthant's two moments is ~2.8 GB at 2 layers, ~14 GB at 16)
+RESUME_DEPTH = 2
+TRAIN_CLI_OPTIMIZERS = ("orthant", "adamw")
+
+
+# phase 12 (b)'s check of the Orthant step on the trained momenta.  Phase 9
+# (c)'s direction rule was set on random momenta (tools/orthant_readings.py:
+# sound directions at most 2.13x their plain versions' readings, faulty ones
+# at least 3.24x); trained momenta are far worse conditioned (cond 4e4-1e8
+# at olmo-1b's widths: olmo's centred LayerNorm gives every weight gradient
+# a near-null vector along d_model) and their sound directions read up to
+# 3.23x at cond 4.6e4 and 9.16x at 6.6e7 (PERF.md §6), so that rule cannot
+# tell sound from faulty there: its readings are printed.  What is held:
+# each column of the direction that float32 determines against orthant's
+# formula in float64, its error over u·cond_k within COL_RATIO and its sign
+# the same (``orthant_check.momentum_readings``), and R's backward error
+# ||RᵀR - MᵀM||_F / ||M||_F² within phase 5's bound for the dense QR.  Each
+# matrix's two planted faults, the direction's first column flipped and R
+# from the float16-rounded matrix, must fail the column check
+GRAM_TOL, COL_RATIO = 1e-5, 20.0
+
+
+def momentum_check(mom) -> dict:
+    """Phase 12 (b) on one momentum leaf, the first and last matrix of a
+    stack: ``momentum_readings`` with its faults (the direction readings
+    against the plain versions and cuSOLVER, each R's backward error, the
+    column check against float64) and each matrix's condition number (f32
+    singular values of the scaled tall matrix).  ``ok``: every R through
+    the kernels within GRAM_TOL, every held column within COL_RATIO and of
+    the float64 column's sign; ``faults_seen``: every flipped direction
+    with a sign off and every float16 one over COL_RATIO."""
+    import torch
+
+    from repro_torch.testing.orthant_check import momentum_readings
+
+    M = mom.reshape(-1, *mom.shape[-2:])
+    M = M[[0, -1]] if M.shape[0] > 2 else M
+    rd = momentum_readings(M, faults=True)
+    got, plain = rd["directions"]["kernels"], rd["directions"]["plain"]
+    gram, cols = rd["gram"], rd["columns"]
+    tall = M if M.shape[-2] >= M.shape[-1] else M.mT
+    s = torch.linalg.svdvals(tall)
+
+    def floats(x):
+        return [float(v) for v in x]
+
+    return {"matrices": M.shape[0], "cond": floats(s[:, 0] / s[:, -1]),
+            "gram": {k: floats(v) for k, v in gram.items()},
+            "held": cols["determined"].tolist(), "ratio": floats(cols["ratio"]),
+            "signs_off": cols["signs_off"].tolist(),
+            "flipped": [floats(cols["flipped"][0]), cols["flipped"][1].tolist()],
+            "half": [floats(cols["half"][0]), cols["half"][1].tolist()],
+            "orth": floats(got[0]), "agree": floats(got[1]),
+            "over_plain": [floats(got[i] / plain[i]) for i in (0, 1)],
+            "ok": bool((gram["kernels"] <= GRAM_TOL).all())
+            and bool((cols["ratio"] <= COL_RATIO).all())
+            and not bool(cols["signs_off"].any()),
+            "faults_seen": bool((cols["flipped"][1] > 0).all())
+            and bool((cols["half"][0] > COL_RATIO).all())}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_tree_to(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree.to(device)
+
+
+def _flat(tree) -> dict:
+    from repro_torch.checkpoint.ckpt import _walk
+
+    return {"/".join(p): x for p, x in _walk(tree)}
+
+
+def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
+    """Phase 12: (a) every arch at smoke size — one ``value_and_grad`` on the
+    card against the port on the CPU with the same weights and batch (f32
+    compute; MoE at ``no_drop_f32``'s capacity), then one AdamW
+    ``train_step`` on the card (params moved, finite); (b) olmo-1b at its
+    published widths through ``Trainer`` (seq 256, batch 8): 4 Orthant steps
+    and 4 AdamW steps, each step's wall split into forward+backward and
+    optimizer (CUDA events), tok/s, peak memory, a trace of one more step
+    of each, the Orthant step's momenta through ``momentum_check``, B3/B4
+    launched by Orthant and never by AdamW; (c) resume: an Orthant run
+    saved at step 2 and resumed for step 3 equals the uninterrupted run bit
+    for bit (loss, params, optimizer state); (d) ``python -m
+    repro_torch.launch.train --arch olmo-1b --steps 4 --optimizer X`` for
+    both optimizers; (e) every (shape, dtype) it launched B3/B4 at and phase
+    10 did not hold is held against the plain version, and B3/B4 are timed
+    at the largest shape each launched at."""
+    import gc
+    import math
+    import re
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import encdec, transformer
+    from repro_torch.testing.lm_check import no_drop_f32, rel_err
+    from repro_torch.testing.orthant_check import olmo_leaves
+    from repro_torch.train import Trainer, make_train_step
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}, "smoke": {}, "full": {},
+           "launches": {k: 0 for k in kernels}, "shapes": {k: set() for k in kernels}}
+
+    def tally():
+        launches, shapes = _counts(kernels)
+        for k in kernels:
+            out["launches"][k] += launches[k]
+            out["shapes"][k] |= shapes[k]
+        return launches
+
+    # (a) every arch at smoke size, card against CPU, f32 compute
+    _zero_counts(kernels)
+    g = torch.Generator().manual_seed(120)
+    for arch in list_archs():
+        cfg = no_drop_f32(get_config(arch, smoke=True))
+        init = encdec.init_encdec if cfg.family == "encdec" else transformer.init_lm
+        params = init(cfg, g)
+        batch = SyntheticTokens(cfg.vocab, TRAIN_SMOKE_S, TRAIN_SMOKE_B, seed=12).batch_at(
+            0, device="cpu")
+        if cfg.family == "vlm":
+            batch["patch_embs"] = torch.randn((TRAIN_SMOKE_B, cfg.n_patches, cfg.vision_dim),
+                                              generator=g)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(
+                (TRAIN_SMOKE_B, TRAIN_SMOKE_S // cfg.enc_downsample, cfg.d_model), generator=g)
+        loss_fn = make_loss_fn(cfg)
+        want_loss, want = value_and_grad(loss_fn, params, batch)
+        params, batch = _tree_to(params, "cuda"), _tree_to(batch, "cuda")
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        want, grads = _flat(want), _flat(grads)
+        loss_gap = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        worst = max(rel_err(grads[k], want[k]) for k in want)
+        opt_init, step = make_train_step(cfg, optimizer="adamw", lr=1e-3)
+        new, _, metrics = step(params, opt_init(params), batch)
+        moved = any(not torch.equal(a, b) for a, b in zip(_flat(new).values(),
+                                                          _flat(params).values()))
+        finite = all(bool(x.isfinite().all()) for x in _flat(new).values())
+        out["smoke"][arch] = {"loss_rel": loss_gap, "grad_rel": worst,
+                              "loss": float(metrics["loss"])}
+        check(loss_gap <= TRAIN_LOSS_REL and worst <= TRAIN_REL and moved and finite
+              and sorted(grads) == sorted(want),
+              f"(a) {arch} smoke ({cfg.family}) f32: card vs CPU loss {loss_gap:.2e} "
+              f"(<= {TRAIN_LOSS_REL}), every leaf's gradient within {worst:.2e} of its rms "
+              f"(<= {TRAIN_REL}); an AdamW step moved the params, all finite")
+        del params, batch, grads, new
+    launches = tally()
+    check(not any(launches.values()), f"(a) the smoke AdamW steps launched no GGR kernel: "
+                                      f"{launches}")
+    out["wall_s"]["smoke"] = time.perf_counter() - t_phase
+    print(f"  (a) 10 archs at smoke size: {out['wall_s']['smoke']:.1f} s")
+
+    # (b) olmo-1b at its published widths, both optimizers
+    cfg = get_config("olmo-1b")
+    check(cfg.remat_policy == "full" and cfg.compute_dtype == "bfloat16"
+          and cfg.param_dtype == "float32", "(b) olmo-1b trains with f32 params, bf16 "
+          "compute and remat 'full'")
+    for opt in ("orthant", "adamw"):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        tr = Trainer(cfg, optimizer=opt, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                     device="cuda")
+        losses = tr.run(TRAIN_STEPS, log_fn=print)
+        rec = {"losses": losses, "steps": tr.step_times[:], "parameters": cfg.param_count()}
+        tokens = TRAIN_SEQ * TRAIN_BATCH
+        for i, t in enumerate(tr.step_times):
+            print(f"  (b) olmo-1b {opt} step {i + 1}: loss {losses[i]:.4f}, wall "
+                  f"{t['wall_s'] * 1e3:.1f} ms (forward+backward {t['fwd_bwd_ms']:.1f} ms, "
+                  f"optimizer {t['opt_ms']:.1f} ms on the device), "
+                  f"{tokens / t['wall_s']:.1f} tok/s ({card})")
+        steady = tr.step_times[1:]
+        rec["steady_wall_s"] = sum(t["wall_s"] for t in steady) / len(steady)
+        rec["tok_s"] = tokens / rec["steady_wall_s"]
+        traced = []
+        profile_top(lambda: traced.extend(tr.run(TRAIN_STEPS + 1, log_fn=print)),
+                    f"one olmo-1b {opt} step (seq {TRAIN_SEQ}, batch {TRAIN_BATCH})",
+                    rows=10, host_ops=False)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        launches = tally()
+        rec["launches"] = launches
+        print(f"  (b) olmo-1b {opt}: {rec['steady_wall_s'] * 1e3:.1f} ms/step over steps "
+              f"2-{TRAIN_STEPS}, {rec['tok_s']:.1f} tok/s, peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB allocated, launches {launches} ({card})")
+        check(all(math.isfinite(x) for x in losses + traced),
+              f"(b) olmo-1b {opt}: {TRAIN_STEPS + 1} finite losses")
+        fused = launches["panel_factor"], launches["apply_factors"]
+        if opt == "orthant":
+            check(min(fused) > 0, f"(b) olmo-1b orthant launched panel_factor and "
+                                  f"apply_factors {fused}")
+            rec["directions"] = {}
+            t1 = time.perf_counter()
+            for key, mom in olmo_leaves(tr.opt_state.momentum).items():
+                res = momentum_check(mom)
+                rec["directions"][key] = res
+                check(res["ok"], f"(b) {key} {tuple(mom.shape)}, {res['matrices']} "
+                                 f"matrices: cond {', '.join(f'{x:.2e}' for x in res['cond'])}; "
+                                 f"columns held {res['held']} of {min(mom.shape[-2:])}: "
+                                 "error over u·cond_k "
+                                 f"{', '.join(f'{x:.2f}' for x in res['ratio'])} "
+                                 f"(<= {COL_RATIO:g}), signs off {res['signs_off']} (0); "
+                                 "R's ||RᵀR - MᵀM|| / ||M||² "
+                                 f"{', '.join(f'{x:.2e}' for x in res['gram']['kernels'])} "
+                                 f"(<= {GRAM_TOL:g}; plain versions "
+                                 f"{', '.join(f'{x:.2e}' for x in res['gram']['plain'])}, "
+                                 f"cuSOLVER {', '.join(f'{x:.2e}' for x in res['gram']['cusolver'])}); "
+                                 f"readings max|QᵀQ - I| {', '.join(f'{x:.2e}' for x in res['orth'])}, "
+                                 f"max|Q - Q_lib·D| {', '.join(f'{x:.2e}' for x in res['agree'])}, "
+                                 f"{', '.join(f'{a:.2f}x / {b:.2f}x' for a, b in zip(*res['over_plain']))} "
+                                 "the plain versions'")
+                check(res["faults_seen"], f"(b) {key}: both planted faults fail the column "
+                                          f"check: first column flipped, signs off "
+                                          f"{res['flipped'][1]} (> 0); float16 R, error over "
+                                          f"u·cond_k {', '.join(f'{x:.1f}' for x in res['half'][0])} "
+                                          f"(> {COL_RATIO:g}; its backward error "
+                                          f"{', '.join(f'{x:.2e}' for x in res['gram']['half'])})")
+            rec["check_s"] = time.perf_counter() - t1
+            _zero_counts(kernels)  # the check's launches are not the path's
+        else:
+            check(max(fused) == 0, f"(b) olmo-1b adamw launched no panel_factor / "
+                                   f"apply_factors {fused}")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["wall_s"] = time.perf_counter() - t0
+        out["full"][opt] = rec
+        print(f"  (b) olmo-1b {opt}: {rec['wall_s']:.1f} s wall"
+              + (f", {rec['check_s']:.1f} s of it the momentum check" if "check_s" in rec
+                 else ""))
+
+    # (c) bitwise resume at olmo-1b's widths, RESUME_DEPTH layers
+    t0 = time.perf_counter()
+    cfg2 = cfg.scaled(n_layers=RESUME_DEPTH)
+    kw = dict(optimizer="orthant", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device="cuda")
+    ckpt_dir = ROOT / "build" / "smoke_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _zero_counts(kernels)
+    whole = Trainer(cfg2, **kw)
+    want = whole.run(3, log_fn=print)
+    first = Trainer(cfg2, ckpt_dir=str(ckpt_dir), ckpt_every=2, **kw)
+    first.run(2, log_fn=print)
+    del first
+    again = Trainer(cfg2, ckpt_dir=str(ckpt_dir), ckpt_every=2, resume=True, **kw)
+    resumed_at = again.step_num
+    got = again.run(3, log_fn=print)
+    tally()
+    differ = {}
+    for name, a, b in (("params", whole.params, again.params),
+                       ("opt", whole.opt_state, again.opt_state)):
+        b = _flat(b)
+        differ[name] = [k for k, x in _flat(a).items() if not same_bits(x, b[k])]
+    out["resume"] = {"resumed_at": resumed_at, "loss": [want[-1], got[-1]],
+                     "differ": differ, "wall_s": time.perf_counter() - t0}
+    check(resumed_at == 2 and got == want[2:] and not any(differ.values()),
+          f"(c) olmo-1b widths, {RESUME_DEPTH} layers, Orthant: saved at step 2, resumed "
+          f"at {resumed_at}, step 3's loss {got} vs {want[2:]} uninterrupted; leaves with "
+          f"other bits: {differ} ({out['resume']['wall_s']:.1f} s)")
+    del whole, again
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the CLI, both optimizers
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out["cli"] = {}
+    for opt in TRAIN_CLI_OPTIMIZERS:
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                              "olmo-1b", "--steps", "4", "--optimizer", opt],
+                             capture_output=True, text=True, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        text = cli.stdout.strip()
+        s_step = re.search(r": ([0-9.]+) s/step, ([0-9.]+) tok/s", text)
+        peak = re.search(r"peak memory allocated ([0-9.]+) GiB", text)
+        out["cli"][opt] = {"rc": cli.returncode, "wall_s": wall,
+                           "s_step": float(s_step.group(1)) if s_step else None,
+                           "tok_s": float(s_step.group(2)) if s_step else None,
+                           "peak_gib": float(peak.group(1)) if peak else None}
+        for line in text.splitlines()[-3:]:
+            print(f"    {line}")
+        check(cli.returncode == 0 and s_step is not None and "done: 4 steps" in text,
+              f"(d) launch.train --arch olmo-1b --steps 4 --optimizer {opt} exits "
+              f"{cli.returncode} in {wall:.1f} s ({card})"
+              + ("" if cli.returncode == 0 else f": {cli.stderr.strip()[-400:]}"))
+
+    # (e) the shapes phase 10 did not hold, then B3/B4 at the largest of each
+    t0 = time.perf_counter()
+    new = {k: out["shapes"][k] - recorded[k] for k in kernels}
+    n_all = sum(len(s) for s in out["shapes"].values())
+    n_new = sum(len(s) for s in new.values())
+    out["recheck_worst"] = recheck_shapes(new, gen)
+    print(f"  (e) {n_all} (shape, dtype) launches in phase 12: {n_all - n_new} held in "
+          f"phase 10, {n_new} held now ({time.perf_counter() - t0:.1f} s); worst errors "
+          f"{out['recheck_worst']}")
+    out["timed"] = {}
+    for k in ("panel_factor", "apply_factors"):
+        if out["shapes"][k]:
+            shape, param, dtype = max(out["shapes"][k], key=lambda s: _work(k, *s))
+            case = KernelCase(k, shape, param, dtype, gen)
+            case.compare()
+            out["timed"][case.label()] = case.times()
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 12 wall {out['wall_s']['phase']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run from the root of a checkout (src/repro_torch "
@@ -2050,7 +2405,11 @@ def main() -> int:
     lm = lm_phase(kernels, card)
 
     # ------------------------------------------------------------ phase 12
-    phase("12. summary")
+    phase("12. LM training")
+    train = train_phase(kernels, card, gen, recorded)
+
+    # ------------------------------------------------------------ phase 13
+    phase("13. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -2071,8 +2430,10 @@ def main() -> int:
             "replaces": meta[name][1],
             "launches": (serve_launches[name] + dense_launches[name]
                          + inst["launches"][name] + resil["launches"][name]
-                         + shard["launches"][name] + dist_out["launches"][name]),
-            "max_abs_err": max(worst[name], recheck_worst[name]),
+                         + shard["launches"][name] + dist_out["launches"][name]
+                         + train["launches"][name]),
+            "max_abs_err": max(worst[name], recheck_worst[name],
+                               train["recheck_worst"].get(name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": list(headline[name][1]), "dtype": headline[name][2],
@@ -2088,6 +2449,7 @@ def main() -> int:
     print(f"  phase 8: {json.dumps({k: v for k, v in shard.items() if k != 'shapes'})}")
     print(f"  phase 9: {json.dumps({k: v for k, v in dist_out.items() if k != 'shapes'})}")
     print(f"  phase 11: {json.dumps(lm)}")
+    print(f"  phase 12: {json.dumps({k: v for k, v in train.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -19,7 +19,10 @@ __all__ = ["ArchConfig", "EncDec", "LM", "SHAPES", "ShapeConfig"]
 
 class _Node(nn.Module):
     """One dict of the tree: sub-dicts as child modules, tensors as
-    parameters (no gradient: the port's models are forward only so far)."""
+    parameters.  They are registered without ``requires_grad``: training
+    takes gradients over detached views of the tree's leaves
+    (``train.step.value_and_grad``, every leaf), so a module serves
+    without building a graph."""
 
     def __init__(self, tree: dict):
         super().__init__()

@@ -4,10 +4,12 @@ The JAX package's ``models/blocks.py`` function by function, over the same
 parameter dicts.  Its ``lax.scan`` over KV chunks is a Python loop here.
 Parameters are cast to the compute dtype where the reference casts them
 (a no-op on a tensor already in it, so ``transformer.compute_copy`` may
-cast them once at load).
+cast them once at load).  ``checkpointed`` is the reference's
+``jax.checkpoint``: the callers wrap the same bodies it wraps.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,6 +28,26 @@ def constrain_act(h, cfg: ArchConfig):
         return h
     raise NotImplementedError(
         "act_sp_axis (GSPMD sequence parallelism) has no counterpart in the port")
+
+
+def checkpointed(fn, *args, policy: str = "full"):
+    """``fn(*args)``, rematerialized in the backward pass when grad is on
+    (the reference's ``jax.checkpoint``; ``torch.utils.checkpoint``,
+    non-reentrant).  ``policy="dots"`` also keeps the outputs of
+    ``aten.mm`` / ``aten.addmm`` — the weight products, whose operands are
+    flattened to two dimensions — as the reference's
+    ``checkpoint_dots_with_no_batch_dims`` keeps its dots without batch
+    dimensions; any other policy recomputes everything.  Changes no value."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def act_fn(a, cfg: ArchConfig):

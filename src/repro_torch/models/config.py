@@ -65,7 +65,9 @@ class ArchConfig:
     act_dp_axes: Optional[tuple] = None
     act_sp_axis: Optional[str] = None
 
-    # remat policy of the JAX package's layer scan; changes no forward value
+    # remat of each dense/moe/vlm layer when grad is on
+    # (``blocks.checkpointed``): "dots" keeps the weight products, any other
+    # value recomputes the whole layer; changes no value
     remat_policy: str = "full"
 
     # which of the four shapes apply (long_500k only for sub-quadratic archs)

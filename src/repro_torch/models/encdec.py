@@ -2,7 +2,8 @@
 text decoder with cross-attention.
 
 The JAX package's ``models/encdec.py`` over the same stacked tree; its layer
-scans are Python loops here.  Forward only.
+scans are Python loops here, each layer rematerialized as the reference's
+``jax.checkpoint`` bodies are (when grad is on).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 from . import blocks
 from .blocks import _normal
 from .config import ArchConfig
-from .transformer import at, chunked_xent
+from .transformer import at, chunked_xent, embed_tokens, unstack
 
 _F32 = torch.float32
 
@@ -97,20 +98,26 @@ def precompute_cross_kv(params, enc_out, cfg: ArchConfig):
 def encode(params, frames, cfg: ArchConfig):
     """frames: (B, S_enc, d_model) stub frame embeddings (modality frontend)."""
     h = frames.to(cfg.cdt) @ params["frame_proj"].to(cfg.cdt)
-    for i in range(cfg.enc_layers):
-        lp = at(params["enc_layers"], i)
+
+    def layer(lp, h):
         h = h + _bidir_attention(lp["attn"], blocks.apply_norm(lp["n1"], h, cfg), cfg)
-        h = h + blocks.mlp_fwd(lp["mlp"], blocks.apply_norm(lp["n2"], h, cfg), cfg)
+        return h + blocks.mlp_fwd(lp["mlp"], blocks.apply_norm(lp["n2"], h, cfg), cfg)
+
+    for lp in unstack(params["enc_layers"], cfg.enc_layers):
+        h = blocks.checkpointed(layer, lp, h)
     return blocks.apply_norm(params["enc_norm"], h, cfg)
 
 
 def decode_train(params, tokens, enc_out, cfg: ArchConfig):
-    h = params["embed"][tokens].to(cfg.cdt)  # gather, then cast
-    for i in range(cfg.dec_layers):
-        lp = at(params["dec_layers"], i)
+    h = embed_tokens(params, tokens, cfg)
+
+    def layer(lp, h):
         h = h + blocks.attention_fwd(lp["attn"], blocks.apply_norm(lp["n1"], h, cfg), cfg)
         h = h + cross_attention(lp["xattn"], blocks.apply_norm(lp["n2"], h, cfg), enc_out, cfg)
-        h = h + blocks.mlp_fwd(lp["mlp"], blocks.apply_norm(lp["n3"], h, cfg), cfg)
+        return h + blocks.mlp_fwd(lp["mlp"], blocks.apply_norm(lp["n3"], h, cfg), cfg)
+
+    for lp in unstack(params["dec_layers"], cfg.dec_layers):
+        h = blocks.checkpointed(layer, lp, h)
     return blocks.apply_norm(params["final_norm"], h, cfg)
 
 

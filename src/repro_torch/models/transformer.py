@@ -2,9 +2,11 @@
 
 The JAX package's ``models/transformer.py`` over the same parameter tree in
 its stacked layout (``layers/attn/wq`` is ``(L, d, H·hd)``); its layer
-``lax.scan`` is a Python loop over the stacked axis.  Forward only: the
-reference's ``jax.checkpoint`` / ``_remat`` changes no forward value and
-has no counterpart here.
+``lax.scan`` is a Python loop over the stacked axis (``unstack``).  The
+reference's remat wraps the same bodies here (``blocks.checkpointed``): each
+dense/moe/vlm layer by ``cfg.remat_policy``, each hybrid and xLSTM group,
+and each chunk of ``chunked_xent``; it applies only when grad is on and
+changes no value.
 """
 from __future__ import annotations
 
@@ -31,6 +33,16 @@ def at(tree, i):
     if isinstance(tree, dict):
         return {k: at(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` entries of a stacked tree along its first axis, as a list
+    of trees (``torch.unbind``: views, no copy; in the backward pass their
+    gradients meet in one stack, not in ``n`` full-size sums)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return torch.unbind(tree)
 
 
 def compute_copy(params, cfg: ArchConfig):
@@ -128,30 +140,36 @@ def forward_hidden(params, embeds, cfg: ArchConfig, positions=None):
     h = embeds
 
     if cfg.family in ("dense", "moe", "vlm"):
-        for i in range(cfg.n_layers):
-            h = blocks.constrain_act(_dense_layer_fwd(at(params["layers"], i), h, cfg,
-                                                      positions), cfg)
+        def layer(lp, h):
+            return blocks.constrain_act(_dense_layer_fwd(lp, h, cfg, positions), cfg)
+
+        for lp in unstack(params["layers"], cfg.n_layers):
+            h = blocks.checkpointed(layer, lp, h, policy=cfg.remat_policy)
     elif cfg.family == "hybrid":
         shared_attn, shared_norm = params["shared_attn"], params["shared_norm"]
-        groups = params["groups"]
-        for g in range(cfg.n_layers // cfg.attn_every):
+
+        def group(gp, h):
             # shared attention block (tied weights), then attn_every mamba blocks
             h = h + blocks.attention_fwd(shared_attn, blocks.apply_norm(shared_norm, h, cfg),
                                          cfg, positions)
-            for j in range(cfg.attn_every):
-                o, _, _ = ssm.mamba2_fwd(at(groups["mamba"], (g, j)),
-                                         blocks.apply_norm(at(groups["norms"], (g, j)), h, cfg),
-                                         cfg)
+            for mp, norm in zip(unstack(gp["mamba"], cfg.attn_every),
+                                unstack(gp["norms"], cfg.attn_every)):
+                o, _, _ = ssm.mamba2_fwd(mp, blocks.apply_norm(norm, h, cfg), cfg)
                 h = h + o
-            h = blocks.constrain_act(h, cfg)
+            return blocks.constrain_act(h, cfg)
+
+        for gp in unstack(params["groups"], cfg.n_layers // cfg.attn_every):
+            h = blocks.checkpointed(group, gp, h)
     elif cfg.family == "ssm":
-        groups = params["groups"]
-        for g in range(cfg.n_layers // cfg.slstm_every):
-            for j in range(cfg.slstm_every - 1):
-                o, _ = ssm.mlstm_fwd(at(groups["mlstm"], (g, j)), h, cfg)
+        def group(gp, h):
+            for mp in unstack(gp["mlstm"], cfg.slstm_every - 1):
+                o, _ = ssm.mlstm_fwd(mp, h, cfg)
                 h = h + o
-            o, _ = ssm.slstm_fwd(at(groups["slstm"], g), h, cfg)
-            h = h + o
+            o, _ = ssm.slstm_fwd(gp["slstm"], h, cfg)
+            return h + o
+
+        for gp in unstack(params["groups"], cfg.n_layers // cfg.slstm_every):
+            h = blocks.checkpointed(group, gp, h)
     else:
         raise ValueError(cfg.family)
 
@@ -159,9 +177,15 @@ def forward_hidden(params, embeds, cfg: ArchConfig, positions=None):
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
-    """Gathers the rows, then casts them: the reference's cast-then-gather
-    bits without casting the whole table."""
-    return params["embed"][tokens].to(cfg.cdt)
+    """The rows of ``tokens``, cast to the compute dtype.  Without a
+    gradient to take, gathers the rows, then casts them: the reference's
+    cast-then-gather bits without casting the whole table.  With one, casts
+    the table first as the reference does, so that repeated tokens' row
+    gradients sum in the compute dtype as the reference's do."""
+    e = params["embed"]
+    if torch.is_grad_enabled() and e.requires_grad:
+        return e.to(cfg.cdt)[tokens]
+    return e[tokens].to(cfg.cdt)
 
 
 def lm_head(params, h, cfg: ArchConfig):
@@ -186,12 +210,16 @@ def chunked_xent(params, h, labels, cfg: ArchConfig, chunk: int = 512):
     while S % C:
         C //= 2
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(cfg.cdt)
+
+    def chunk_loss(hx, lx):
+        logits = (hx.to(cfg.cdt) @ w).to(_F32)  # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+        return (lse - gold).sum()
+
     total = torch.zeros((), dtype=_F32, device=h.device)
     for c0 in range(0, S, C):
-        logits = (h[:, c0:c0 + C].to(cfg.cdt) @ w).to(_F32)  # (B, C, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0:c0 + C, None].long())[..., 0]
-        total = total + (lse - gold).sum()
+        total = total + blocks.checkpointed(chunk_loss, h[:, c0:c0 + C], labels[:, c0:c0 + C])
     return total / (B * S)
 
 

@@ -5,9 +5,11 @@ hold each Orthant direction against its plain-version direction and against
 
     from repro_torch.testing.orthant_check import direction_readings, olmo_tree
 
-``chip_smoke.py`` phase 9 (c) applies its rule to these readings;
-``tools/orthant_readings.py`` prints them, with those of two faulty
-directions, to show where the rule's factor sits.
+``chip_smoke.py`` phase 9 (c) applies its rule to these readings on random
+momenta; ``tools/orthant_readings.py`` prints them, with those of two
+faulty directions, to show where the rule's factor sits.  Phase 12 (b)
+holds the trained momenta by ``momentum_readings``: each column of the
+direction against a float64 one, relative to its own condition number.
 """
 from __future__ import annotations
 
@@ -17,10 +19,14 @@ import torch
 
 from repro_torch.configs import get_config
 
-__all__ = ["OLMO", "direction_readings", "olmo_leaves", "olmo_tree", "plain_driver"]
+__all__ = ["DETERMINED", "OLMO", "direction_readings", "momentum_readings", "olmo_leaves",
+           "olmo_tree", "plain_driver"]
 
 # olmo-1b at its published widths
 OLMO = get_config("olmo-1b")
+# a direction's column whose float32 error bound, u·cond_k, is over this is
+# roundoff (``momentum_readings``)
+DETERMINED = 0.1
 
 
 def olmo_tree(gen: torch.Generator, depth: int, scale: bool, device=None) -> dict:
@@ -91,6 +97,27 @@ def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
     with its last column's sign flipped (the square sign case); "half": the
     formula with the R of the matrix rounded to float16 (a tile stored at
     half precision)."""
+    return momentum_readings(M, faults)["directions"]
+
+
+def momentum_readings(M: torch.Tensor, faults: bool = False) -> dict:
+    """``direction_readings`` under "directions"; under "gram" each R's
+    backward error, ||RᵀR - MᵀM||_F / ||M||_F² of the scaled tall matrix
+    ((B,) under "kernels", "plain" and "cusolver"); under "columns" the
+    kernels' direction held column by column against orthant's formula in
+    float64 (``torch.linalg.qr``'s R in float64 with GGR's signs: a
+    positive diagonal, a square matrix's last one the plain driver's).
+    Column k of Q = M·R⁻¹ depends on the first k + 1 columns alone, and its
+    float32 error on u·cond_k, u = 2⁻²⁴ and cond_k the Frobenius condition
+    number of the leading (k + 1) x (k + 1) block of the shifted R: a column
+    with u·cond_k > DETERMINED is roundoff (its prefix holds a column that
+    depends on those before it) and is left out.  (B,) under "determined"
+    (columns held), "ratio" (the largest ||q_k - q_k,64|| / (u·cond_k) over
+    them) and "signs_off" (held columns pointing away from the float64
+    one's).  With ``faults``, the same two readings of two faulty
+    directions under "flipped" (the kernels' with its first column's sign
+    flipped) and "half" (from the R of the matrix rounded to float16), and
+    "half" under "gram"."""
     from repro_torch.core.blocked import ggr_triangularize_blocked
     from repro_torch.optim import orthant
 
@@ -98,10 +125,13 @@ def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
         return torch.triu(ggr_triangularize_blocked(
             x, min(x.shape[-2] - 1, x.shape[-1]), schedule="fused"))[..., :n, :]
 
-    def formula(R, x):  # orthant's Q = M·R⁻¹ with its eps shift
+    def shifted(R):  # orthant's eps shift
         diag = R.diagonal(dim1=-2, dim2=-1).abs()
-        Rs = R + 1e-7 * (diag.amax(-1) + 1e-20)[:, None, None] * eye
-        q = torch.linalg.solve_triangular(Rs, x, upper=True, left=False)
+        eye = torch.eye(n, dtype=R.dtype, device=R.device)
+        return R + 1e-7 * (diag.amax(-1) + 1e-20)[:, None, None] * eye
+
+    def formula(R, x):  # orthant's Q = M·R⁻¹
+        q = torch.linalg.solve_triangular(shifted(R), x, upper=True, left=False)
         return torch.where(torch.isfinite(q), q, 0.0)
 
     tall = M if M.shape[-2] >= M.shape[-1] else M.mT
@@ -116,15 +146,50 @@ def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
         return ((Q.mT @ Q - eye).abs().amax((-2, -1)),
                 (Q - Q_lib * d[:, None, :]).abs().amax((-2, -1)))
 
+    def gram(R):
+        R64, M64 = R.double(), mf.double()
+        return (torch.linalg.matrix_norm(R64.mT @ R64 - M64.mT @ M64)
+                / torch.linalg.matrix_norm(M64) ** 2)
+
     Q = orthant._orthogonalize(M)
     Q, R = (Q if M.shape[-2] >= M.shape[-1] else Q.mT), r_factor(mf)
     out = {"kernels": read(Q, R), "cusolver": read(formula(R_lib, mf), R_lib)}
     with plain_driver():
         R_plain = r_factor(mf)
     out["plain"] = read(formula(R_plain, mf), R_plain)
+    grams = {"kernels": gram(R), "plain": gram(R_plain), "cusolver": gram(R_lib)}
+
+    # the float64 reference and each column's condition number
+    m64 = mf.double()
+    R64 = torch.linalg.qr(m64, mode="r").R
+    sign = torch.sign(R64.diagonal(dim1=-2, dim2=-1))
+    want = torch.ones_like(sign)
+    if mf.shape[-2] == n:  # n - 1 pivots: the last row keeps its own sign
+        want[:, -1] = torch.sign(R_plain[:, -1, -1]).double()
+    R64 = R64 * (torch.where(sign == 0, 1.0, sign) * want)[:, :, None]
+    Q64, Rs = formula(R64, m64), shifted(R64)
+    Rinv = torch.linalg.solve_triangular(Rs, torch.eye(n, dtype=Rs.dtype, device=Rs.device)
+                                         .expand_as(Rs), upper=True)
+    cond = torch.sqrt(torch.cumsum(Rs.square().sum(-2), -1)
+                      * torch.cumsum(Rinv.square().sum(-2), -1))
+    bound = 2.0 ** -24 * cond
+    held = bound <= DETERMINED
+
+    def columns(Qx):
+        Qx = Qx.double()
+        err = torch.linalg.vector_norm(Qx - Q64, dim=-2)
+        return (torch.where(held, err / bound, 0.0).amax(-1),
+                ((Qx * Q64).sum(-2) <= 0).logical_and(held).sum(-1))
+
+    ratio, off = columns(Q)
+    cols = {"determined": held.sum(-1), "ratio": ratio, "signs_off": off}
     if faults:
+        cols["flipped"] = columns(torch.cat([-Q[..., :1], Q[..., 1:]], -1))
         Q[..., -1] *= -1
         out["flipped"] = read(Q, R)
         R_half = r_factor(mf.half().float())
-        out["half"] = read(formula(R_half, mf), R_half)
-    return out
+        Q_half = formula(R_half, mf)
+        out["half"] = read(Q_half, R_half)
+        cols["half"] = columns(Q_half)
+        grams["half"] = gram(R_half)
+    return {"directions": out, "gram": grams, "columns": cols}

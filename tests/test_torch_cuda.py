@@ -715,3 +715,113 @@ def test_lm_bf16_decode_on_the_card(card, arch):
     for k, s in serve.cache_spec(cfg, 2, 32).items():
         assert tuple(cache[k].shape) == s.shape and cache[k].dtype == s.dtype
         assert cache[k].device.type == "cuda"
+
+
+# ------------------------------------------------------------ the LM training path
+def _train_case(arch="olmo-1b", seq=64, batch=4):
+    """A smoke config at float32 compute and its CPU params and batch: 256
+    uniform tokens, more distinct ones than the widths (128), so that an
+    Orthant direction after one step is not set by roundoff (a momentum of
+    lower rank; the synthetic stream's random walk visits fewer tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.testing.lm_check import no_drop_f32
+
+    cfg = no_drop_f32(get_config(arch, smoke=True))
+    g = torch.Generator().manual_seed(24)
+    params = _lm_init(cfg, g)
+    toks = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=g, dtype=torch.int32)
+    return cfg, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_to(v, dev) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree.to(dev)
+
+
+def _leaves(tree):
+    from repro_torch.checkpoint.ckpt import _walk
+
+    return {"/".join(p): x for p, x in _walk(tree)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adamw", "orthant"])
+def test_train_step_on_the_card_matches_the_cpu(card, optimizer):
+    """One smoke olmo-1b ``train_step`` (float32 compute) on the card
+    against the port's CPU run: loss and grad_norm within 1e-5 relative;
+    each leaf's update (p0 - p1) / lr and each state leaf within 1e-4 of
+    its rms of the CPU run's, over the elements the step determines
+    (``repro_torch.testing.step_check``: AdamW where |m| >= 1e-3 of rms,
+    Orthant's leading columns up to its momentum's rank), every parameter
+    within 2.5·lr; Orthant launches the fused schedule's kernels, AdamW
+    none."""
+    from repro_torch.testing.step_check import (leading_columns, rms_gap, sign_determined,
+                                                update_of)
+    from repro_torch.train import make_train_step
+
+    cfg, params, batch = _train_case()
+    lr = 1e-3
+    opt_init, step = make_train_step(cfg, optimizer=optimizer, lr=lr)
+    out = {}
+    n0 = ggr_apply.apply_factors.launches
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        out[dev] = _to(step(p, opt_init(p), _to(batch, dev)), "cpu")
+    launched = ggr_apply.apply_factors.launches - n0
+    assert launched > 0 if optimizer == "orthant" else launched == 0
+    for k in ("loss", "grad_norm"):
+        want = float(out["cpu"][2][k])
+        assert abs(float(out["cuda"][2][k]) - want) <= 1e-5 * abs(want), k
+    p0, got, want = _leaves(params), _leaves(out["cuda"][0]), _leaves(out["cpu"][0])
+    got_s, want_s = _leaves(out["cuda"][1]), _leaves(out["cpu"][1])
+    gaps = {}
+    for k, p in p0.items():
+        mom = want_s[(".m/" if optimizer == "adamw" else ".momentum/") + k].numpy()
+        mask = (leading_columns(mom)[0] if optimizer == "orthant" and p.ndim >= 2
+                and min(p.shape[-2:]) > 1 else sign_determined(mom))
+        gaps[k] = rms_gap(update_of(p0[k], got[k], lr), update_of(p0[k], want[k], lr), mask)
+    for k in want_s:
+        if not k.endswith(".step"):
+            gaps[k] = rms_gap(got_s[k], want_s[k])
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-4, worst
+    for k in want:
+        assert (got[k] - want[k]).abs().max() <= 2.5 * lr, k
+
+
+@pytest.mark.gpu
+def test_the_data_stream_has_the_same_bits_on_the_card(card):
+    from repro_torch.data import SyntheticTokens
+
+    data = SyntheticTokens(50304, 256, 8, seed=3)
+    for step in (0, 1, 977):
+        on_card, on_cpu = data.batch_at(step), data.batch_at(step, device="cpu")
+        assert on_card["tokens"].device.type == "cuda"
+        for k in on_cpu:
+            assert torch.equal(on_card[k].cpu(), on_cpu[k]), (step, k)
+
+
+@pytest.mark.gpu
+def test_trainer_resumes_bitwise_on_the_card(card, tmp_path):
+    """Smoke olmo-1b (bfloat16 compute) with Orthant: saved at step 2 and
+    resumed by a new ``Trainer(resume=True)``, step 3 gives the same loss,
+    params and optimizer state bits as the uninterrupted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import Trainer
+
+    cfg = get_config("olmo-1b", smoke=True)
+    kw = dict(optimizer="orthant", seq_len=64, global_batch=4, lr=1e-3)
+    whole = Trainer(cfg, **kw)
+    want = whole.run(3)
+    Trainer(cfg, ckpt_dir=str(tmp_path), ckpt_every=2, **kw).run(2)
+    again = Trainer(cfg, ckpt_dir=str(tmp_path), resume=True, **kw)
+    assert again.step_num == 2 and again.run(3) == want[2:]
+    for a, b in ((whole.params, again.params), (whole.opt_state, again.opt_state)):
+        b = _leaves(b)
+        for k, x in _leaves(a).items():
+            assert torch.equal(x, b[k]), k
+    assert all(t["fwd_bwd_ms"] > 0 and t["opt_ms"] > 0 for t in again.step_times)

@@ -152,7 +152,11 @@ _SLICE_MODULES = ("repro_torch.core.counts", "repro_torch.core.baselines",
                       "arctic_480b", "granite_34b", "mixtral_8x22b", "nemotron_4_15b",
                       "olmo_1b", "phi_3_vision_4_2b", "seamless_m4t_large_v2",
                       "stablelm_3b", "xlstm_125m", "zamba2_1_2b")),
-                  "repro_torch.launch.serve", "repro_torch.testing.lm_check")
+                  "repro_torch.launch.serve", "repro_torch.testing.lm_check",
+                  # the LM training slice
+                  "repro_torch.data", "repro_torch.data.synthetic", "repro_torch.train",
+                  "repro_torch.train.step", "repro_torch.train.trainer",
+                  "repro_torch.launch.train")
 
 
 def test_port_never_imports_jax():
