@@ -145,18 +145,45 @@ Drives the port's main path on the card and checks it, phase by phase:
    (e) every (shape, dtype) phase 12 launched B3/B4 at that phase 10 did not
    hold is held against the plain version, and B3/B4 are timed at the
    largest shape each launched at;
-13. a JSON line of per-kernel numbers, then the last line
+13. LM training on a mesh (``Trainer(mesh=...)``, spawned ranks on
+   cuda:0) — (a) olmo-1b (smoke) 3 Orthant steps on a 1x1 NCCL mesh: loss,
+   params and optimizer state bitwise those of the one-device Trainer;
+   (b) olmo-1b at its published widths on a 1x4 mesh of 4 gloo ranks
+   sharing the card (f32 params, bf16 compute, remat "full", Orthant, seq
+   256, batch 8, MESH_FULL_STEPS steps): step 1's update (over the columns
+   the one-device float32 step's momentum determines) and momentum, leaf
+   by leaf on the first and last matrix of each stack, within BF16_RATIO x
+   the distance of phase 12 (b)'s one-device bf16 step to a one-device
+   float32 step (two bf16 runs round apart; the 1e-4 rule holds between
+   float32 runs only), replicated blocks bitwise equal across ranks after
+   every step, s/step, tok/s, each rank's peak and the card's memory in
+   use, B3/B4 launched on every rank every step; (c) olmo-1b, mixtral,
+   phi-3-vision, zamba2 and xlstm (a family each) at smoke size, float32,
+   on 2x2 and 4x1 gloo meshes, one AdamW and one Orthant step each on 512
+   uniform tokens: within 1e-4 of each leaf's rms of the one-device step
+   (``testing.step_check``), replicas bitwise; (d) an AdamW run saved at
+   step 2 on 2x2, resumed on 2x2 (bitwise), on 1x2 and with no mesh (the
+   restored leaves bitwise the saved arrays, steps 3-4 within the rule);
+   (e) the shapes this phase launched B3/B4 at that earlier phases did not
+   hold; (f) ``launch.train --smoke --mesh 2x2 --steps 3`` exits 0 naming
+   gloo, ``--mesh 16x16`` / ``prod`` / ``prod2`` exit non-zero naming the
+   ranks they need;
+14. a JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
 taken again against the plain version run in f64 on the same inputs
 (``KernelCase.against_f64``): the kernel must land within the same bound of
-it.
+it; where it does not, the case is read over DRAWS fresh inputs
+(``KernelCase.against_draws``): the kernel's median and DRAW_Q-quantile
+distance from the f64 plain version within DRAW_RATIO x the f32 plain
+version's (the f32 algorithm's own errors have a heavy tail).
 
 Launch counts are set to 0 just before the serving run, the dense run,
 phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too), phase
-11, phase 12 (a) and each training run of phase 12 (b)-(c), and read just
-after each; a route that does not launch its
+11, phase 12 (a), each training run of phase 12 (b)-(c), and in the ranks
+of phase 13 before each mesh run (each step in (b)), and read just after
+each; a route that does not launch its
 kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
 """
@@ -184,6 +211,16 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # sees (B3) or the square root of the rows a suffix dot runs over (B4)
 REL = {"batched_update": (7.5e-4, 1e-12), "batched_geqrt": (1e-3, 3e-12),
        "panel_factor": (3e-4, 3e-12), "apply_factors": (2e-4, 3e-13)}
+
+
+# an f32 case over its bound against the f64 plain version too is read over
+# DRAWS fresh inputs (``KernelCase.against_draws``): its median and
+# DRAW_Q-quantile within DRAW_RATIO x the f32 plain version's
+DRAWS, DRAW_Q, DRAW_RATIO = 32, 0.9, 2.0
+
+
+def _as_outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
 
 
 def rel_bound(name: str, shape, dtype_name: str) -> float:
@@ -449,6 +486,9 @@ class KernelCase:
         note = ""
         if not ok and self.dname == "float32" and all(o.isfinite().all() for o in outs):
             ok, note = self.against_f64(outs, refs)
+            if not ok:
+                ok, more = self.against_draws()
+                note += more
         self.rel = max(rels)
         self.old = min(olds) if olds else float("inf")
         if self.fixed is not None:
@@ -480,6 +520,39 @@ class KernelCase:
             dists.append(f"{d_kernel:.2e} / {d_plain:.2e}")
         return ok, ("; over its bound, so against the f64 plain version (kernel / "
                     f"f32 plain, the kernel's within the bound): {', '.join(dists)}")
+
+    def against_draws(self, n: int = DRAWS) -> tuple:
+        """An f32 reading over its bound against the f64 plain version too,
+        read again over ``n`` fresh inputs of the case's shape (generator
+        seeds 1..n): the kernel's and the f32 plain version's max|err| /
+        rms against the f64 plain version, output by output.  The f32
+        algorithm's own errors have a heavy tail (one random (8, 256, 64)
+        panel batch in about 60 takes the f32 plain version past
+        panel_factor's bound, PERF.md §6), so a single draw over it is held
+        by the distribution: the kernel's median and its DRAW_Q-quantile each
+        within DRAW_RATIO x the f32 plain version's.  Returns (ok, a note)."""
+        import torch
+
+        kern, plain = [], []
+        for i in range(1, n + 1):
+            case = KernelCase(self.name, self.shape, self.param, self.dtype,
+                              torch.Generator(device="cuda").manual_seed(i), self.data)
+            outs, refs, ref64 = (_as_outputs(f()) for f in (case.kernel, case.plain,
+                                                            case.plain64))
+            rms = [float(r.square().mean().sqrt()) or 1.0 for r in ref64]
+            kern.append([float((o.double() - r).abs().max()) / m
+                         for o, r, m in zip(outs, ref64, rms)])
+            plain.append([float((o.double() - r).abs().max()) / m
+                          for o, r, m in zip(refs, ref64, rms)])
+        kern, plain = torch.tensor(kern).double(), torch.tensor(plain).double()
+        qs = torch.tensor([0.5, DRAW_Q], dtype=torch.float64)
+        qk, qp = torch.quantile(kern, qs, dim=0), torch.quantile(plain, qs, dim=0)
+        ok = bool((qk <= DRAW_RATIO * qp).all())
+        return ok, (f"; over {n} fresh draws against f64, median / q{DRAW_Q:g} kernel vs "
+                    "f32 plain (the kernel's within "
+                    f"{DRAW_RATIO:g}x): " + ", ".join(
+                        f"{qk[0, j]:.2e} / {qk[1, j]:.2e} vs {qp[0, j]:.2e} / {qp[1, j]:.2e}"
+                        for j in range(kern.shape[1])))
 
     def zero_batch(self) -> None:
         import torch
@@ -1874,7 +1947,9 @@ GRAM_TOL, COL_RATIO = 1e-5, 20.0
 def momentum_check(mom) -> dict:
     """Phase 12 (b) on one momentum leaf, the first and last matrix of a
     stack: ``momentum_readings`` with its faults (the direction readings
-    against the plain versions and cuSOLVER, each R's backward error, the
+    against cuSOLVER, and against the plain versions for a square matrix,
+    where its last sign needs the plain driver anyway; each R's backward
+    error, the
     column check against float64) and each matrix's condition number (f32
     singular values of the scaled tall matrix).  ``ok``: every R through
     the kernels within GRAM_TOL, every held column within COL_RATIO and of
@@ -1886,8 +1961,8 @@ def momentum_check(mom) -> dict:
 
     M = mom.reshape(-1, *mom.shape[-2:])
     M = M[[0, -1]] if M.shape[0] > 2 else M
-    rd = momentum_readings(M, faults=True)
-    got, plain = rd["directions"]["kernels"], rd["directions"]["plain"]
+    rd = momentum_readings(M, faults=True, plain=False)  # plain readings: square ones only
+    got, plain = rd["directions"]["kernels"], rd["directions"].get("plain")
     gram, cols = rd["gram"], rd["columns"]
     tall = M if M.shape[-2] >= M.shape[-1] else M.mT
     s = torch.linalg.svdvals(tall)
@@ -1902,7 +1977,7 @@ def momentum_check(mom) -> dict:
             "flipped": [floats(cols["flipped"][0]), cols["flipped"][1].tolist()],
             "half": [floats(cols["half"][0]), cols["half"][1].tolist()],
             "orth": floats(got[0]), "agree": floats(got[1]),
-            "over_plain": [floats(got[i] / plain[i]) for i in (0, 1)],
+            "over_plain": [floats(got[i] / plain[i]) for i in (0, 1)] if plain else None,
             "ok": bool((gram["kernels"] <= GRAM_TOL).all())
             and bool((cols["ratio"] <= COL_RATIO).all())
             and not bool(cols["signs_off"].any()),
@@ -1925,7 +2000,17 @@ def _flat(tree) -> dict:
     return {"/".join(p): x for p, x in _walk(tree)}
 
 
-def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
+def step_matrices(tree) -> dict:
+    """{path: the first and last matrix of each stacked leaf of ``tree`` (a
+    2-D leaf whole)} as float32 on the host: the matrices phase 13 (b) holds
+    a step by (as ``momentum_check`` reads the first and last layer)."""
+    from repro_torch.checkpoint.ckpt import _walk
+
+    return {"/".join(p): (x[[0, -1]] if x.ndim > 2 else x).detach().float().cpu()
+            for p, x in _walk(tree)}
+
+
+def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
     """Phase 12: (a) every arch at smoke size — one ``value_and_grad`` on the
     card against the port on the CPU with the same weights and batch (f32
     compute; MoE at ``no_drop_f32``'s capacity), then one AdamW
@@ -1940,7 +2025,9 @@ def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
     repro_torch.launch.train --arch olmo-1b --steps 4 --optimizer X`` for
     both optimizers; (e) every (shape, dtype) it launched B3/B4 at and phase
     10 did not hold is held against the plain version, and B3/B4 are timed
-    at the largest shape each launched at."""
+    at the largest shape each launched at.  ``step1`` receives the Orthant
+    run's first step (``step_matrices`` of the parameters before and after
+    it and of the momentum after it, and its loss) for phase 13 (b)."""
     import gc
     import math
     import re
@@ -2022,7 +2109,14 @@ def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
         _zero_counts(kernels)
         tr = Trainer(cfg, optimizer=opt, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                      device="cuda")
-        losses = tr.run(TRAIN_STEPS, log_fn=print)
+        if opt == "orthant":  # phase 13 (b) holds its mesh's first step against this one
+            step1["p0"] = step_matrices(tr.params)
+            losses = tr.run(1, log_fn=print)
+            step1.update(p1=step_matrices(tr.params),
+                         momentum=step_matrices(tr.opt_state.momentum), loss=losses[0])
+            losses += tr.run(TRAIN_STEPS, log_fn=print)
+        else:
+            losses = tr.run(TRAIN_STEPS, log_fn=print)
         rec = {"losses": losses, "steps": tr.step_times[:], "parameters": cfg.param_count()}
         tokens = TRAIN_SEQ * TRAIN_BATCH
         for i, t in enumerate(tr.step_times):
@@ -2054,6 +2148,11 @@ def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
             for key, mom in olmo_leaves(tr.opt_state.momentum).items():
                 res = momentum_check(mom)
                 rec["directions"][key] = res
+                plain = ("" if res["over_plain"] is None else
+                         f"plain versions {', '.join(f'{x:.2e}' for x in res['gram']['plain'])}, ")
+                over = ("" if res["over_plain"] is None else ", " + ", ".join(
+                    f"{a:.2f}x / {b:.2f}x" for a, b in zip(*res["over_plain"]))
+                    + " the plain versions'")
                 check(res["ok"], f"(b) {key} {tuple(mom.shape)}, {res['matrices']} "
                                  f"matrices: cond {', '.join(f'{x:.2e}' for x in res['cond'])}; "
                                  f"columns held {res['held']} of {min(mom.shape[-2:])}: "
@@ -2062,13 +2161,11 @@ def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
                                  f"(<= {COL_RATIO:g}), signs off {res['signs_off']} (0); "
                                  "R's ||RᵀR - MᵀM|| / ||M||² "
                                  f"{', '.join(f'{x:.2e}' for x in res['gram']['kernels'])} "
-                                 f"(<= {GRAM_TOL:g}; plain versions "
-                                 f"{', '.join(f'{x:.2e}' for x in res['gram']['plain'])}, "
+                                 f"(<= {GRAM_TOL:g}; {plain}"
                                  f"cuSOLVER {', '.join(f'{x:.2e}' for x in res['gram']['cusolver'])}); "
                                  f"readings max|QᵀQ - I| {', '.join(f'{x:.2e}' for x in res['orth'])}, "
-                                 f"max|Q - Q_lib·D| {', '.join(f'{x:.2e}' for x in res['agree'])}, "
-                                 f"{', '.join(f'{a:.2f}x / {b:.2f}x' for a, b in zip(*res['over_plain']))} "
-                                 "the plain versions'")
+                                 f"max|Q - Q_lib·D| {', '.join(f'{x:.2e}' for x in res['agree'])}"
+                                 f"{over}")
                 check(res["faults_seen"], f"(b) {key}: both planted faults fail the column "
                                           f"check: first column flipped, signs off "
                                           f"{res['flipped'][1]} (> 0); float16 R, error over "
@@ -2162,6 +2259,542 @@ def train_phase(kernels, card: str, gen, recorded: dict) -> dict:
             out["timed"][case.label()] = case.times()
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(f"  phase 12 wall {out['wall_s']['phase']:.1f} s; launches {out['launches']}")
+    return out
+
+
+# ------------------------------------------------------------ phase 13
+# LM training on a mesh (``Trainer(mesh=...)``, ``DTensor`` over
+# ``torch.distributed``): spawned ranks on cuda:0 — one NCCL rank, or gloo
+# ranks sharing the card (NCCL refuses two ranks on one device)
+MESH_SEQ, MESH_BATCH, MESH_LR = 32, 16, 1e-3  # the smoke runs: 512 uniform tokens a step
+# a family each of those the Trainer trains, on the smoke meshes of (c)
+MESH_FAMILIES = ("olmo-1b", "mixtral-8x22b", "phi-3-vision-4.2b", "zamba2-1.2b",
+                 "xlstm-125m")
+MESH_SMOKE = ((2, 2), (4, 1))
+MESH_GAP = 1e-4  # testing.step_check's one-step rule, at float32 compute
+MESH_FULL_STEPS = 3
+FULL_LR = 3e-4  # the Trainer's default, phase 12 (b)'s
+# (b) at bfloat16: the mesh's step (tensor-parallel partial sums rounded to
+# bfloat16 where one device rounds a whole product once) is held by its
+# distance to the one-device float32 step: within BF16_RATIO x the distance
+# of the one-device bfloat16 step to it (on the CPU at smoke size the ratio
+# reads 1.01-1.04x: ``python tests/test_torch_mesh_train.py bf16``), and
+# never held tighter than MESH_GAP
+BF16_RATIO = 1.5
+MESH_CKPT = ROOT / "build" / "smoke_mesh_ckpt"
+
+
+def _mesh_cfg(arch: str):
+    from repro_torch.configs import get_config
+    from repro_torch.testing.lm_check import no_drop_f32
+
+    return no_drop_f32(get_config(arch, smoke=True))
+
+
+def mesh_one_rank() -> dict:
+    """Phase 13 (a) on one NCCL rank of cuda:0: olmo-1b (smoke) trained 3
+    Orthant steps on a 1x1 mesh and by the one-device Trainer; the leaves
+    whose bits differ, the losses and the mesh run's launches."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import _walk
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import Trainer
+
+    torch.cuda.set_device(0)
+    kernels = _kernel_fns()
+    cfg = get_config("olmo-1b", smoke=True)
+    kw = dict(optimizer="orthant", seq_len=MESH_SEQ, global_batch=MESH_BATCH)
+    _zero_counts(kernels)
+    mesh_tr = Trainer(cfg, mesh=make_debug_mesh(1, 1), **kw)
+    got = mesh_tr.run(3, log_fn=print)
+    launches, shapes = _counts(kernels)
+    one = Trainer(cfg, **kw)
+    want = one.run(3, log_fn=print)
+    a = {"/".join(p): x.to_local() if hasattr(x, "to_local") else x
+         for p, x in _walk({"params": mesh_tr.params, "opt": mesh_tr.opt_state})}
+    b = {"/".join(p): x for p, x in _walk({"params": one.params, "opt": one.opt_state})}
+    return {"losses": got, "want": want, "leaves": len(b), "launches": launches,
+            "shapes": shapes, "differ": [k for k in b if not same_bits(a[k], b[k])]}
+
+
+def _block_index(x) -> tuple:
+    """The slices of a DTensor's global shape that this rank's block holds."""
+    from torch.distributed.tensor import Shard
+
+    idx = [slice(None)] * x.ndim
+    size = list(x.shape)
+    start = [0] * x.ndim
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            n = x.device_mesh.size(i)
+            size[p.dim] //= n
+            start[p.dim] += x.device_mesh.get_local_rank(i) * size[p.dim]
+    for d in range(x.ndim):
+        if size[d] != x.shape[d]:
+            idx[d] = slice(start[d], start[d] + size[d])
+    return tuple(idx)
+
+
+def _block_matrices(tree) -> dict:
+    """{path: (the block's index in ``step_matrices``' arrays, this rank's
+    block of them)}: the first and last matrix of a stacked leaf."""
+    from repro_torch.checkpoint.ckpt import _walk
+
+    out = {}
+    for p, x in _walk(tree):
+        local = x.to_local()
+        idx = _block_index(x)
+        if x.ndim > 2:  # matrices [0, -1] of the stack (never sharded: the rules keep it)
+            local, idx = local[[0, -1]], (slice(None), *idx[1:])
+        out["/".join(p)] = (idx, local.detach().float().cpu())
+    return out
+
+
+def mesh_full_rank() -> dict:
+    """Phase 13 (b) on one of 4 gloo ranks sharing cuda:0: olmo-1b at its
+    published widths on a 1x4 mesh, Orthant, MESH_FULL_STEPS steps: each
+    step's wall and device split, launches and the card's memory in use
+    after it; after step 1 this rank's blocks of the update (p0 - p1) / lr
+    and of the momentum (``_block_matrices``); the digests of replicated
+    blocks after each step; this rank's peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.testing.mesh_check import block_digests
+    from repro_torch.train import Trainer
+
+    torch.cuda.set_device(0)
+    kernels = _kernel_fns()
+    rank = dist.get_rank()
+    cfg = get_config("olmo-1b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, mesh=make_debug_mesh(1, 4), optimizer="orthant", seq_len=TRAIN_SEQ,
+                 global_batch=TRAIN_BATCH, lr=FULL_LR)
+    out = {"init_s": time.perf_counter() - t0, "steps": [], "digests": []}
+    p0 = _block_matrices(tr.params)
+    for step in range(1, MESH_FULL_STEPS + 1):
+        torch.cuda.synchronize()
+        dist.barrier()
+        _zero_counts(kernels)
+        loss = tr.run(step, log_fn=print if rank == 0 else (lambda *_: None))[0]
+        torch.cuda.synchronize()
+        launches, shapes = _counts(kernels)
+        free, total = torch.cuda.mem_get_info()
+        out["steps"].append({"loss": loss, **tr.step_times[-1], "launches": launches,
+                             "shapes": shapes, "card_used": total - free})
+        out["digests"].append(block_digests({"params": tr.params, "opt": tr.opt_state},
+                                            replicated_only=True))
+        if step == 1:
+            p1 = _block_matrices(tr.params)
+            out["update"] = {k: (idx, (p0[k][1] - p1[k][1]) / FULL_LR)
+                             for k, (idx, _) in p1.items()}
+            out["momentum"] = _block_matrices(tr.opt_state.momentum)
+            del p0, p1
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_smoke_ranks(ckpt_dir: str) -> dict:
+    """Phase 13 (c) and (d) on one of 4 gloo ranks sharing cuda:0: a family
+    each at smoke size (float32 compute) on 2x2 and 4x1, one AdamW and one
+    Orthant step each on ``UniformBatches``; then an AdamW olmo-1b run on
+    2x2 saved at step 2, the uninterrupted run to step 4 (its states after
+    steps 3 and 4) and a resume on 2x2 to step 4.  Rank 0 returns the global
+    arrays, every rank the digests of its replicated blocks after each step,
+    its launches and shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.testing.mesh_check import UniformBatches, block_digests, flat_global
+    from repro_torch.train import Trainer
+
+    torch.cuda.set_device(0)
+    kernels = _kernel_fns()
+    rank = dist.get_rank()
+    _zero_counts(kernels)
+    meshes = {s: make_debug_mesh(*s) for s in MESH_SMOKE}
+    out = {"cases": {}, "digests": {}, "wall_s": {}}
+
+    def train(mesh, arch, opt, steps, keep_at=(), **kw):
+        cfg = _mesh_cfg(arch)
+        tr = Trainer(cfg, mesh=mesh, optimizer=opt, seq_len=MESH_SEQ,
+                     global_batch=MESH_BATCH, lr=MESH_LR, **kw)
+        tr.data = UniformBatches(cfg.vocab, MESH_SEQ, MESH_BATCH)
+        seen, losses, states = [], [], {}
+        while tr.step_num < steps:
+            losses += tr.run(tr.step_num + 1, log_fn=lambda *_: None)
+            seen.append(block_digests({"params": tr.params, "opt": tr.opt_state}))
+            if tr.step_num in keep_at:
+                states[tr.step_num] = flat_global({"params": tr.params, "opt": tr.opt_state})
+        return tr, losses, seen, states
+
+    for shape in MESH_SMOKE:
+        for arch in MESH_FAMILIES:
+            for opt in ("adamw", "orthant"):
+                t0 = time.perf_counter()
+                key = f"{shape[0]}x{shape[1]} {arch} {opt}"
+                tr, losses, seen, _ = train(meshes[shape], arch, opt, 1)
+                state = flat_global({"params": tr.params, "opt": tr.opt_state})
+                if rank == 0:
+                    out["cases"][key] = (losses, state)
+                out["digests"][key] = seen
+                out["wall_s"][key] = time.perf_counter() - t0
+    # (d) elastic resume
+    t0 = time.perf_counter()
+    train(meshes[(2, 2)], "olmo-1b", "adamw", 2, ckpt_dir=ckpt_dir, ckpt_every=2)
+    _, wl, wseen, wstates = train(meshes[(2, 2)], "olmo-1b", "adamw", 4, keep_at=(3, 4))
+    again, al, aseen, _ = train(meshes[(2, 2)], "olmo-1b", "adamw", 4, ckpt_dir=ckpt_dir,
+                                ckpt_every=100, resume=True)
+    again_state = flat_global({"params": again.params, "opt": again.opt_state})
+    if rank == 0:
+        out["cases"]["elastic whole"] = (wl, wstates)
+        out["cases"]["elastic again"] = (al, again_state)
+    out["digests"]["elastic whole"], out["digests"]["elastic again"] = wseen, aseen
+    out["wall_s"]["elastic 2x2"] = time.perf_counter() - t0
+    out["launches"], out["shapes"] = _counts(kernels)
+    return out
+
+
+def mesh_resume_rank(ckpt_dir: str) -> dict:
+    """Phase 13 (d) on one of 2 gloo ranks sharing cuda:0: the 2x2 step-2
+    snapshot resumed on a 1x2 mesh (its leaves as restored) and run on to
+    step 4 (its states after steps 3 and 4)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.testing.mesh_check import UniformBatches, flat_global
+    from repro_torch.train import Trainer
+
+    torch.cuda.set_device(0)
+    cfg = _mesh_cfg("olmo-1b")
+    tr = Trainer(cfg, mesh=make_debug_mesh(1, 2), optimizer="adamw", seq_len=MESH_SEQ,
+                 global_batch=MESH_BATCH, lr=MESH_LR, ckpt_dir=ckpt_dir, ckpt_every=100,
+                 resume=True)
+    tr.data = UniformBatches(cfg.vocab, MESH_SEQ, MESH_BATCH)
+    out = {"step": tr.step_num, "restored": flat_global({"params": tr.params,
+                                                         "opt": tr.opt_state}),
+           "losses": [], "states": {}}
+    for step in (3, 4):
+        out["losses"] += tr.run(step, log_fn=lambda *_: None)
+        out["states"][step] = flat_global({"params": tr.params, "opt": tr.opt_state})
+    return out
+
+
+def _gap(got, want, mask=None) -> float:
+    """rms(got - want) / rms(want) over ``mask`` (float64 on the card)."""
+    import torch
+
+    got, want = got.cuda().double(), want.cuda().double()
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    rms = float(want.square().mean().sqrt()) if want.numel() else 0.0
+    err = float((got - want).square().mean().sqrt()) if want.numel() else 0.0
+    return err / rms if rms > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def _leading_mask(m):
+    """``step_check.leading_columns``' mask of a stack of matrices, on the
+    card: the columns of each tall orientation (rows of a wide matrix) up to
+    its numerical rank (singular values above 1e-5 of the largest)."""
+    import torch
+
+    m = m.cuda().float()
+    flat = m.reshape(-1, *m.shape[-2:])
+    a, b = flat.shape[-2:]
+    s = torch.linalg.svdvals(flat if a >= b else flat.mT)
+    ranks = (s > 1e-5 * s[:, :1]).sum(-1)
+    idx = torch.arange(min(a, b), device=m.device)
+    keep = idx[None, :] < ranks[:, None]  # (matrices, narrow side)
+    mask = keep[:, None, :].expand(-1, a, b) if a >= b else keep[:, :, None].expand(-1, a, b)
+    return mask.reshape(m.shape), ranks.tolist()
+
+
+def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
+    """Phase 13: (a) a 1x1 NCCL mesh against the one-device Trainer, bitwise;
+    (b) olmo-1b at its published widths on a 1x4 mesh of 4 gloo ranks of
+    cuda:0 (Orthant, bf16 compute), its first step held against phase 12
+    (b)'s and a one-device float32 step, the replicas' bits after every
+    step, s/step, tok/s, each rank's and the card's memory, B3/B4 a step a
+    rank; (c) a family each at smoke size on 2x2 and 4x1 with AdamW and
+    Orthant, each step within the one-step rule of the one-device step;
+    (d) elastic resume; (e) the kernels at the shapes this phase launched
+    them at that earlier phases did not hold; (f) the CLI.  ``held``: the
+    shapes earlier phases held; ``step1``: phase 12 (b)'s first Orthant
+    step (``step_matrices``), or empty to take it here."""
+    import gc
+    import re
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.testing.mesh_check import (UniformBatches, flat_global, held_per_step,
+                                                replicas_differ, split_state)
+    from repro_torch.testing.spawn import spawn_ranks
+    from repro_torch.testing.step_check import step_gaps
+    from repro_torch.train import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}, "launches": {k: 0 for k in kernels},
+           "shapes": {k: set() for k in kernels}}
+
+    def tally(launches, shapes):
+        for k in kernels:
+            out["launches"][k] += launches[k]
+            out["shapes"][k] |= shapes[k]
+
+    # (c) and (d) in a thread and the CLI's 2x2 run in a subprocess, beside
+    # (a) and the one-device runs
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = {}
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                            "olmo-1b", "--smoke", "--mesh", "2x2", "--steps", "3"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+    def groups():
+        try:
+            t0 = time.perf_counter()
+            res["smoke"] = spawn_ranks(mesh_smoke_ranks, 4, str(MESH_CKPT), timeout_s=600)
+            res["resume"] = spawn_ranks(mesh_resume_rank, 2, str(MESH_CKPT), timeout_s=300)
+            res["wall"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised below, in the phase's thread
+            res["error"] = e
+
+    th = threading.Thread(target=groups)
+    th.start()
+    try:
+        # (a) a 1x1 NCCL mesh, bitwise the one-device Trainer
+        t0 = time.perf_counter()
+        a = spawn_ranks(mesh_one_rank, 1, backend="nccl", timeout_s=300)[0]
+        out["wall_s"]["a"] = time.perf_counter() - t0
+        tally(a["launches"], a["shapes"])
+        check(a["losses"] == a["want"] and not a["differ"]
+              and min(a["launches"]["panel_factor"], a["launches"]["apply_factors"]) > 0,
+              f"(a) olmo-1b smoke, 3 Orthant steps on a 1x1 NCCL mesh: losses {a['losses']} "
+              f"vs {a['want']} one-device; leaves with other bits {a['differ']} of "
+              f"{a['leaves']}; B3/B4 launched {a['launches']['panel_factor']}/"
+              f"{a['launches']['apply_factors']} ({out['wall_s']['a']:.1f} s)")
+        # the one-device steps (c) holds its meshes to
+        t0 = time.perf_counter()
+        one = {}
+        for arch in MESH_FAMILIES:
+            for opt in ("adamw", "orthant"):
+                cfg = _mesh_cfg(arch)
+                tr = Trainer(cfg, optimizer=opt, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                             lr=MESH_LR)
+                tr.data = UniformBatches(cfg.vocab, MESH_SEQ, MESH_BATCH)
+                p0 = flat_global(tr.params)
+                losses = tr.run(1, log_fn=print)
+                one[(arch, opt)] = (p0, losses, flat_global({"params": tr.params,
+                                                             "opt": tr.opt_state}))
+        _zero_counts(kernels)  # the references' launches are not the mesh path's
+        out["wall_s"]["one-device references"] = time.perf_counter() - t0
+    finally:
+        th.join()
+        cli_out, cli_err = cli.communicate(timeout=600)
+        cli_s = time.perf_counter() - t_cli
+    if "error" in res:
+        raise res["error"]
+
+    # (c) a family each on 2x2 and 4x1
+    ranks = res["smoke"]
+    cases = ranks[0]["cases"]
+    for r in ranks:
+        tally(r["launches"], r["shapes"])
+    b34 = [(r["launches"]["panel_factor"], r["launches"]["apply_factors"]) for r in ranks]
+    check(min(min(x) for x in b34) > 0, f"(c) the Orthant steps launched B3/B4 on every "
+                                        f"rank: {b34}")
+    out["smoke"] = {}
+    for shape in MESH_SMOKE:
+        for arch in MESH_FAMILIES:
+            for opt in ("adamw", "orthant"):
+                key = f"{shape[0]}x{shape[1]} {arch} {opt}"
+                p0, want_l, want = one[(arch, opt)]
+                got_l, got = cases[key]
+                r = step_gaps(p0, split_state(got), split_state(want), MESH_LR, opt)
+                bad = replicas_differ([rk["digests"][key] for rk in ranks])
+                loss_rel = abs(got_l[0] - want_l[0]) / abs(want_l[0])
+                out["smoke"][key] = {"update": r["update"], "state": r["state"],
+                                     "loss_rel": loss_rel, "replicas_differ": bad,
+                                     "wall_s": ranks[0]["wall_s"][key]}
+                check(r["update"][1] <= MESH_GAP and r["state"][1] <= MESH_GAP
+                      and loss_rel <= 1e-5 and not bad,
+                      f"(c) {key}: worst update {r['update'][0]} {r['update'][1]:.2e}, state "
+                      f"{r['state'][0]} {r['state'][1]:.2e} of rms (<= {MESH_GAP}), loss "
+                      f"{loss_rel:.1e} relative, replicas with other bits {bad} "
+                      f"({ranks[0]['wall_s'][key]:.1f} s)")
+
+    # (d) elastic resume: 2x2 -> 2x2 bitwise, -> 1x2 and -> no mesh by the rule
+    wl, whole = cases["elastic whole"]
+    al, again = cases["elastic again"]
+    with np.load(MESH_CKPT / "step_00000002" / "leaves.npz") as f:
+        saved = {k: f[k] for k in f.files}
+    cfg = _mesh_cfg("olmo-1b")
+    nomesh = Trainer(cfg, optimizer="adamw", seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                     lr=MESH_LR, ckpt_dir=str(MESH_CKPT), resume=True)
+    nomesh.data = UniformBatches(cfg.vocab, MESH_SEQ, MESH_BATCH)
+    restored = {"1x2": (res["resume"][0]["step"], res["resume"][0]["restored"]),
+                "no mesh": (nomesh.step_num, flat_global({"params": nomesh.params,
+                                                          "opt": nomesh.opt_state}))}
+    nm = {"losses": [], "states": {}}
+    for step in (3, 4):
+        nm["losses"] += nomesh.run(step, log_fn=print)
+        nm["states"][step] = flat_global({"params": nomesh.params, "opt": nomesh.opt_state})
+    same = [k for k in whole[4] if not np.array_equal(whole[4][k], again[k])]
+    check(al == wl[2:] and not same and not replicas_differ(
+        [rk["digests"]["elastic whole"] for rk in ranks]),
+          f"(d) olmo-1b smoke, AdamW: saved at step 2 on 2x2 and resumed on 2x2, steps 3-4 "
+          f"losses {al} vs {wl[2:]}; leaves with other bits at step 4 {same}")
+    p2 = split_state(saved)[0]
+    out["elastic"] = {}
+    for name, (step, got) in restored.items():
+        off = [k for k in saved if not np.array_equal(saved[k], got[k])]
+        run = res["resume"][0] if name == "1x2" else nm
+        held_steps = held_per_step(p2, run["states"], whole, MESH_LR, "adamw")
+        worst = max(max(r["update"][1], r["state"][1]) for _, r in held_steps)
+        out["elastic"][name] = {"restored_at": step, "differ": off, "worst": worst}
+        check(step == 2 and not off and worst <= MESH_GAP
+              and np.allclose(run["losses"], wl[2:], rtol=1e-5),
+              f"(d) the 2x2 step-2 snapshot on {name}: restored at {step}, leaves with other "
+              f"bits than the saved arrays {off}; steps 3-4 within {worst:.2e} of the "
+              f"uninterrupted 2x2 run's rms (<= {MESH_GAP}), losses {run['losses']} vs {wl[2:]}")
+    del nomesh
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    out["wall_s"]["c+d"] = res["wall"]
+
+    # (f) the CLI: a 2x2 mesh runs; meshes one host cannot form exit naming their ranks
+    text = cli_out.strip()
+    lines = text.splitlines()
+    check(cli.returncode == 0 and bool(lines) and lines[0].startswith(
+        "mesh 2x2 ('data', 'model'): 4 ranks, gloo") and "done: 3 steps" in text,
+          f"(f) launch.train --smoke --mesh 2x2 --steps 3 exits {cli.returncode} in "
+          f"{cli_s:.1f} s (beside (a), (c) and (d)): {lines[:1]} ... {lines[-2:]}"
+          + ("" if cli.returncode == 0 else f": {cli_err.strip()[-400:]}"))
+    refused = {mesh: (need, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b", "--mesh", mesh,
+         "--steps", "3"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        for mesh, need in (("16x16", 256), ("prod", 256), ("prod2", 512))}
+    for mesh, (need, r) in refused.items():
+        _, err = r.communicate(timeout=120)
+        check(r.returncode != 0 and f"needs {need} ranks" in err,
+              f"(f) launch.train --mesh {mesh} exits {r.returncode}: {err.strip()[-160:]}")
+
+    # (b) olmo-1b at its published widths on a 1x4 mesh of 4 gloo ranks
+    cfg = get_config("olmo-1b")
+    if not step1:  # phase 12 (b) did not run: take its first Orthant step here
+        tr = Trainer(cfg, optimizer="orthant", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        step1["p0"] = step_matrices(tr.params)
+        step1["loss"] = tr.run(1, log_fn=print)[0]
+        step1.update(p1=step_matrices(tr.params),
+                     momentum=step_matrices(tr.opt_state.momentum))
+        del tr
+    t0 = time.perf_counter()
+    tr = Trainer(cfg.scaled(compute_dtype="float32"), optimizer="orthant",
+                 seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    f32_loss = tr.run(1, log_fn=print)[0]
+    f32 = {"p1": step_matrices(tr.params), "momentum": step_matrices(tr.opt_state.momentum)}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"]["one-device f32 step"] = time.perf_counter() - t0
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    full = spawn_ranks(mesh_full_rank, 4, timeout_s=900)
+    out["wall_s"]["b"] = time.perf_counter() - t0
+    for r in full:
+        for s in r["steps"]:
+            tally(s["launches"], s["shapes"])
+    update, momentum = {}, {}
+    for k, ref in step1["p1"].items():
+        update[k] = torch.zeros_like(ref)
+        momentum[k] = torch.zeros_like(ref)
+        for r in full:
+            idx, blk = r["update"][k]
+            update[k][idx] = blk
+            idx, blk = r["momentum"][k]
+            momentum[k][idx] = blk
+    rec = {"leaves": {}, "steps": []}
+    ok = True
+    for k in update:
+        u_bf16 = (step1["p0"][k] - step1["p1"][k]) / FULL_LR
+        u_f32 = (step1["p0"][k] - f32["p1"][k]) / FULL_LR
+        mask, ranks_k = _leading_mask(f32["momentum"][k])
+        g = {"mesh": _gap(update[k], u_f32, mask), "one": _gap(u_bf16, u_f32, mask),
+             "mesh_vs_bf16": _gap(update[k], u_bf16, mask),
+             "mom_mesh": _gap(momentum[k], f32["momentum"][k]),
+             "mom_one": _gap(step1["momentum"][k], f32["momentum"][k]),
+             "ranks": ranks_k, "held": float(mask.float().mean())}
+        rec["leaves"][k] = g
+        ok &= (g["mesh"] <= max(BF16_RATIO * g["one"], MESH_GAP)
+               and g["mom_mesh"] <= max(BF16_RATIO * g["mom_one"], MESH_GAP))
+        print(f"  (b) {k}: update {g['mesh']:.3e} of the f32 step's rms (one device "
+              f"{g['one']:.3e}; against the one-device bf16 step {g['mesh_vs_bf16']:.3e}), "
+              f"momentum {g['mom_mesh']:.3e} (one device {g['mom_one']:.3e}); columns held "
+              f"{g['held']:.3f}, ranks {ranks_k}")
+    losses = [s["loss"] for s in full[0]["steps"]]
+    loss_ok = abs(losses[0] - f32_loss) <= max(BF16_RATIO * abs(step1["loss"] - f32_loss),
+                                               1e-5 * abs(f32_loss))
+    check(ok and loss_ok,
+          f"(b) olmo-1b, 16 x 2048 on 1x4: step 1 (loss {losses[0]:.4f}, one device "
+          f"{step1['loss']:.4f} bf16 / {f32_loss:.4f} f32), its update (over the columns the "
+          f"f32 momentum determines) and momentum, leaf by leaf, within {BF16_RATIO}x the "
+          "one-device bf16 step's distance to the one-device f32 step")
+    bad = replicas_differ([r["digests"] for r in full])
+    n_rep = len(full[0]["digests"][0])
+    check(not bad, f"(b) replicated blocks bitwise equal across the 4 ranks after every step "
+                   f"({n_rep} replicated leaves: the rules shard every olmo-1b leaf over "
+                   f"'model' at 1x4); other bits: {bad}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    for i in range(MESH_FULL_STEPS):
+        walls = [r["steps"][i]["wall_s"] for r in full]
+        b3 = [r["steps"][i]["launches"]["panel_factor"] for r in full]
+        b4 = [r["steps"][i]["launches"]["apply_factors"] for r in full]
+        used = max(r["steps"][i]["card_used"] for r in full)
+        rec["steps"].append({"wall_s": max(walls), "B3": b3, "B4": b4, "card_used": used,
+                             "fwd_bwd_ms": [r["steps"][i].get("fwd_bwd_ms") for r in full],
+                             "opt_ms": [r["steps"][i].get("opt_ms") for r in full]})
+        fb, op = rec["steps"][-1]["fwd_bwd_ms"], rec["steps"][-1]["opt_ms"]
+        print(f"  (b) step {i + 1}: loss {losses[i]:.4f}, wall {max(walls):.2f} s (ranks "
+              f"{', '.join(f'{w:.2f}' for w in walls)}), {tokens / max(walls):.1f} tok/s; a "
+              f"rank's forward+backward {min(fb):.0f}-{max(fb):.0f} ms and optimizer "
+              f"{min(op):.0f}-{max(op):.0f} ms between its CUDA events (the card runs the "
+              f"other ranks' work between them too); B3 {b3}, B4 {b4} a rank; card memory in "
+              f"use {used / 2**30:.2f} GiB ({card})")
+        check(min(b3) > 0 and min(b4) > 0, f"(b) step {i + 1}: every rank launched B3 and B4")
+    steady = [s["wall_s"] for s in rec["steps"][1:]]
+    rec["s_step"] = sum(steady) / len(steady)
+    rec["tok_s"] = tokens / rec["s_step"]
+    rec["peak_gib"] = [r["peak_bytes"] / 2**30 for r in full]
+    rec["card_peak_gib"] = max(s["card_used"] for s in rec["steps"]) / 2**30
+    rec["init_s"] = [r["init_s"] for r in full]
+    rec["losses"] = losses
+    out["full"] = rec
+    print(f"  (b) olmo-1b on 1x4: {rec['s_step']:.2f} s/step over steps 2-{MESH_FULL_STEPS}, "
+          f"{rec['tok_s']:.1f} tok/s; peak allocated a rank "
+          f"{', '.join(f'{x:.2f}' for x in rec['peak_gib'])} GiB, the card's memory in use "
+          f"{rec['card_peak_gib']:.2f} GiB at most; {out['wall_s']['b']:.1f} s wall ({card})")
+    check(all(np.isfinite(losses)), f"(b) {MESH_FULL_STEPS} finite losses {losses}")
+
+    # (e) the shapes this phase launched B3/B4 at that earlier phases did not hold
+    t0 = time.perf_counter()
+    new = {k: out["shapes"][k] - held[k] for k in kernels}
+    out["recheck_worst"] = recheck_shapes(new, gen)
+    print(f"  (e) {sum(len(s) for s in new.values())} (shape, dtype) launches held now "
+          f"({time.perf_counter() - t0:.1f} s); worst errors {out['recheck_worst']}")
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 13 wall {out['wall_s']['phase']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -2406,10 +3039,17 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 12
     phase("12. LM training")
-    train = train_phase(kernels, card, gen, recorded)
+    step1 = {}
+    train = train_phase(kernels, card, gen, recorded, step1)
 
     # ------------------------------------------------------------ phase 13
-    phase("13. summary")
+    phase("13. LM training on a mesh")
+    mesh = mesh_phase(kernels, card, gen,
+                      {k: recorded[k] | train["shapes"][k] for k in kernels}, step1)
+    del step1
+
+    # ------------------------------------------------------------ phase 14
+    phase("14. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -2431,9 +3071,10 @@ def main() -> int:
             "launches": (serve_launches[name] + dense_launches[name]
                          + inst["launches"][name] + resil["launches"][name]
                          + shard["launches"][name] + dist_out["launches"][name]
-                         + train["launches"][name]),
+                         + train["launches"][name] + mesh["launches"][name]),
             "max_abs_err": max(worst[name], recheck_worst[name],
-                               train["recheck_worst"].get(name, 0.0)),
+                               train["recheck_worst"].get(name, 0.0),
+                               mesh["recheck_worst"].get(name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": list(headline[name][1]), "dtype": headline[name][2],
@@ -2450,6 +3091,7 @@ def main() -> int:
     print(f"  phase 9: {json.dumps({k: v for k, v in dist_out.items() if k != 'shapes'})}")
     print(f"  phase 11: {json.dumps(lm)}")
     print(f"  phase 12: {json.dumps({k: v for k, v in train.items() if k != 'shapes'})}")
+    print(f"  phase 13: {json.dumps({k: v for k, v in mesh.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

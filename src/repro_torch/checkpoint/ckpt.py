@@ -15,6 +15,12 @@
   rank of the default process group keeps its contiguous block of a sharded
   leaf — the shard ``jax.device_put(arr, NamedSharding(mesh, P(...)))`` gives
   device r — as a plain tensor, so a job resumes on another number of ranks.
+  A ``(DeviceMesh, placements)`` leaf of ``shardings`` (the counterpart of a
+  ``NamedSharding``) gives a ``DTensor`` holding this rank's block.
+* a ``DTensor`` leaf is saved as its global array: every rank gathers it
+  (``full_tensor``), rank 0 writes, and all ranks meet at a barrier of the
+  default process group after the publish, so a snapshot taken on a mesh
+  restores on any other mesh, without one, and in the JAX package.
 """
 from __future__ import annotations
 
@@ -62,7 +68,17 @@ def _rebuild(tree, leaves):
     return next(leaves)
 
 
+def _is_dtensor(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host(leaf) -> np.ndarray:
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -73,13 +89,28 @@ def _flatten(tree) -> dict:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
+    """Publish ``tree`` as ``<ckpt_dir>/step_<step>``; returns its path.  A
+    tree with ``DTensor`` leaves is a collective of the default process
+    group: call it on every rank."""
+    if any(_is_dtensor(leaf) for _, leaf in _walk(tree)):
+        import torch.distributed as dist
+
+        flat = _flatten(tree)  # every rank takes part in each gather
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            _publish(ckpt_dir, step, flat, extra)
+        dist.barrier()
+        return final
+    return _publish(ckpt_dir, step, _flatten(tree), extra)
+
+
+def _publish(ckpt_dir: str, step: int, flat: dict, extra: dict | None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = _flatten(tree)
     np.savez(os.path.join(tmp, "leaves.npz"), **flat)
     manifest = {"step": step, "keys": sorted(flat), "extra": extra or {}}
     mpath = os.path.join(tmp, "manifest.json")
@@ -109,7 +140,9 @@ def _placements(like, shardings):
     ``shardings`` at the same path, or the placement (``None`` replicates)
     that ``shardings`` holds over the subtree around it."""
     tree = (tuple, list, dict)
-    if not (isinstance(like, tree) and isinstance(shardings, tree)):
+    on_mesh = (isinstance(shardings, tuple) and len(shardings) == 2
+               and hasattr(shardings[0], "mesh_dim_names"))
+    if on_mesh or not (isinstance(like, tree) and isinstance(shardings, tree)):
         yield from (shardings for _ in _walk(like))
     elif isinstance(like, dict):
         for k in sorted(like):
@@ -117,6 +150,20 @@ def _placements(like, shardings):
     else:
         for v, s in zip(like, shardings, strict=True):
             yield from _placements(v, s)
+
+
+def _mesh_block(arr: np.ndarray, mesh, places) -> np.ndarray:
+    """This rank's block of ``arr`` on ``mesh`` under ``places`` (one
+    placement a mesh dimension): each ``Shard(d)`` splits dimension d
+    evenly, the mesh's earlier dimensions major, as ``DTensor`` does."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    for i, p in enumerate(places):
+        if isinstance(p, Shard):
+            arr = _local_block(arr, p, mesh.size(i), mesh.get_local_rank(i))
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"restore: unsupported placement {p!r}")
+    return arr
 
 
 def _local_block(arr: np.ndarray, placement, world: int, rank: int) -> np.ndarray:
@@ -144,6 +191,8 @@ def restore(ckpt_dir: str, step: int, like, shardings=None):
     ``Shard(dim)``, ``Replicate()`` or ``None`` (replicated), over the default
     process group: rank r gets the r-th contiguous block of a sharded leaf's
     ``dim`` (``ValueError`` if it does not split evenly), as a plain tensor.
+    A leaf ``(mesh, placements)`` (a ``DeviceMesh`` and one placement a mesh
+    dimension) gives a ``DTensor`` of this rank's block instead.
     """
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -166,6 +215,14 @@ def restore(ckpt_dir: str, step: int, like, shardings=None):
     with np.load(os.path.join(path, "leaves.npz")) as data:
         out = []
         for (key, leaf), place in zip(pairs, places):
+            if isinstance(place, tuple):
+                from torch.distributed.tensor import DTensor
+
+                mesh, mplaces = place
+                local = torch.as_tensor(_mesh_block(data[key], mesh, mplaces)).to(
+                    device=leaf.device, dtype=leaf.dtype)
+                out.append(DTensor.from_local(local, mesh, mplaces, run_check=False))
+                continue
             arr = _local_block(data[key], place, world, rank)
             if isinstance(leaf, torch.Tensor):
                 out.append(torch.as_tensor(arr).to(device=leaf.device, dtype=leaf.dtype))

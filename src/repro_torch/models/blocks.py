@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import mesh_ops
 from .config import ArchConfig
 
 _F32 = torch.float32
@@ -119,6 +120,7 @@ def init_attention(gen, cfg: ArchConfig, lead=(), device=None):
     }
 
 
+@mesh_ops.headwise
 def _chunked_causal_attention(q, k, v, window: Optional[int], chunk: int):
     """Flash-style chunked attention: a loop over KV chunks, online softmax.
 
@@ -160,11 +162,10 @@ def _chunked_causal_attention(q, k, v, window: Optional[int], chunk: int):
 
 
 def _qkv(params, x, cfg: ArchConfig):
-    B, S, _ = x.shape
     hd, cdt = cfg.head_dim, cfg.cdt
-    q = (x @ params["wq"].to(cdt)).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ params["wk"].to(cdt)).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"].to(cdt)).reshape(B, S, cfg.n_kv_heads, hd)
+    q = mesh_ops.split_heads(x @ params["wq"].to(cdt), cfg.n_heads, hd)
+    k = mesh_ops.split_heads(x @ params["wk"].to(cdt), cfg.n_kv_heads, hd)
+    v = mesh_ops.split_heads(x @ params["wv"].to(cdt), cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -303,6 +304,7 @@ def moe_route(router, x, cfg: ArchConfig, Cg: int):
     return gates, flat_ids, pos, pos < Cg
 
 
+@mesh_ops.replicated
 def moe_fwd(params, h, cfg: ArchConfig):
     """Top-k routed experts, GShard-style grouped capacity dispatch.
 

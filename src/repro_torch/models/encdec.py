@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from . import blocks
+from . import blocks, mesh_ops
 from .blocks import _normal
 from .config import ArchConfig
 from .transformer import at, chunked_xent, embed_tokens, unstack
@@ -41,16 +41,22 @@ def init_encdec(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
     }
 
 
+@mesh_ops.headwise
+def _softmax_attend(q, k, v):
+    """Unmasked softmax attention of q (B, S, H, hd) over k, v (B, T, Hkv,
+    hd), in float32: (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qf = (q * hd ** -0.5).to(_F32).reshape(B, S, Hkv, H // Hkv, hd)
+    p = torch.softmax(torch.einsum("bshgd,bthd->bshgt", qf, k.to(_F32)), dim=-1)
+    return torch.einsum("bshgt,bthd->bshgd", p, v.to(_F32)).reshape(B, S, H, hd)
+
+
 def _attend(params, q, k, v, cfg: ArchConfig):
     """Unmasked softmax attention of q (B, S, H, hd) over k, v (B, T, Hkv,
     hd), then the output projection."""
     B, S = q.shape[:2]
-    hd = cfg.head_dim
-    G = cfg.n_heads // cfg.n_kv_heads
-    qf = (q * hd ** -0.5).to(_F32).reshape(B, S, cfg.n_kv_heads, G, hd)
-    p = torch.softmax(torch.einsum("bshgd,bthd->bshgt", qf, k.to(_F32)), dim=-1)
-    o = torch.einsum("bshgt,bthd->bshgd", p, v.to(_F32))
-    o = o.reshape(B, S, -1).to(cfg.cdt)
+    o = _softmax_attend(q, k, v).reshape(B, S, -1).to(cfg.cdt)
     return o @ params["wo"].to(cfg.cdt)
 
 
@@ -66,16 +72,15 @@ def _bidir_attention(params, h, cfg: ArchConfig):
 
 
 def _cross_kv(params, enc_out, cfg: ArchConfig):
-    B, Se, _ = enc_out.shape
     e = enc_out.to(cfg.cdt)
-    k = (e @ params["wk"].to(cfg.cdt)).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
-    v = (e @ params["wv"].to(cfg.cdt)).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    k = mesh_ops.split_heads(e @ params["wk"].to(cfg.cdt), cfg.n_kv_heads, cfg.head_dim)
+    v = mesh_ops.split_heads(e @ params["wv"].to(cfg.cdt), cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
 def cross_attention(params, h, enc_out, cfg: ArchConfig):
-    B, S, _ = h.shape
-    q = (h.to(cfg.cdt) @ params["wq"].to(cfg.cdt)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = mesh_ops.split_heads(h.to(cfg.cdt) @ params["wq"].to(cfg.cdt), cfg.n_heads,
+                             cfg.head_dim)
     k, v = _cross_kv(params, enc_out, cfg)
     return _attend(params, q, k, v, cfg).to(h.dtype)
 

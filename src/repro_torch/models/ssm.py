@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import mesh_ops
 from .blocks import _normal
 from .config import ArchConfig
 
@@ -97,6 +98,7 @@ def init_mamba2(gen, cfg: ArchConfig, lead=(), device=None):
     }
 
 
+@mesh_ops.replicated
 def mamba2_fwd(params, h, cfg: ArchConfig, conv_state=None, ssm_state=None, decode=False):
     """Mamba2 SSD block.  Prefill runs chunked_gla; decode is O(1) with conv
     state (B, K-1, di) and recurrent state (B, H, N, hd)."""
@@ -160,6 +162,7 @@ def _mlstm_out(params, o, cfg: ArchConfig):
     return (F.silu(a) * b) @ params["wdown"].to(cdt)
 
 
+@mesh_ops.replicated
 def mlstm_fwd(params, h, cfg: ArchConfig, state=None, decode=False):
     """mLSTM: matrix-memory LSTM == GLA with sigmoid forget / exp input gate.
 
@@ -207,6 +210,7 @@ def init_slstm(gen, cfg: ArchConfig, lead=(), device=None):
     }
 
 
+@mesh_ops.replicated
 def slstm_fwd(params, h, cfg: ArchConfig, state=None, decode=False):
     """sLSTM: scalar-memory LSTM with recurrence — a true sequential loop.
     Decode state: (2, B, d), the stacked (h, c)."""

@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-from . import blocks, ssm
+from . import blocks, mesh_ops, ssm
 from .blocks import _normal
 from .config import ArchConfig
 
@@ -42,7 +42,7 @@ def unstack(tree, n: int) -> list:
     if isinstance(tree, dict):
         parts = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    return torch.unbind(tree)
+    return torch.unbind(mesh_ops.unsharded(tree, 0))
 
 
 def compute_copy(params, cfg: ArchConfig):
@@ -181,8 +181,11 @@ def embed_tokens(params, tokens, cfg: ArchConfig):
     gradient to take, gathers the rows, then casts them: the reference's
     cast-then-gather bits without casting the whole table.  With one, casts
     the table first as the reference does, so that repeated tokens' row
-    gradients sum in the compute dtype as the reference's do."""
+    gradients sum in the compute dtype as the reference's do.  A table
+    sharded over a mesh is looked up vocab-parallel (``mesh_ops``)."""
     e = params["embed"]
+    if mesh_ops.is_dtensor(e):
+        return mesh_ops.vocab_parallel_lookup(e.to(cfg.cdt), tokens)
     if torch.is_grad_enabled() and e.requires_grad:
         return e.to(cfg.cdt)[tokens]
     return e[tokens].to(cfg.cdt)
@@ -212,15 +215,20 @@ def chunked_xent(params, h, labels, cfg: ArchConfig, chunk: int = 512):
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(cfg.cdt)
 
     def chunk_loss(hx, lx):
-        logits = (hx.to(cfg.cdt) @ w).to(_F32)  # (B, C, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
-        return (lse - gold).sum()
+        return _xent_sum((hx.to(cfg.cdt) @ w).to(_F32), lx)  # logits (B, C, V)
 
     total = torch.zeros((), dtype=_F32, device=h.device)
     for c0 in range(0, S, C):
         total = total + blocks.checkpointed(chunk_loss, h[:, c0:c0 + C], labels[:, c0:c0 + C])
     return total / (B * S)
+
+
+@mesh_ops.batchwise_sum
+def _xent_sum(logits, labels):
+    """Summed cross-entropy of ``logits`` (B, C, V) against ``labels`` (B, C)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).sum()
 
 
 def lm_loss(params, batch, cfg: ArchConfig):

@@ -23,6 +23,7 @@ def tree_map(fn, tree, *rest, n_out: int = 1):
 
 
 def zeros_f32(tree):
-    """An f32 zero tensor beside each leaf of ``tree``, on its device."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), tree)
+    """An f32 zero tensor beside each leaf of ``tree``, on its device (a
+    ``DTensor`` leaf's with its placements)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                               memory_format=torch.contiguous_format), tree)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.blocked import ggr_triangularize_blocked
+from repro_torch.models import mesh_ops
 
 from ._tree import tree_map, zeros_f32
 
@@ -53,7 +54,20 @@ def _orthogonalize_2d(m: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
 
 def _orthogonalize(m: torch.Tensor) -> torch.Tensor:
     """``_orthogonalize_2d`` of every matrix of ``m`` (its last two
-    dimensions), the leading dimensions folded into one batch."""
+    dimensions), the leading dimensions folded into one batch.
+
+    A sharded ``m`` (a ``DTensor`` on a mesh) is orthogonalized whole on
+    every rank, as GSPMD runs a kernel that has no sharding rule: each rank
+    gathers it (``full_tensor``), runs the same QR on the same bits, and
+    keeps its own block of the direction, so every rank's copy of a
+    replicated block is the same."""
+    if mesh_ops.is_dtensor(m):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = m.device_mesh
+        q = DTensor.from_local(_orthogonalize(m.full_tensor()), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+        return q.redistribute(mesh, m.placements)
     return _orthogonalize_2d(m.reshape(-1, *m.shape[-2:])).reshape(m.shape)
 
 

@@ -100,7 +100,7 @@ def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
     return momentum_readings(M, faults)["directions"]
 
 
-def momentum_readings(M: torch.Tensor, faults: bool = False) -> dict:
+def momentum_readings(M: torch.Tensor, faults: bool = False, plain: bool = True) -> dict:
     """``direction_readings`` under "directions"; under "gram" each R's
     backward error, ||RᵀR - MᵀM||_F / ||M||_F² of the scaled tall matrix
     ((B,) under "kernels", "plain" and "cusolver"); under "columns" the
@@ -117,7 +117,9 @@ def momentum_readings(M: torch.Tensor, faults: bool = False) -> dict:
     one's).  With ``faults``, the same two readings of two faulty
     directions under "flipped" (the kernels' with its first column's sign
     flipped) and "half" (from the R of the matrix rounded to float16), and
-    "half" under "gram"."""
+    "half" under "gram".  ``plain=False`` leaves out the plain versions'
+    readings of a non-square matrix (the plain driver's R is slow at
+    olmo-1b's widths, and only a square matrix's last sign needs it)."""
     from repro_torch.core.blocked import ggr_triangularize_blocked
     from repro_torch.optim import orthant
 
@@ -154,10 +156,12 @@ def momentum_readings(M: torch.Tensor, faults: bool = False) -> dict:
     Q = orthant._orthogonalize(M)
     Q, R = (Q if M.shape[-2] >= M.shape[-1] else Q.mT), r_factor(mf)
     out = {"kernels": read(Q, R), "cusolver": read(formula(R_lib, mf), R_lib)}
-    with plain_driver():
-        R_plain = r_factor(mf)
-    out["plain"] = read(formula(R_plain, mf), R_plain)
-    grams = {"kernels": gram(R), "plain": gram(R_plain), "cusolver": gram(R_lib)}
+    grams = {"kernels": gram(R), "cusolver": gram(R_lib)}
+    if plain or mf.shape[-2] == n:
+        with plain_driver():
+            R_plain = r_factor(mf)
+        out["plain"] = read(formula(R_plain, mf), R_plain)
+        grams["plain"] = gram(R_plain)
 
     # the float64 reference and each column's condition number
     m64 = mf.double()

@@ -3,7 +3,7 @@ or the port's on another device): each leaf's update (p0 - p1) / lr and
 each state leaf compared relative to its own rms, over the elements the
 step's inputs determine.
 
-    from repro_torch.testing.step_check import rms_gap, update_of
+    from repro_torch.testing.step_check import rms_gap, step_gaps, update_of
 
 Two runs whose gradients agree to roundoff still disagree, by O(1) of an
 update, where a first step amplifies roundoff:
@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["leading_columns", "off_ties", "rms_gap", "sign_determined", "update_of"]
+__all__ = ["leading_columns", "off_ties", "rms_gap", "sign_determined", "step_gaps",
+           "update_of"]
 
 
 def update_of(p0, p1, lr: float) -> np.ndarray:
@@ -85,3 +86,36 @@ def leading_columns(m, rel: float = 1e-5) -> tuple[np.ndarray, list[int]]:
         else:
             mask[i, :r, :] = True
     return mask.reshape(m.shape), ranks
+
+
+def step_gaps(p0: dict, got: tuple, want: tuple, lr: float, optimizer: str) -> dict:
+    """Optimizer steps from parameters ``p0`` ({leaf: array}) to ``got`` and
+    to ``want``, each a pair of dicts (params by leaf, optimizer state by
+    its flattened path: ``.m/<leaf>``, ``.momentum/<leaf>``, ``.step``...).
+    The worst leaf's update gap ``rms_gap(update_of(p0, got), update_of(p0,
+    want))`` over the elements ``want`` determines (AdamW: its first moment
+    ``sign_determined``; Orthant: a matrix's ``leading_columns`` of its
+    momentum, a vector's momentum ``sign_determined``), and the worst state
+    leaf's gap over every element, each as (leaf, gap); ``span``, the
+    largest update difference over every element in units of lr;
+    ``masked``, the largest share of a leaf masked; and the two steps'
+    ``.step`` counts."""
+    (gp, gs), (wp, ws) = got, want
+    if sorted(gp) != sorted(wp) or sorted(gs) != sorted(ws):
+        raise ValueError("step_gaps: the two steps' trees differ")
+    first = ".m/" if optimizer == "adamw" else ".momentum/"
+    masks = {}
+    for k, p in p0.items():
+        p = np.asarray(p)
+        if optimizer == "orthant" and p.ndim >= 2 and min(p.shape[-2:]) > 1:
+            masks[k] = leading_columns(ws[".momentum/" + k])[0]
+        else:
+            masks[k] = sign_determined(ws[first + k])
+    update = {k: rms_gap(update_of(p0[k], gp[k], lr), update_of(p0[k], wp[k], lr), masks[k])
+              for k in wp}
+    state = {k: rms_gap(gs[k], ws[k]) for k in ws if not k.endswith(".step")}
+    return {"update": max(update.items(), key=lambda kv: kv[1]),
+            "state": max(state.items(), key=lambda kv: kv[1]),
+            "span": max(float(np.abs(update_of(gp[k], wp[k], lr)).max()) for k in wp),
+            "masked": max(1 - float(m.mean()) for m in masks.values()),
+            "steps": (int(gs[".step"]), int(ws[".step"]))}

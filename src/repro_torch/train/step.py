@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.checkpoint.ckpt import _rebuild, _walk
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import mesh_ops
 from repro_torch.models import transformer as tmod
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import compress as compress_mod
@@ -32,11 +33,18 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
 def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
     """(loss, grads): ``loss_fn(params, batch)`` detached and its gradient
     with respect to every leaf of ``params`` (zeros for a leaf the loss does
-    not read, as ``jax.value_and_grad`` gives), a tree shaped like it."""
+    not read, as ``jax.value_and_grad`` gives), a tree shaped like it.
+
+    On ``DTensor`` parameters (a mesh) the loss comes back whole, and each
+    leaf's gradient in its parameter's placements: the sums the sharded
+    forward pass left partial (the data-parallel all-reduce) are taken here,
+    before any update reads them."""
     live = [p.detach().requires_grad_() for _, p in _walk(params)]
     with torch.enable_grad():
-        loss = loss_fn(_rebuild(params, iter(live)), batch)
+        loss = mesh_ops.whole(loss_fn(_rebuild(params, iter(live)), batch))
         grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+    grads = [g.redistribute(p.device_mesh, p.placements) if mesh_ops.is_dtensor(g) else g
+             for g, p in zip(grads, live)]
     return loss.detach(), _rebuild(params, iter(grads))
 
 

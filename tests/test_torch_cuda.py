@@ -825,3 +825,65 @@ def test_trainer_resumes_bitwise_on_the_card(card, tmp_path):
         for k, x in _leaves(a).items():
             assert torch.equal(x, b[k]), k
     assert all(t["fwd_bwd_ms"] > 0 and t["opt_ms"] > 0 for t in again.step_times)
+
+
+def _mesh_rank(shape, optimizer: str, steps: int) -> dict:
+    """On a rank of a (data, model) mesh on cuda:0: smoke olmo-1b trained
+    ``steps`` steps on 256 uniform tokens a step (float32 compute for a mesh
+    of several ranks, the config's bfloat16 on 1x1) beside the one-device
+    Trainer on this rank; each run's state after each step as global arrays
+    on the host, and the mesh run's B3/B4 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.testing.lm_check import no_drop_f32
+    from repro_torch.testing.mesh_check import UniformBatches, flat_global
+    from repro_torch.train import Trainer
+
+    torch.cuda.set_device(0)
+    cfg = get_config("olmo-1b", smoke=True)
+    cfg = cfg if shape == (1, 1) else no_drop_f32(cfg)
+    kw = dict(optimizer=optimizer, seq_len=32, global_batch=8, lr=1e-3)
+    out = {}
+    n0 = ggr_apply.apply_factors.launches
+    for name, mesh in (("mesh", make_debug_mesh(*shape)), ("one", None)):
+        tr = Trainer(cfg, mesh=mesh, **kw)
+        tr.data = UniformBatches(cfg.vocab, 32, 8)
+        out[name] = {"p0": flat_global(tr.params), "states": {}, "losses": []}
+        for step in range(1, steps + 1):
+            out[name]["losses"] += tr.run(step)
+            out[name]["states"][step] = flat_global({"params": tr.params, "opt": tr.opt_state})
+        if name == "mesh":
+            out["launches"] = ggr_apply.apply_factors.launches - n0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adamw", "orthant"])
+def test_a_1x1_nccl_mesh_is_bitwise_the_one_device_trainer(card, optimizer):
+    """One NCCL rank: the mesh Trainer's losses and every leaf of its state
+    after each step have the one-device Trainer's bits."""
+    from repro_torch.testing.spawn import spawn_ranks
+
+    res = spawn_ranks(_mesh_rank, 1, (1, 1), optimizer, 2, backend="nccl", timeout_s=300)[0]
+    assert res["mesh"]["losses"] == res["one"]["losses"]
+    for step in (1, 2):
+        got, want = res["mesh"]["states"][step], res["one"]["states"][step]
+        assert sorted(got) == sorted(want)
+        assert [k for k in want if not np.array_equal(got[k], want[k])] == [], step
+    assert (res["launches"] > 0) == (optimizer == "orthant")
+
+
+@pytest.mark.gpu
+def test_a_2x2_gloo_mesh_on_the_card_matches_one_device(card):
+    """Four gloo ranks share cuda:0 (their all-gathers through
+    ``parallel.collectives``): an Orthant step within the one-step rule of
+    the one-device step, B3/B4 launched on every rank."""
+    from repro_torch.testing.mesh_check import held_per_step
+    from repro_torch.testing.spawn import spawn_ranks
+
+    ranks = spawn_ranks(_mesh_rank, 4, (2, 2), "orthant", 1, timeout_s=600)
+    assert all(r["launches"] > 0 for r in ranks)
+    mesh, one = ranks[0]["mesh"], ranks[0]["one"]
+    for step, r in held_per_step(one["p0"], mesh["states"], one["states"], 1e-3, "orthant"):
+        assert r["update"][1] <= 1e-4 and r["state"][1] <= 1e-4, (step, r)
+    assert np.allclose(mesh["losses"], one["losses"], rtol=1e-5)

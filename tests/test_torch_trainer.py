@@ -164,9 +164,14 @@ def test_cross_package_resume(first, tmp_path):
 
 
 def test_mesh_and_int8_ef_are_not_ported():
+    """A mesh needs its ranks (``tests/test_torch_mesh_train.py`` trains on
+    them); ``grad_compression="int8_ef"`` still raises, as the reference's
+    Trainer cannot run it."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
     cfg = cfgs()[1]
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks.*no process group"):
+        Trainer(cfg, mesh=make_debug_mesh(2, 1, device_type="cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match="4-argument step"):
         Trainer(cfg, grad_compression="int8_ef", device="cpu")
 
@@ -190,8 +195,9 @@ def test_cli_trains_on_the_cpu():
     assert " s/step, " in lines[-2] and "tok/s (batch 2 x 16, adamw, CPU)" in lines[-2], lines
 
 
-@pytest.mark.parametrize("args,says", [((), "CUDA"), (("--mesh", "2x1"), "A9"),
-                                       (("--mesh", "prod"), "A9"),
+@pytest.mark.parametrize("args,says", [((), "CUDA"),
+                                       (("--device", "cpu", "--mesh", "16x16"), "needs 256 ranks"),
+                                       (("--device", "cpu", "--mesh", "prod2"), "needs 512 ranks"),
                                        (("--device", "cpu", "--grad-compression", "int8_ef"),
                                         "4-argument step")])
 def test_cli_refuses_what_it_cannot_run(args, says, capsys):

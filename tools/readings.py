@@ -3,6 +3,7 @@
 inputs, on the card: the readings behind ``chip_smoke.rel_bound``.
 
     python3 tools/readings.py [--draws N]      # from the root of a checkout
+    python3 tools/readings.py --case panel_factor:8x256x64 --draws 300
 
 For every phase-3 case of ``chip_smoke.py`` (kernel, shape, dtype) it draws
 N fresh inputs (generator seeds 1..N) and prints the worst and the median of
@@ -15,7 +16,12 @@ index, the condition number of its pivot columns, its smallest pivot that
 sets a rotation (|R[c, c]| over the 2-norm of the pivot columns, c before
 the last row), both f32 readings on that tile, and how far the f64 result
 moves when that tile moves by f32's rounding (2^-24 relative, worst of 3).
-Imports nothing of the JAX package.
+``--case NAME:BxMxW[:PARAM]`` reads one f32 case instead (PARAM: the
+pivot count, pivot0, or b,pivot0 for apply_factors; default 0): over N
+draws, each output's max|err| / rms against the plain version run in f64,
+for the kernel and for the f32 plain version, as median / 90th percentile /
+worst and the draws over the case's bound — the distributions
+``KernelCase.against_draws`` compares.  Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ def tile_note(tile, n_piv: int, plain, rms64: float) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--draws", type=int, default=8)
+    ap.add_argument("--case", default=None, help="NAME:BxMxW[:PARAM], one f32 case")
     args = ap.parse_args()
     import torch
 
@@ -67,6 +74,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
+    if args.case:
+        return read_case(args.case, args.draws)
     for name, shape, param, dname, *data in chip_smoke.PHASE3:
         dtype = getattr(torch, dname)
         rels, own, own_plain, worst = [], [], [], None
@@ -97,6 +106,42 @@ def main() -> int:
                   f"{kern:.2e}, plain f32 {pl:.2e}): "
                   f"{tile_note(tile, param, plain[name], rms64)}", flush=True)
     chip_smoke.FAILURES.clear()  # a reading over its bound is printed, not failed
+    return 0
+
+
+def read_case(spec: str, draws: int) -> int:
+    """``--case``: one f32 case's kernel and f32 plain readings against f64."""
+    import torch
+
+    import chip_smoke
+
+    name, dims, *rest = spec.split(":")
+    shape = tuple(int(v) for v in dims.split("x"))
+    param = tuple(int(v) for v in rest[0].split(",")) if rest else 0
+    param = param[0] if isinstance(param, tuple) and len(param) == 1 else param
+    if name == "apply_factors" and not rest:
+        param = (64, 0)
+    kern, plain = [], []
+    for seed in range(1, draws + 1):
+        case = chip_smoke.KernelCase(name, shape, param, torch.float32,
+                                     torch.Generator(device="cuda").manual_seed(seed))
+        outs, refs, ref64 = (chip_smoke._as_outputs(f()) for f in (case.kernel, case.plain,
+                                                                   case.plain64))
+        rms = [float(r.square().mean().sqrt()) or 1.0 for r in ref64]
+        kern.append([float((o.double() - r).abs().max()) / m for o, r, m in zip(outs, ref64, rms)])
+        plain.append([float((o.double() - r).abs().max()) / m for o, r, m in zip(refs, ref64, rms)])
+    kern, plain = torch.tensor(kern).double(), torch.tensor(plain).double()
+    qs = torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)
+    print(f"  {case.label()} over {draws} draws, against the f64 plain version; bound "
+          f"{case.rel_tol:.1e}")
+    for j in range(kern.shape[1]):
+        for who, t in (("kernel", kern[:, j]), ("f32 plain", plain[:, j])):
+            q = torch.quantile(t, qs)
+            print(f"    output {j} {who}: median {q[0]:.2e}, q90 {q[1]:.2e}, worst {q[2]:.2e}; "
+                  f"{int((t > case.rel_tol).sum())} of {draws} draws over the bound")
+    ok, note = case.against_draws()
+    print(f"    against_draws: {'holds' if ok else 'fails'}{note}")
+    chip_smoke.FAILURES.clear()
     return 0
 
 
