@@ -20,7 +20,16 @@ Drives the port's main path on the card and checks it, phase by phase:
    plain version and the library call that computes the same function (for
    apply_factors ``torch.ormqr`` with ``torch.geqrf``'s factors of the same
    panel: the same work in Householder's basis, timed only); panel_factor
-   and apply_factors also run at a 65536-row frame;
+   and apply_factors also run at a 65536-row frame; the f32 / f64 times are
+   printed beside PERF.md's table (``TABLE_MS``).  Each kernel also runs
+   with bf16 and with f16 tiles and f32 accumulation at the main path's
+   shapes (``MIXED_SHAPES``) on well-conditioned data, held against the
+   plain version at the same pair by its own ``REL`` entry (all-zero batch
+   and [0 | I] tiles bitwise as above) and for rounding its state at every
+   step: each output's error from the exact result (the plain version in
+   f64) within ``kernel_check.ROUNDING`` of the plain version's, where the
+   f32 plain version rounded once, run through the same comparison as a
+   control, must fail; the library call timed in f32 on the same inputs;
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
@@ -168,8 +177,28 @@ Drives the port's main path on the card and checks it, phase by phase:
    hold; (f) ``launch.train --smoke --mesh 2x2 --steps 3`` exits 0 naming
    gloo, ``--mesh 16x16`` / ``prod`` / ``prod2`` exit non-zero naming the
    ranks they need;
-14. a JSON line of per-kernel numbers, then the last line
-   ``{"ok": true, "device": {...}}``.
+14. mixed precision on the main path — (a) the 8192-request mix with every
+   append and kalman request's operands stored in bf16, served by
+   ``QRServer(device="cuda", precision="mixed_bf16")`` (a warm-up flush,
+   then a timed one, req/s beside phase 4's), then the same in f16 with
+   ``"mixed_f16"``: results at the storage dtype, each kind's results
+   within 8 eps(dtype) relative Frobenius of the f32 server's, B1 launched
+   at the pair; then the bf16 appends through ``QRServer(resilient=True,
+   precision="mixed_bf16")``: every provenance entry native after one
+   attempt and every result bitwise the plain mixed server's; (b)
+   ``fleet_nis(B=8, n=4, w=4, p=2, T=150, precision="bf16")`` on the card:
+   each mean NIS in (0.7 p, 1.3 p); (c) ``ggr_qr_blocked`` of phase 5's
+   4096^2 f32 matrix with ``precision="bf16"`` and ``"mixed_f16"`` under
+   ``"fused"`` and ``"tree"``: R at the tile dtype, B3/B4 (fused) and B2/B1
+   (tree) launched at the pair, ``factorization_errors`` within
+   ``error_budget`` wherever ``budget_is_meaningful`` (the gram residual
+   always), wall times beside phase 5's; (d) every (shape, pair) of (a)-(c)
+   held against the plain version, its rounding at every step included;
+   every launch of (a)-(c) at the run's
+   pair, and the phase's wall printed;
+15. a JSON line of per-kernel numbers (a row for each kernel's f32 / f64
+   instance, and one for each of its bf16 / f16 instances), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
 taken again against the plain version run in f64 on the same inputs
@@ -181,8 +210,9 @@ version's (the f32 algorithm's own errors have a heavy tail).
 
 Launch counts are set to 0 just before the serving run, the dense run,
 phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too), phase
-11, phase 12 (a), each training run of phase 12 (b)-(c), and in the ranks
-of phase 13 before each mesh run (each step in (b)), and read just after
+11, phase 12 (a), each training run of phase 12 (b)-(c), in the ranks
+of phase 13 before each mesh run (each step in (b)), and before each run
+of phase 14 (a)-(c), and read just after
 each; a route that does not launch its
 kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
@@ -200,17 +230,18 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
-# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.
+# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.  A bf16 / f16
+# tile's arithmetic runs in f32 (the kernels accumulate there), so its
+# operations bound is the f32 rate; only its bytes halve.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12, "float16": 67e12}
 # kernel vs plain version, each output on its own: its worst error over its
-# rms (so that one wrong row of a tall output shows) within rel_bound(), a
-# per-kernel, per-dtype constant (f32, f64) a few times the worst reading over
-# random inputs (tools/readings.py; PERF.md §6), grown where rounding grows
-# with the shape: the rows of a problem (B1, B2), the column steps an entry
-# sees (B3) or the square root of the rows a suffix dot runs over (B4)
-REL = {"batched_update": (7.5e-4, 1e-12), "batched_geqrt": (1e-3, 3e-12),
-       "panel_factor": (3e-4, 3e-12), "apply_factors": (2e-4, 3e-13)}
+# rms within rel_bound(), and for a bf16 / f16 tile with f32 sums its
+# distance from the exact result within kernel_check.ROUNDING of the plain
+# version's (the state rounded at every step), with the f32 plain version
+# rounded once as the control that must fail it: the table, the growth rule
+# and the mixed cases' data are repro_torch.testing.kernel_check's, which
+# the card tests share
 
 
 # an f32 case over its bound against the f64 plain version too is read over
@@ -223,16 +254,39 @@ def _as_outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def rel_bound(name: str, shape, dtype_name: str) -> float:
-    _, m, w = shape
-    grow = {"batched_update": m / 64, "batched_geqrt": m / 64,
-            "panel_factor": w / 64, "apply_factors": (m / 4096) ** 0.5}[name]
-    return REL[name][dtype_name == "float64"] * max(1.0, grow)
+def _fmt(values) -> str:
+    return ", ".join(f"{v:.2e}" for v in values)
 
 
 # the rule B1, B2 and B4 were held to before: 5e-5 f32 / 1e-11 f64 x
 # max(1, rows // 16) x max(1, max|out|), printed beside the new one
 OLD_TOL = {"float32": 5e-5, "float64": 1e-11}
+# phase 3's f32 / f64 times in PERF.md §6's kernel table (ms), printed beside
+# this run's: (kernel, shape, dtype, data) -> ms
+TABLE_MS = {
+    ("batched_update", (8192, 40, 33), "float32", "random"): 0.1939,
+    ("batched_update", (8192, 104, 65), "float32", "random"): 0.9552,
+    ("batched_update", (64, 128, 192), "float32", "random"): 0.1912,
+    ("batched_update", (64, 128, 192), "float64", "random"): 0.2909,
+    ("batched_update", (32, 128, 192), "float32", "random"): 0.1896,
+    ("batched_update", (1, 128, 192), "float32", "random"): 0.1889,
+    ("batched_geqrt", (128, 64, 128), "float32", "random"): 0.1176,
+    ("batched_geqrt", (128, 64, 128), "float64", "random"): 0.1624,
+    ("batched_geqrt", (64, 64, 128), "float32", "random"): 0.1184,
+    ("batched_geqrt", (64, 64, 128), "float32", "tree"): 0.1170,
+    ("batched_geqrt", (2, 64, 128), "float32", "random"): 0.1170,
+    ("batched_geqrt", (2, 64, 128), "float32", "tree"): 0.1168,
+    ("panel_factor", (1, 4096, 64), "float32", "random"): 0.6441,
+    ("panel_factor", (1, 8192, 64), "float32", "random"): 0.6879,
+    ("panel_factor", (1, 4096, 64), "float64", "random"): 0.7079,
+    ("panel_factor", (1, 4096, 32), "float32", "random"): 0.3151,
+    ("panel_factor", (1, 65536, 64), "float32", "random"): 1.3030,
+    ("apply_factors", (1, 4096, 4032), "float32", "random"): 0.9363,
+    ("apply_factors", (1, 8192, 964), "float32", "random"): 0.8778,
+    ("apply_factors", (1, 4096, 1024), "float64", "random"): 0.5748,
+    ("apply_factors", (1, 4096, 2048), "float32", "random"): 0.3236,
+    ("apply_factors", (1, 65536, 128), "float32", "random"): 7.1931,
+}
 # phase 3: (kernel, shape, param, dtype[, data]) at the main path's shapes;
 # data is "random" (randn) unless named: "tree" is batched_geqrt's tiles as
 # the tree schedule builds them (tree_tiles)
@@ -264,6 +318,24 @@ PHASE3 = [
     # a frame too tall for one column of it in shared memory
     ("apply_factors", (1, 65536, 128), (64, 0), "float32"),
 ]
+# phase 3's bf16 / f16 cases (f32 accumulation): the main path's shapes of
+# phase 14 (serving append and kalman, tree coupling; tree level 0 on random
+# and on the tree's own tiles; the fused QR and lstsq frames)
+MIXED_SHAPES = [
+    ("batched_update", (8192, 40, 33), 32),
+    ("batched_update", (8192, 104, 65), 64),
+    ("batched_update", (64, 128, 192), 64),
+    ("batched_geqrt", (128, 64, 128), 64),
+    ("batched_geqrt", (64, 64, 128), 64, "tree"),
+    ("batched_geqrt", (2, 64, 128), 64, "tree"),
+    ("panel_factor", (1, 4096, 64), 0),
+    ("panel_factor", (1, 8192, 64), 0),
+    ("apply_factors", (1, 4096, 4032), (64, 0)),
+    ("apply_factors", (1, 8192, 964), (64, 0)),
+]
+MIXED = ("bfloat16", "float16")
+PHASE3 += [(name, shape, param, dname, *data) for dname in MIXED
+           for name, shape, param, *data in MIXED_SHAPES]
 SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chunk
 FAILURES: list[str] = []
 # phase 6's sketch least squares: the tall system, its spectrum and the oracle
@@ -321,7 +393,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 # ----------------------------------------------------------- kernel models
 def _itemsize(dtype_name: str) -> int:
-    return 4 if dtype_name == "float32" else 8
+    return {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2}[dtype_name]
 
 
 def _sweep_flops(rows: int, cols: int) -> int:
@@ -366,13 +438,18 @@ def apply_flops(shape, b: int, pivot0: int) -> float:
                          for c in range(b) if pivot0 + c < m))
 
 
-def tree_tiles(B: int, b: int, gen, dtype):
+def tree_tiles(B: int, b: int, gen, dtype, conditioned: bool = False):
     """(B, b, 2b) tiles as the tree schedule hands them to batched_geqrt at
     a panel past its first: [pan | I], the second half [0 | I] (row tiles
-    past the matrix, zero in the panel's columns)."""
+    past the matrix, zero in the panel's columns); ``conditioned``: each pan
+    well conditioned (``kernel_check.condition_``)."""
     import torch
 
+    from repro_torch.testing.kernel_check import condition_
+
     pan = torch.randn((B, b, b), generator=gen, device="cuda", dtype=dtype)
+    if conditioned:
+        condition_(pan, "batched_geqrt", b)
     pan[B // 2:] = 0
     eye = torch.eye(b, device="cuda", dtype=dtype).expand(B, b, b)
     return torch.cat([pan, eye], 2).contiguous()
@@ -392,98 +469,150 @@ class KernelCase:
 
     ``param`` is ``n_piv`` for batched_update / batched_geqrt, ``pivot0`` for
     panel_factor (shape (B, m, b)) and ``(b, pivot0)`` for apply_factors
-    (shape of C, (B, m, w))."""
+    (shape of C, (B, m, w)).  ``accum``: the accumulation dtype's name
+    (default the tile dtype's, ``kernel_check.ACCUM``); a bf16 / f16 case
+    runs the kernel and the plain version at (tile, f32) on
+    ``kernel_check.condition_``-ed data, and its library call on the same
+    inputs in f32 (no library QR takes those tiles)."""
 
-    def __init__(self, name, shape, param, dtype, gen, data="random"):
+    def __init__(self, name, shape, param, dtype, gen, data="random", accum=None):
         import torch
 
         from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
+        from repro_torch.testing import kernel_check as kc
 
         self.name, self.shape, self.param, self.dtype = name, shape, param, dtype
         self.data = data
         self.note = ""
         self.fixed = None  # tiles that must come back bitwise as they were
         self.dname = str(dtype).removeprefix("torch.")
+        self.accum = accum or kc.ACCUM[self.dname]
+        self.mixed = self.accum != self.dname
+        # the kernel wrappers' policy: None (the tile dtype throughout) or the
+        # named mixed policy of the tile dtype, whose sums are f32
+        prec = self.dname if self.mixed else None
+        ad = self.accum if self.mixed else None
         size = _itemsize(self.dname)
+        csize = _itemsize(self.accum)  # the layout holds the sums' dtype
         B, m, w = shape
         x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
         if name == "batched_update":
             n_piv = param
             # the kernel's contract: the top n_piv rows are upper triangular
             x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
-            self.fn = lambda z: ggr_update.batched_update(z, n_piv)
-            self.plain = lambda: ggr_update.batched_update_plain(x, n_piv)
-            self.plain64 = lambda: ggr_update.batched_update_plain(x.double(), n_piv)
+            if self.mixed:
+                kc.condition_(x, name, n_piv)
+            self.fn = lambda z: ggr_update.batched_update(z, n_piv, precision=prec)
+            plain = lambda z, a=ad: ggr_update.batched_update_plain(z, n_piv, a)  # noqa: E731
             # R of the stacked matrix (same top n_piv rows up to signs; at the
             # tree-coupling shape it also triangularizes the riding columns)
-            self.library = lambda: torch.linalg.qr(x, mode="r")
+            self.library = lambda: torch.linalg.qr(self.lib_x, mode="r")
             self.flops = update_flops(shape, n_piv)
             self.nbytes = 2.0 * B * m * w * size
             self.note = (", layout (G, PB, ws, nbuf) "
-                         f"{ggr_update._update_layout(m, w, n_piv, size)}")
+                         f"{ggr_update._update_layout(m, w, n_piv, csize)}")
         elif name == "batched_geqrt":
             n_piv = param
             if data == "tree":
-                x = tree_tiles(B, m, gen, dtype)
+                x = tree_tiles(B, m, gen, dtype, conditioned=self.mixed)
                 self.fixed = slice(B // 2, B)
-            self.fn = lambda z: ggr_panel.batched_geqrt(z, n_piv)
-            self.plain = lambda: ggr_panel.batched_geqrt_plain(x, n_piv)
-            self.plain64 = lambda: ggr_panel.batched_geqrt_plain(x.double(), n_piv)
+            elif self.mixed:
+                kc.condition_(x, name, n_piv)
+            self.fn = lambda z: ggr_panel.batched_geqrt(z, n_piv, precision=prec)
+            plain = lambda z, a=ad: ggr_panel.batched_geqrt_plain(z, n_piv, a)  # noqa: E731
             # Q and R of the tile's pivot columns: [R | Qt] up to signs
-            self.library = lambda: torch.linalg.qr(x[:, :, :n_piv])
+            self.library = lambda: torch.linalg.qr(self.lib_x[:, :, :n_piv])
             self.flops = geqrt_flops(shape, n_piv)
             self.nbytes = 2.0 * B * m * w * size
-            self.note = f", layout (G, ws) {ggr_panel._geqrt_layout(m, w, size)}"
+            self.note = f", layout (G, ws) {ggr_panel._geqrt_layout(m, w, csize)}"
         elif name == "panel_factor":
             pivot0 = param
-            self.fn = lambda z: ggr_panel.panel_factor(z, pivot0)
-            self.plain = lambda: ggr_panel.panel_factor_plain(x, pivot0)
-            self.plain64 = lambda: ggr_panel.panel_factor_plain(x.double(), pivot0)
+            if self.mixed:
+                kc.condition_(x, name, pivot0)
+            self.fn = lambda z: ggr_panel.panel_factor(z, pivot0, precision=prec)
+            plain = lambda z, a=ad: ggr_panel.panel_factor_plain(z, pivot0, a)  # noqa: E731
             # Householder QR of the same panel (Q and R)
-            self.library = lambda: torch.linalg.qr(x)
+            self.library = lambda: torch.linalg.qr(self.lib_x)
             self.flops = panel_flops(shape, pivot0)
             self.nbytes = 4.0 * B * m * w * size  # panel in; R, V, T out
         else:  # apply_factors
             b, pivot0 = param
             pans = torch.randn((B, m, b), generator=gen, device="cuda", dtype=dtype)
-            _, V, T = ggr_panel.panel_factor_plain(pans, pivot0)
-            self.fn = lambda z: ggr_apply.apply_factors(V, T, z, pivot0)
-            self.plain = lambda: ggr_apply.apply_factors_plain(V, T, x, pivot0)
-            self.plain64 = lambda: ggr_apply.apply_factors_plain(
-                V.double(), T.double(), x.double(), pivot0)
+            if self.mixed:
+                kc.condition_(pans, name, param)
+            _, V, T = ggr_panel.panel_factor_plain(pans, pivot0, ad)
+            self.fn = lambda z: ggr_apply.apply_factors(V, T, z, pivot0, precision=prec)
+            plain = lambda z, a=ad: ggr_apply.apply_factors_plain(  # noqa: E731
+                V.to(z.dtype), T.to(z.dtype), z, pivot0, a)
             # the same work in Householder's basis: Q^T C from geqrf's factors
-            a, tau = torch.geqrf(pans)
-            self.library = lambda: torch.ormqr(a, tau, x, left=True, transpose=True)
+            a, tau = torch.geqrf(pans.float() if self.mixed else pans)
+            self.library = lambda: torch.ormqr(a, tau, self.lib_x, left=True,
+                                               transpose=True)
             self.flops = apply_flops(shape, b, pivot0)
             self.nbytes = (2.0 * m * w + 2.0 * m * b) * B * size  # C in/out, V, T
         self.x = x
+        self.lib_x = x.float() if self.mixed else x
         self.kernel = lambda: self.fn(x)
-        self.rel_tol = rel_bound(name, shape, self.dname)
+        self.plain = lambda: plain(x)
+        self.plain64 = lambda: plain(x.double(), None)
+        # a mixed case's f32 plain version rounded once, at the end, to the
+        # tile dtype: what a kernel that kept the state in f32 would give
+        self.once = lambda: tuple(o.to(dtype) for o in _as_outputs(plain(x.float(), None)))
+        self.rel_tol = kc.rel_bound(name, m, w, self.dname)
 
     def label(self) -> str:
         data = "" if self.data == "random" else f" {self.data} data"
-        return f"{self.name} {self.shape} {self.dname} param={self.param}{data}"
+        acc = f"/{self.accum}" if self.mixed else ""
+        return f"{self.name} {self.shape} {self.dname}{acc} param={self.param}{data}"
 
     def compare(self, quiet: bool = False) -> float:
         """Kernel vs plain version on the same inputs, each output on its own
         scale; returns the worst absolute error and keeps the worst error
-        over rms(out) in ``rel``."""
+        over rms(out) in ``rel``.  A mixed case also holds the kernel's
+        rounding (``kernel_check.per_step``) and, unless ``quiet``, runs the
+        f32 plain version rounded once through the same comparison as its
+        control, which must fail it."""
         import torch
 
+        from repro_torch.testing import kernel_check as kc
+
         out, ref = self.kernel(), self.plain()
-        outs = out if isinstance(out, tuple) else (out,)
-        refs = ref if isinstance(ref, tuple) else (ref,)
+        outs, refs = _as_outputs(out), _as_outputs(ref)
         err, ok, rels, olds = 0.0, True, [], []
         for o, r in zip(outs, refs):
-            e = float((o - r).abs().max()) if o.numel() else 0.0
-            rms = float(r.double().square().mean().sqrt()) if r.numel() else 0.0
-            rels.append(e / rms if rms > 0 else (0.0 if e == 0 else float("inf")))
-            if rms > 0:  # the old rule's allowance on the same scale
+            ok = ok and o.dtype == r.dtype == self.dtype and bool(o.isfinite().all())
+            err = max(err, float((o.double() - r.double()).abs().max()) if o.numel() else 0.0)
+        # an f32 / f64 case holds each output, a mixed one the parts the
+        # algorithm determines at its tile dtype (kernel_check.determined)
+        held = ((kc.determined(self.name, self.param, outs),
+                 kc.determined(self.name, self.param, refs)) if self.mixed else (outs, refs))
+        for o, r in zip(*held):
+            rels.append(kc.rel_err(o, r))
+            if kc.rms_of(r) > 0 and self.dname in OLD_TOL:  # the old rule on the same scale
                 olds.append(OLD_TOL[self.dname] * max(1, self.shape[1] // 16)
-                            * max(1.0, float(r.abs().max())) / rms)
-            ok = ok and rels[-1] <= self.rel_tol and bool(o.isfinite().all())
-            err = max(err, e)
+                            * max(1.0, float(r.abs().max())) / kc.rms_of(r))
+            ok = ok and rels[-1] <= self.rel_tol
         note = ""
+        if self.mixed:
+            lo, hi = kc.ROUNDING
+            parts = lambda r: kc.parts(self.name, self.param, r)  # noqa: E731
+            exact = parts(_as_outputs(self.plain64()))
+            stepped, self.ratios = kc.per_step(parts(outs), parts(refs), exact)
+            ok = ok and stepped
+            note = ("; relative Frobenius error from the exact result over the plain "
+                    f"version's, each part {_fmt(self.ratios) or '(none large enough)'}"
+                    f" (within {lo:g}-{hi:g})")
+            if not quiet and self.ratios:
+                once = self.once()
+                self.once_rel = max(kc.rel_err(o, r) for o, r in zip(
+                    kc.determined(self.name, self.param, once), held[1]))
+                once_stepped, self.once_ratios = kc.per_step(parts(once), parts(refs),
+                                                             exact)
+                fooled = once_stepped and self.once_rel <= self.rel_tol
+                ok = ok and not fooled
+                note += (f"; control, the f32 plain version rounded once to {self.dname}, "
+                         f"must fail: max|err| / rms {self.once_rel:.2e}, error ratios "
+                         f"{_fmt(self.once_ratios)} ({'passes' if fooled else 'fails'})")
         if not ok and self.dname == "float32" and all(o.isfinite().all() for o in outs):
             ok, note = self.against_f64(outs, refs)
             if not ok:
@@ -496,9 +625,10 @@ class KernelCase:
                   f"{self.label()}: the [0 | I] tiles come back bitwise as they were",
                   quiet)
         old = f" (old rule {self.old:.1e})" if olds else ""
-        check(ok, f"{self.label()}: max_abs_err {err:.3e}, max|err| / rms(out) "
+        what = " of the determined parts" if self.mixed else "(out)"
+        check(ok, f"{self.label()}: max_abs_err {err:.3e}, max|err| / rms{what} "
                   f"{', '.join(f'{q:.2e}' for q in rels)}; each within "
-                  f"{self.rel_tol:.1e}{old}{note}", quiet and not note)
+                  f"{self.rel_tol:.1e}{old}{note}", quiet)
         return err
 
     def against_f64(self, outs, refs) -> tuple:
@@ -563,12 +693,13 @@ class KernelCase:
         if self.name == "apply_factors":  # a zero panel's factors over zeros
             b, pivot0 = self.param
             VT = torch.zeros((8, self.shape[1], b), device="cuda", dtype=self.dtype)
-            out = ggr_apply.apply_factors(VT, VT, z, pivot0)
+            out = ggr_apply.apply_factors(VT, VT, z, pivot0,
+                                          precision=self.dname if self.mixed else None)
         else:
             out = self.fn(z)
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
-        itype = torch.int32 if self.dtype == torch.float32 else torch.int64
+        itype = {2: torch.int16, 4: torch.int32, 8: torch.int64}[z.element_size()]
         check(all(bool((o.view(itype) == 0).all()) for o in outs),
               f"{self.name} all-zero batch {tuple(z.shape)} {self.dname} "
               "comes back bitwise zero")
@@ -578,8 +709,9 @@ class KernelCase:
         plain_ms = cuda_ms(self.plain, reps=3)
         library_ms = cuda_ms(self.library, reps=5)
         bound_ms, bound_by = bound(self.nbytes, self.dname, self.flops)
+        lib = " (f32, the same inputs)" if self.mixed else ""
         print(f"  {self.label()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+              f"library {library_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})"
               f"{self.note}", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
@@ -615,17 +747,25 @@ def profile_top(fn, label: str, rows: int = 8, host_ops: bool = True) -> None:
 def recheck_shapes(recorded: dict, gen) -> dict:
     """Hold every (shape, param, dtype) a kernel was launched at by the main
     path against the plain version on fresh inputs of that shape (printing
-    only failures); returns each kernel's worst error."""
-    worst, worst_rel, looser = {}, {}, []
+    only failures); returns each kernel's worst error.  A mixed case is
+    also held for rounding its state at every step, on the parts large
+    enough to read (``kernel_check.per_step``)."""
+    worst, worst_rel, looser, ratios = {}, {}, [], {}
     for name, shapes in recorded.items():
         worst[name] = worst_rel[name] = 0.0
-        for shape, param, dtype in sorted(shapes, key=str):
-            case = KernelCase(name, shape, param, dtype, gen)
+        for shape, param, dtype, accum in sorted(shapes, key=str):
+            case = KernelCase(name, shape, param, dtype, gen, accum=accum)
             worst[name] = max(worst[name], case.compare(quiet=True))
             worst_rel[name] = max(worst_rel[name], case.rel)
+            if case.mixed:
+                ratios.setdefault(name, []).extend(case.ratios)
             if case.rel_tol > case.old:
                 looser.append(f"{case.label()} ({case.rel_tol:.1e} > {case.old:.1e})")
     print(f"  worst max|err| / rms(out): {worst_rel}")
+    if ratios:
+        print("  error ratios from the exact result, kernel over plain (least, most, "
+              "parts read): " + ", ".join(f"{k} {min(v or [0]):.3f}, {max(v or [0]):.3f}, "
+                                         f"{len(v)}" for k, v in ratios.items()))
     print(f"  shapes where the bound is looser than the old rule: {looser or 'none'}")
     return worst
 
@@ -1484,7 +1624,7 @@ def sharded_phase(reqs, kernels, card: str) -> dict:
     check(launches["batched_update"] > 0, "phase 8 launched batched_update")
     # B1 per shard: the kernel alone at each shape the phase launched it at
     out["b1_ms"] = {}
-    for shape, n_piv, dtype in sorted(out["shapes"]["batched_update"], key=str):
+    for shape, n_piv, dtype, _ in sorted(out["shapes"]["batched_update"], key=str):
         x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
         x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
         out["b1_ms"][str(shape)] = cuda_ms(lambda: b1(x, n_piv), reps=20, warmup=2)
@@ -1584,7 +1724,7 @@ def restore_ranks(ckpt_dir: str) -> dict:
     return {k: (str(v.device), v.cpu()) for k, v in tree.items()}
 
 
-def _work(kernel: str, shape, param, dtype) -> int:
+def _work(kernel: str, shape, param, *_) -> int:
     """Elements a B3 / B4 launch sweeps: its active rows times its width."""
     B, m, w = shape
     return B * (m - (param if kernel == "panel_factor" else param[1])) * w
@@ -1753,8 +1893,8 @@ def distributed_phase(kernels, card: str, gen) -> dict:
     for part, launched in parts.items():
         for k in ("panel_factor", "apply_factors"):
             if launched[k]:
-                shape, param, dtype = max(launched[k], key=lambda s: _work(k, *s))
-                case = KernelCase(k, shape, param, dtype, gen)
+                shape, param, dtype, accum = max(launched[k], key=lambda s: _work(k, *s))
+                case = KernelCase(k, shape, param, dtype, gen, accum=accum)
                 case.compare()
                 out["timed"][f"{part}: {case.label()}"] = case.times()
     out["shapes"] = {k: set().union(*(launched[k] for launched in parts.values()))
@@ -2253,8 +2393,8 @@ def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
     out["timed"] = {}
     for k in ("panel_factor", "apply_factors"):
         if out["shapes"][k]:
-            shape, param, dtype = max(out["shapes"][k], key=lambda s: _work(k, *s))
-            case = KernelCase(k, shape, param, dtype, gen)
+            shape, param, dtype, accum = max(out["shapes"][k], key=lambda s: _work(k, *s))
+            case = KernelCase(k, shape, param, dtype, gen, accum=accum)
             case.compare()
             out["timed"][case.label()] = case.times()
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
@@ -2798,6 +2938,212 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 14
+# each mixed tile dtype's serving policy; phase 14 (c)'s QR runs the same
+# policies by their short names (kernel_check.POLICY) and these
+MIXED_POLICY = {"bfloat16": "mixed_bf16", "float16": "mixed_f16"}
+# a served state within SERVE_EPS x eps(tile dtype), relative Frobenius, of
+# the f32-stored state: the reference's rule (tests/test_precision.py,
+# test_server_bf16_storage_round_trip), held on each kind's results together
+SERVE_EPS = 8.0
+# mean NIS of each filter over p: the reference's band (test_precision.py)
+NIS_BAND = (0.7, 1.3)
+
+
+def stored_mix(reqs, dtype):
+    """The request mix with every append and kalman request's operands
+    stored at ``dtype`` on the card (a fleet-shared model stays one tensor,
+    so the executor still broadcasts it); the lstsq kinds as they are."""
+    import torch
+
+    memo = {}
+
+    def cast(x):
+        if id(x) not in memo:
+            memo[id(x)] = torch.as_tensor(x, device="cuda").to(dtype)
+        return memo[id(x)]
+
+    return [r if r[0] not in ("append", "kalman") else (r[0], *map(cast, r[1:]))
+            for r in reqs]
+
+
+def mixed_phase(kernels, card: str, reqs, f32_req_s: float, M, dense_ms: dict,
+                gen) -> dict:
+    """Phase 14, mixed precision on the main path: (a) the serving mix with
+    its append and kalman operands stored in bf16 / f16 through
+    ``QRServer(precision="mixed_bf16" / "mixed_f16")`` against the f32
+    server, then a resilient bf16 flush of the appends; (b) a bf16 Kalman
+    fleet's NIS; (c) ``ggr_qr_blocked`` of phase 5's 4096^2 matrix at bf16
+    and f16 under both schedules within the reference's error budgets; (d)
+    every (shape, pair) (a)-(c) launched, held against the plain version.
+    The counts are set to 0 just before each run of (a)-(c) and read just
+    after it; every launch must be at the run's (tile, float32) pair."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ggr_qr_blocked
+    from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all
+    from repro_torch.testing import (budget_is_meaningful, dtype_eps, error_budget,
+                                     factorization_errors, fleet_nis)
+    from repro_torch.testing import kernel_check
+
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}, "req_s": {}, "serve_rel": {}, "nis": {}, "qr": {}, "qr_ms": {},
+           "launches": {d: {k: 0 for k in kernels} for d in MIXED},
+           "shapes": {d: {k: set() for k in kernels} for d in MIXED}}
+
+    def counted(dname: str, what: str, fn):
+        _zero_counts(kernels)
+        res = fn()
+        torch.cuda.synchronize()
+        launches, shapes = _counts(kernels)
+        for k in kernels:
+            out["launches"][dname][k] += launches[k]
+            out["shapes"][dname][k] |= shapes[k]
+        pairs = {(str(sh[2]).removeprefix("torch."), sh[3])
+                 for recs in shapes.values() for sh in recs}
+        check(pairs <= {(dname, "float32")},
+              f"{what}: every launch at ({dname}, float32): {sorted(pairs)}", quiet=True)
+        return res, launches
+
+    # (a) serving: the f32 server's results, then each mixed policy's
+    t0 = time.perf_counter()
+    plain = QRServer(device="cuda", max_batch=SERVE_MAX_BATCH)
+    tickets = _submit_all(plain, reqs)
+    plain.flush()
+    plain.drain()
+    ref = [_as_tuple(plain.result(t)) for t in tickets]
+    stored = {}
+    for dname in MIXED:
+        dtype = getattr(torch, dname)
+        stored[dname] = sreqs = stored_mix(reqs, dtype)
+        srv = QRServer(device="cuda", max_batch=SERVE_MAX_BATCH,
+                       precision=MIXED_POLICY[dname])
+        _submit_all(srv, sreqs)  # warm-up flush
+        srv.flush()
+        srv.drain()
+        tickets = _submit_all(srv, sreqs)
+
+        def timed_flush():
+            t1 = time.perf_counter()
+            served = srv.flush()
+            srv.drain()
+            return served, time.perf_counter() - t1
+
+        (served, dt), launches = counted(dname, f"(a) {MIXED_POLICY[dname]} flush",
+                                         timed_flush)
+        out["req_s"][dname] = served / dt
+        print(f"  (a) {MIXED_POLICY[dname]}: served {served} requests (appends and kalman "
+              f"steps stored in {dname}) in {dt * 1e3:.2f} ms: {served / dt:.1f} req/s "
+              f"(phase 4, f32: {f32_req_s:.1f} req/s; {card}); launches {launches}")
+        check(served == len(reqs) and launches["batched_update"] > 0,
+              f"(a) {MIXED_POLICY[dname]} served all {len(reqs)} requests and launched "
+              "batched_update")
+        groups: dict = {}
+        for r, t, want in zip(reqs, tickets, ref):
+            if r[0] in ("append", "kalman"):
+                got = _as_tuple(srv.result(t))
+                groups.setdefault((r[0], len(got)), []).append((got, want))
+        eps = dtype_eps(dname)
+        for (kind, n_out), pairs in sorted(groups.items()):
+            for i in range(n_out):
+                got = [a[i] for a, _ in pairs]
+                X = torch.stack(got).double()
+                Y = torch.stack([b[i] for _, b in pairs]).double()
+                rel = float(torch.linalg.norm(X - Y) / torch.linalg.norm(Y))
+                one = float(((X - Y).flatten(1).norm(dim=1)
+                             / Y.flatten(1).norm(dim=1)).max())
+                out["serve_rel"][f"{dname} {kind} {n_out}:{i}"] = rel
+                check(all(g.dtype == dtype for g in got) and rel <= SERVE_EPS * eps,
+                      f"(a) {dname} {kind} ({len(pairs)} requests, output {i} of {n_out}): "
+                      f"at {dname}, within {rel / eps:.2f} eps of the f32-stored results "
+                      f"(relative Frobenius, <= {SERVE_EPS:g} eps; the worst single "
+                      f"request {one / eps:.2f} eps, a reading)")
+    # the resilient layer at the mixed policy: the bf16 appends, one flush
+    appends = [r for r in stored["bfloat16"] if r[0] == "append"]
+    servers = {"plain": QRServer(device="cuda", max_batch=SERVE_MAX_BATCH,
+                                 precision="mixed_bf16"),
+               "resilient": QRServer(device="cuda", max_batch=SERVE_MAX_BATCH,
+                                     precision="mixed_bf16", resilient=True)}
+    res = {}
+    for name, srv in servers.items():
+        tickets = _submit_all(srv, appends)
+        _, launches = counted("bfloat16", f"(a) {name} mixed_bf16 flush of the appends",
+                              lambda: (srv.flush(), srv.drain()))
+        res[name] = ([srv.result(t) for t in tickets], launches["batched_update"])
+    diff = sum(not same_bits(a, b) for a, b in zip(res["plain"][0], res["resilient"][0]))
+    provs = {(p.rung, p.attempts) for ps in
+             servers["resilient"]._engine.dispatcher.provenance.values() for p in ps}
+    check(diff == 0 and provs == {("native", 1)} and res["plain"][1] == res["resilient"][1],
+          f"(a) resilient mixed_bf16 flush of {len(appends)} bf16 appends: provenance "
+          f"{provs}, {diff} results differ from the plain server's bits, B1 launches "
+          f"{res['resilient'][1]} / {res['plain'][1]}")
+    del res, servers, stored
+    out["wall_s"]["a"] = time.perf_counter() - t0
+
+    # (b) a bf16 Kalman fleet stays innovation-consistent
+    t0 = time.perf_counter()
+    p = 2
+    nis, launches = counted("bfloat16", "(b) fleet_nis", lambda: fleet_nis(
+        B=8, n=4, w=4, p=p, T=150, precision="bf16", device="cuda"))
+    out["nis"] = [float(v) for v in nis]
+    check(bool(np.all(NIS_BAND[0] * p < nis) and np.all(nis < NIS_BAND[1] * p))
+          and launches["batched_update"] > 0,
+          f"(b) fleet_nis(B=8, n=4, w=4, p=2, T=150, bf16) on the card: mean NIS "
+          f"{np.round(nis, 3).tolist()} in ({NIS_BAND[0] * p:g}, {NIS_BAND[1] * p:g}); "
+          f"B1 launches {launches['batched_update']}")
+    out["wall_s"]["b"] = time.perf_counter() - t0
+
+    # (c) phase 5's dense QR at each mixed policy under both schedules
+    t0 = time.perf_counter()
+    m, n = M.shape
+    M64 = M.double()
+    A64 = M64.cpu().numpy()
+    R_ref = torch.linalg.qr(M64, mode="r").R.cpu().numpy()
+    cond = float(torch.linalg.cond(M64))
+    needs = {"fused": ("panel_factor", "apply_factors"),
+             "tree": ("batched_geqrt", "batched_update")}
+    for dname in MIXED:
+        pol = kernel_check.POLICY[dname]
+        for sched, need in needs.items():
+            R, launches = counted(dname, f"(c) {sched} qr precision={pol!r}",
+                                  lambda: ggr_qr_blocked(M, schedule=sched, precision=pol))
+            errs = factorization_errors(A64, R.float().cpu().numpy(), R_ref=R_ref)
+            held = {k: (v, error_budget(dname, k, m, n, cond)) for k, v in errs.items()
+                    if k == "gram_residual" or budget_is_meaningful(dname, k, m, n, cond)}
+            out["qr"][f"{dname} {sched}"] = errs
+            check(R.dtype == getattr(torch, dname) and all(launches[k] > 0 for k in need)
+                  and all(v < b for v, b in held.values()),
+                  f"(c) ggr_qr_blocked {m}x{n} f32 input, precision={pol!r}, {sched}: R at "
+                  f"{R.dtype}, launches {launches}; held (value < budget at cond "
+                  f"{cond:.3e}): " + ", ".join(f"{k} {v:.3e} < {b:.3e}" for k, (v, b)
+                                               in held.items())
+                  + "; not meaningful there: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in errs.items() if k not in held))
+            ms = cuda_ms(lambda: ggr_qr_blocked(M, schedule=sched, precision=pol), reps=3)
+            out["qr_ms"][f"{dname} {sched}"] = ms
+            print(f"  (c) {sched} qr {m}x{n} precision={pol!r}: {ms:.2f} ms (phase 5 "
+                  f"f32: {dense_ms[f'{sched} qr']:.2f} ms; torch.linalg.qr f32 "
+                  f"{dense_ms['torch.linalg.qr']:.2f} ms; {card})")
+    out["wall_s"]["c"] = time.perf_counter() - t0
+
+    # (d) every (shape, pair) (a)-(c) launched, against the plain version
+    t0 = time.perf_counter()
+    out["recheck_worst"] = {d: recheck_shapes(out["shapes"][d], gen) for d in MIXED}
+    n_shapes = sum(len(v) for d in MIXED for v in out["shapes"][d].values())
+    print(f"  (d) {n_shapes} (shape, pair) launches rechecked "
+          f"({time.perf_counter() - t0:.1f} s); worst errors {out['recheck_worst']}")
+    out["wall_s"]["d"] = time.perf_counter() - t0
+    for dname in MIXED:
+        check(all(v > 0 for v in out["launches"][dname].values()),
+              f"phase 14 launched every kernel at ({dname}, float32): "
+              f"{out['launches'][dname]}")
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 14 wall {out['wall_s']['phase']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run from the root of a checkout (src/repro_torch "
@@ -2847,12 +3193,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [KernelCase(name, shape, param, getattr(torch, dname), gen, *data)
              for name, shape, param, dname, *data in PHASE3]
-    worst = {name: 0.0 for name in kernels}
+    worst = {(name, d): 0.0 for name in kernels for d in ("uniform", *MIXED)}
     timed = {}
     for case in cases:
-        worst[case.name] = max(worst[case.name], case.compare())
+        key = (case.name, case.dname if case.mixed else "uniform")
+        worst[key] = max(worst[key], case.compare())
         case.zero_batch()
-        timed[(case.name, case.shape, case.dname, case.data)] = case.times()
+        timed[(case.name, case.shape, case.dname, case.data)] = t = case.times()
+        was = TABLE_MS.get((case.name, case.shape, case.dname, case.data))
+        if was is not None:
+            print(f"    PERF.md §6 table: {was:.4f} ms; this run {t['ms']:.4f} ms "
+                  f"({t['ms'] / was:.2f}x)")
 
     # ------------------------------------------------------------ phase 4
     phase("4. serving")
@@ -3049,7 +3400,11 @@ def main() -> int:
     del step1
 
     # ------------------------------------------------------------ phase 14
-    phase("14. summary")
+    phase("14. mixed precision on the main path")
+    mixed = mixed_phase(kernels, card, reqs, req_s, M, dense_ms, gen)
+
+    # ------------------------------------------------------------ phase 15
+    phase("15. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -3072,13 +3427,28 @@ def main() -> int:
                          + inst["launches"][name] + resil["launches"][name]
                          + shard["launches"][name] + dist_out["launches"][name]
                          + train["launches"][name] + mesh["launches"][name]),
-            "max_abs_err": max(worst[name], recheck_worst[name],
+            "max_abs_err": max(worst[(name, "uniform")], recheck_worst[name],
                                train["recheck_worst"].get(name, 0.0),
                                mesh["recheck_worst"].get(name, 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": list(headline[name][1]), "dtype": headline[name][2],
         })
+    for dname in MIXED:  # the bf16 / f16 instances at the same shapes
+        for name in kernels:
+            shape = headline[name][1]
+            t = timed[(name, shape, dname, "random")]
+            rows_out.append({
+                "name": f"{name}_{_cuda.suffix(getattr(torch, dname), 'float32')}",
+                "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+                "launches": mixed["launches"][dname][name],
+                "max_abs_err": max(worst[(name, dname)],
+                                   mixed["recheck_worst"][dname].get(name, 0.0)),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": list(shape), "dtype": dname, "accum_dtype": "float32",
+                "library_dtype": "float32",
+            })
     for (name, shape, dname, data), t in timed.items():
         print(f"  {name} {shape} {dname} {data}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -3092,6 +3462,7 @@ def main() -> int:
     print(f"  phase 11: {json.dumps(lm)}")
     print(f"  phase 12: {json.dumps({k: v for k, v in train.items() if k != 'shapes'})}")
     print(f"  phase 13: {json.dumps({k: v for k, v in mesh.items() if k != 'shapes'})}")
+    print(f"  phase 14: {json.dumps({k: v for k, v in mixed.items() if k != 'shapes'})}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

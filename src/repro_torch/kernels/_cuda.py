@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
-           "launch", "query"]
+           "launch", "query", "suffix"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("ggr_update", "ggr_panel", "ggr_panel_factor", "ggr_apply")
@@ -36,6 +36,12 @@ MAX_SMEM_BYTES = 232448
 MAX_THREADS = 1024
 
 PTXAS_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas report of its build
+# (tile dtype, accumulation dtype) -> the C functions' suffix: the uniform
+# instances and the two named mixed policies (bf16 / f16 tiles, f32 sums)
+_SUFFIX = {(torch.float32, torch.float32): "f32",
+           (torch.float64, torch.float64): "f64",
+           (torch.bfloat16, torch.float32): "bf16_f32",
+           (torch.float16, torch.float32): "f16_f32"}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _INT_MAX = 2**31 - 1
 
@@ -107,29 +113,47 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(source: str, fn_prefix: str, tensors, *dims: int) -> None:
-    """Launch ``<fn_prefix>_<f32|f64>`` of ``source`` on the current stream.
+def suffix(tile, accum=None) -> str:
+    """The suffix of the C function for ``tile`` dtype tiles accumulating at
+    ``accum`` (a torch dtype or its name; None: the tile dtype itself):
+    ``"f32"``, ``"f64"``, ``"bf16_f32"`` or ``"f16_f32"``.  Raises
+    ``NotImplementedError`` naming both dtypes for any other pair."""
+    acc = tile if accum is None else (
+        getattr(torch, accum) if isinstance(accum, str) else accum)
+    try:
+        return _SUFFIX[(tile, acc)]
+    except KeyError:
+        t, a = (str(d).removeprefix("torch.") for d in (tile, acc))
+        raise NotImplementedError(
+            f"no CUDA kernel for {t} tiles with {a} accumulation "
+            "(the kernels take float32 / float64 tiles at their own width and "
+            "bfloat16 / float16 tiles with float32 accumulation; the plain "
+            "versions run every pair on CPU tensors)") from None
+
+
+def launch(source: str, fn_prefix: str, tensors, *dims: int, accum=None) -> None:
+    """Launch ``<fn_prefix>_<suffix>`` of ``source`` on the current stream.
 
     The C function takes one pointer per tensor of ``tensors`` (CUDA tensors
-    of one float dtype, which picks the suffix), then the integer arguments
-    ``dims``, the device index and the stream.  Raises ``ValueError`` for an
-    integer that does not fit a C ``int`` and ``RuntimeError`` when the C
-    function reports a CUDA error (a refused launch never runs, and a later
-    synchronize would not report it).
+    whose first holds the tiles: its dtype and ``accum`` pick the suffix, see
+    ``suffix``), then the integer arguments ``dims``, the device index and
+    the stream.  Raises ``ValueError`` for an integer that does not fit a C
+    ``int`` and ``RuntimeError`` when the C function reports a CUDA error (a
+    refused launch never runs, and a later synchronize would not report it).
     """
     if any(not -_INT_MAX <= d <= _INT_MAX for d in dims):
         raise ValueError(f"{fn_prefix}: an argument of {dims} exceeds a C int")
-    lib = _lib(source)
     x = tensors[0]
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
-    fn = getattr(lib, f"{fn_prefix}_{suffix}")
+    sfx = suffix(x.dtype, accum)
+    lib = _lib(source)
+    fn = getattr(lib, f"{fn_prefix}_{sfx}")
     fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(dims)
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(*(t.data_ptr() for t in tensors), *dims, x.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"{fn_prefix}_{suffix} launch failed: "
+        raise RuntimeError(f"{fn_prefix}_{sfx} launch failed: "
                            f"{_error(lib, source, err)}")
 
 
@@ -140,16 +164,18 @@ def _error(lib: ctypes.CDLL, source: str, err: int) -> str:
     return f"CUDA error {err} ({errstr(err).decode()})"
 
 
-def query(source: str, fn_prefix: str, x: torch.Tensor, *dims: int) -> int:
-    """Call ``<fn_prefix>_<f32|f64>(*dims, device)`` of ``source`` for the
-    dtype and device of ``x``: a host-side query that returns a count >= 0,
-    or -(CUDA error), which raises ``RuntimeError``."""
+def query(source: str, fn_prefix: str, x: torch.Tensor, *dims: int,
+          accum=None) -> int:
+    """Call ``<fn_prefix>_<suffix>(*dims, device)`` of ``source`` for the
+    dtype of ``x`` at ``accum`` (see ``suffix``) and x's device: a host-side
+    query that returns a count >= 0, or -(CUDA error), which raises
+    ``RuntimeError``."""
+    sfx = suffix(x.dtype, accum)
     lib = _lib(source)
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
-    fn = getattr(lib, f"{fn_prefix}_{suffix}")
+    fn = getattr(lib, f"{fn_prefix}_{sfx}")
     fn.argtypes = [ctypes.c_int] * (len(dims) + 1)
     fn.restype = ctypes.c_int
     out = fn(*dims, x.device.index)
     if out < 0:
-        raise RuntimeError(f"{fn_prefix}_{suffix} failed: {_error(lib, source, -out)}")
+        raise RuntimeError(f"{fn_prefix}_{sfx} failed: {_error(lib, source, -out)}")
     return out

@@ -60,6 +60,16 @@
 // one problem and stages the coefficients of 32 ticks at a time in shared
 // memory (cp.async, double buffered), shared by all its columns: two
 // __syncthreads per 32 ticks.  Each tick's pairs are loaded one tick ahead.
+//
+// Mixed precision: the bf16 / f16 instances (storage S for V, T, C and the
+// output; compute float) keep the float instance's pipeline, with the
+// coefficients computed in float from the S-valued V and T and staged as
+// float pairs.  The JAX kernel stores C at the tile dtype after every
+// transform, so each stage rounds what it emits through S (round_to) before
+// stage c+1 takes it as its input: the DET2 rows and the pivot row Q alike,
+// at every transform.  Only the running scaled suffix dot Q stays float
+// across rows, as the suffix dot P does in the JAX kernel.  x is loaded as S
+// and the writer lane stores S.
 #include <cuda_runtime.h>
 
 #include "ggr_common.cuh"
@@ -98,9 +108,9 @@ __device__ __forceinline__ bool passes(double c) { return __double_as_longlong(c
 
 // coef[((prob*nticks + tick)*Qp + pos)*2 + {0,1}] = a, c of stage
 // q = (pos % lanes)*per_lane + pos / lanes at that tick (Qp = lanes*per_lane).
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(kCoeffThreads)
-coeff_kernel(const T* __restrict__ V, const T* __restrict__ Tn,
+coeff_kernel(const S* __restrict__ V, const S* __restrict__ Tn,
              T* __restrict__ coef, int B, int m, int b, int pivot0, int lanes,
              int per_lane, int nticks) {
   const int Qp = lanes * per_lane;
@@ -118,14 +128,14 @@ coeff_kernel(const T* __restrict__ V, const T* __restrict__ Tn,
     const int p = pivot0 + q;
     T a = T(0), c = -T(0);  // pass
     if (q < b && p < m && e >= 0 && r >= r0 - 1) {
-      const T* Vp = V + prob * m * b;
-      const T* Tp = Tn + prob * m * b;
-      if (Tp[(size_t)p * b + q] > ggr::eps<T>()) {
+      const S* Vp = V + prob * m * b;
+      const S* Tp = Tn + prob * m * b;
+      if (ggr::widen<T>(Tp[(size_t)p * b + q]) > ggr::eps<T>()) {
         if (r >= p) {
-          const T t = Tp[(size_t)r * b + q];
-          const T tn = r + 1 < m ? Tp[(size_t)(r + 1) * b + q] : T(0);
+          const T t = ggr::widen<T>(Tp[(size_t)r * b + q]);
+          const T tn = r + 1 < m ? ggr::widen<T>(Tp[(size_t)(r + 1) * b + q]) : T(0);
           const T st = t > ggr::eps<T>() ? t : T(1);
-          a = Vp[(size_t)r * b + q] / st;
+          a = ggr::widen<T>(Vp[(size_t)r * b + q]) / st;
           if (tn > ggr::eps<T>()) c = tn / st;
         } else if (r == p - 1) {  // emits the pivot row: Q = P_p / t_p
           a = T(1);
@@ -139,9 +149,9 @@ coeff_kernel(const T* __restrict__ V, const T* __restrict__ Tn,
   }
 }
 
-template <typename T, int W, int NS>
+template <typename S, typename T, int W, int NS>
 __global__ void __launch_bounds__(512, 2)
-apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
+apply_kernel(const S* C, S* out, const T* __restrict__ coef, int m, int b,
              int w, int pivot0, int ntiles, int ncb, int c_bstride,
              int c_rstride, int o_bstride, int o_rstride) {
   constexpr int Qp = W * NS;
@@ -158,8 +168,8 @@ apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
   const int col = (cb * (int)(blockDim.x >> 5) + (int)(threadIdx.x >> 5)) * (32 / W)
                   + lane / W;
   const bool has_col = col < w;
-  const T* src = C + prob * c_bstride + col;
-  T* dst = out + prob * o_bstride + col;
+  const S* src = C + prob * c_bstride + col;
+  S* dst = out + prob * o_bstride + col;
   const T* cf = coef + prob * ntiles * kTile;
   const int r0 = pivot0 < m ? pivot0 : m;  // rows above r0 are untouched
   const int n0 = m - r0;
@@ -181,7 +191,7 @@ apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
 #pragma unroll
     for (int kb = 0; kb < XQ; ++kb) {
       const int e = it * kTicks + kb * W + s;
-      xq[kb] = has_col && e < n0 ? src[(size_t)(m - 1 - e) * c_rstride] : T(0);
+      xq[kb] = has_col && e < n0 ? ggr::widen<T>(src[(size_t)(m - 1 - e) * c_rstride]) : T(0);
     }
   };
 
@@ -226,7 +236,7 @@ apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
         const T x = j > 0 ? y[j > 0 ? j - 1 : 0] : in;
         const T a = cf[j].x, c = cf[j].y;
         const T d = fma(a, Q[j], -c * x);
-        y[j] = passes(c) ? xp[j] : d;
+        y[j] = passes(c) ? xp[j] : ggr::round_to<S>(d);
         Q[j] = fma(a, x, c * Q[j]);
         xp[j] = x;
       }
@@ -236,7 +246,10 @@ apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
 #pragma unroll
         for (int j = 1; j < NS; ++j)
           if (j == wslot) o = y[j];
-        __stcg(dst + (size_t)(m - ew) * o_rstride, o);  // a global store: no smem alias
+        if constexpr (std::is_same_v<S, T>)
+          __stcg(dst + (size_t)(m - ew) * o_rstride, o);  // a global store: no smem alias
+        else
+          dst[(size_t)(m - ew) * o_rstride] = ggr::narrow<S>(o);
       }
     }
     __syncthreads();  // every warp is done with tile it before it is reloaded
@@ -245,24 +258,24 @@ apply_kernel(const T* C, T* out, const T* __restrict__ coef, int m, int b,
   }
 }
 
-template <typename T, int W, int NS>
-int run_apply(const T* C, T* out, const T* coef, int B, int m, int b, int w,
+template <typename S, typename T, int W, int NS>
+int run_apply(const S* C, S* out, const T* coef, int B, int m, int b, int w,
               int pivot0, int nwarps, int ntiles, int c_bstride, int c_rstride,
               int o_bstride, int o_rstride, cudaStream_t st) {
   const int smem = 2 * kTicks * W * NS * 2 * (int)sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      apply_kernel<T, W, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      apply_kernel<S, T, W, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int cols = nwarps * (32 / W);
   const int ncb = (w + cols - 1) / cols;
-  apply_kernel<T, W, NS><<<(unsigned)B * ncb, 32 * nwarps, smem, st>>>(
+  apply_kernel<S, T, W, NS><<<(unsigned)B * ncb, 32 * nwarps, smem, st>>>(
       C, out, coef, m, b, w, pivot0, ntiles, ncb, c_bstride, c_rstride,
       o_bstride, o_rstride);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const T* V, const T* Tn, const T* C, T* out, T* coef, int B, int m,
+template <typename S, typename T>
+int launch(const S* V, const S* Tn, const S* C, S* out, T* coef, int B, int m,
            int b, int w, int pivot0, int lanes, int per_lane, int nwarps,
            int ntiles, int c_bstride, int c_rstride, int o_bstride,
            int o_rstride, int device, void* stream) {
@@ -272,13 +285,13 @@ int launch(const T* V, const T* Tn, const T* C, T* out, T* coef, int B, int m,
   const size_t total = (size_t)B * ntiles * kTicks * lanes * per_lane;
   const size_t want = (total + kCoeffThreads - 1) / kCoeffThreads;
   const int nblk = want < 4096 ? (int)want : 4096;
-  coeff_kernel<T><<<nblk, kCoeffThreads, 0, st>>>(
+  coeff_kernel<S, T><<<nblk, kCoeffThreads, 0, st>>>(
       V, Tn, coef, B, m, b, pivot0, lanes, per_lane, ntiles * kTicks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define GGR_APPLY_CASE(W_, NS_)                                                \
   if (lanes == W_ && per_lane == NS_)                                          \
-    return run_apply<T, W_, NS_>(C, out, coef, B, m, b, w, pivot0, nwarps,     \
+    return run_apply<S, T, W_, NS_>(C, out, coef, B, m, b, w, pivot0, nwarps,  \
                                  ntiles, c_bstride, c_rstride, o_bstride,      \
                                  o_rstride, st);
   GGR_APPLY_CASE(8, 1)
@@ -299,9 +312,9 @@ int ggr_apply_factors_f32(const float* V, const float* Tn, const float* C,
                           int pivot0, int lanes, int per_lane, int nwarps,
                           int ntiles, int c_bstride, int c_rstride,
                           int o_bstride, int o_rstride, int device, void* stream) {
-  return launch<float>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
-                       nwarps, ntiles, c_bstride, c_rstride, o_bstride,
-                       o_rstride, device, stream);
+  return launch<float, float>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
+                              nwarps, ntiles, c_bstride, c_rstride, o_bstride,
+                              o_rstride, device, stream);
 }
 
 int ggr_apply_factors_f64(const double* V, const double* Tn, const double* C,
@@ -309,9 +322,30 @@ int ggr_apply_factors_f64(const double* V, const double* Tn, const double* C,
                           int pivot0, int lanes, int per_lane, int nwarps,
                           int ntiles, int c_bstride, int c_rstride,
                           int o_bstride, int o_rstride, int device, void* stream) {
-  return launch<double>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
-                        nwarps, ntiles, c_bstride, c_rstride, o_bstride,
-                        o_rstride, device, stream);
+  return launch<double, double>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes,
+                                per_lane, nwarps, ntiles, c_bstride, c_rstride,
+                                o_bstride, o_rstride, device, stream);
+}
+
+int ggr_apply_factors_bf16_f32(const __nv_bfloat16* V, const __nv_bfloat16* Tn,
+                               const __nv_bfloat16* C, __nv_bfloat16* out, float* coef,
+                               int B, int m, int b, int w, int pivot0, int lanes,
+                               int per_lane, int nwarps, int ntiles, int c_bstride,
+                               int c_rstride, int o_bstride, int o_rstride, int device,
+                               void* stream) {
+  return launch<__nv_bfloat16, float>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes,
+                                      per_lane, nwarps, ntiles, c_bstride, c_rstride,
+                                      o_bstride, o_rstride, device, stream);
+}
+
+int ggr_apply_factors_f16_f32(const __half* V, const __half* Tn, const __half* C,
+                              __half* out, float* coef, int B, int m, int b, int w,
+                              int pivot0, int lanes, int per_lane, int nwarps,
+                              int ntiles, int c_bstride, int c_rstride, int o_bstride,
+                              int o_rstride, int device, void* stream) {
+  return launch<__half, float>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
+                               nwarps, ntiles, c_bstride, c_rstride, o_bstride,
+                               o_rstride, device, stream);
 }
 
 const char* ggr_apply_error_string(int code) {

@@ -13,11 +13,60 @@
 // The exclusive suffix S is the inclusive one shifted by a row, never P - prod
 // (which cancels catastrophically).  Every divisor is EPS-guarded, so an
 // all-zero active column (t_0 <= EPS) leaves the problem bit-for-bit as it was.
+//
+// Two types per kernel: the storage type S (what device memory holds, the
+// tile dtype of the JAX kernels) and the compute type T (their accumulation
+// dtype).  The instances are (float, float), (double, double) and the mixed
+// (__nv_bfloat16, float), (__half, float).  A mixed kernel keeps its state in
+// T but rounds every value it writes back to the state through S at the step
+// that writes it (round_to), as the JAX kernels' .astype(cd) does, so the
+// state always holds values S can represent; where S == T each helper is the
+// identity and compiles to nothing.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace ggr {
+
+// An S value (device memory) as a T value: exact.
+template <typename T, typename S>
+__device__ __forceinline__ T widen(S x) {
+  if constexpr (std::is_same_v<S, T>) {
+    return x;
+  } else if constexpr (std::is_same_v<S, __nv_bfloat16>) {
+    static_assert(std::is_same_v<T, float>, "bf16 tiles compute in float");
+    return __bfloat162float(x);
+  } else {
+    static_assert(std::is_same_v<S, __half> && std::is_same_v<T, float>,
+                  "f16 tiles compute in float");
+    return __half2float(x);
+  }
+}
+
+// A T value stored as S, rounded to nearest even.
+template <typename S, typename T>
+__device__ __forceinline__ S narrow(T x) {
+  if constexpr (std::is_same_v<S, T>) {
+    return x;
+  } else if constexpr (std::is_same_v<S, __nv_bfloat16>) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return __float2half_rn(x);
+  }
+}
+
+// x rounded through S, kept as T: the state's value after a write.
+template <typename S, typename T>
+__device__ __forceinline__ T round_to(T x) {
+  if constexpr (std::is_same_v<S, T>)
+    return x;
+  else
+    return widen<T>(narrow<S>(x));
+}
 
 // 1e-30 at every dtype: the constant of the TPU kernels (ggr_panel.py _EPS).
 template <typename T>

@@ -47,6 +47,16 @@
 //     (ggr_panel.py::_geqrt_layout), never from B, so a tile's bits do not
 //     depend on its batch.
 //
+// Mixed precision: the bf16 / f16 instances (storage S, compute float) keep
+// the float instance's layout (shared memory holds T values, so
+// ggr_panel.py::_geqrt_layout takes the compute itemsize) and round the
+// state as the JAX kernel does, at every column step: each DET2 row written
+// back to shared memory, the pivot row P_c / t_c and the annihilated
+// column's sigma * t_c go through S at the step that writes them
+// (column_walk, narrow); v, sigma, the suffix norms and dots and k, l are
+// float.  0 and 1 are exact in both tile dtypes, so the tree's [0 | I]
+// tiles still come back bitwise as they were.
+//
 // Per column step the block passes two barriers (column c in place; the
 // coefficients in place).  Dynamic shared memory (elements, tile_elems): a
 // record for each of the t rows, the tile at row stride ws (w rounded up to
@@ -69,34 +79,34 @@ __host__ __device__ __forceinline__ size_t tile_elems(int t, int ws) {
 // Rows of the tile a thread loads together before storing them.
 constexpr int kLoadGroup = 16;
 
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(512)
-batched_geqrt_kernel(const T* __restrict__ in, T* __restrict__ out, int t, int w,
+batched_geqrt_kernel(const S* __restrict__ in, S* __restrict__ out, int t, int w,
                      int n_piv, int ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ggr::Rec<T>* rec = reinterpret_cast<ggr::Rec<T>*>(smem_raw);
   T* X = reinterpret_cast<T*>(smem_raw) + 4 * (size_t)t;  // row i at X[i * ws]
   T* slot = X + (size_t)t * ws;                            // sigma, t_0
   const int G = (int)blockDim.x, tid = (int)threadIdx.x;
-  const T* src = in + (size_t)blockIdx.x * t * w;
-  T* Y = out + (size_t)blockIdx.x * t * w;
+  const S* src = in + (size_t)blockIdx.x * t * w;
+  S* Y = out + (size_t)blockIdx.x * t * w;
 
   // the tile into shared memory, kLoadGroup loads in flight a thread
   const int total = t * w;
   int e = tid;
   for (; e + (kLoadGroup - 1) * G < total; e += kLoadGroup * G) {
-    T v[kLoadGroup];
+    S v[kLoadGroup];
 #pragma unroll
     for (int q = 0; q < kLoadGroup; ++q) v[q] = src[e + q * G];
 #pragma unroll
     for (int q = 0; q < kLoadGroup; ++q) {
       const int f = e + q * G, i = f / w;
-      X[(size_t)i * ws + (f - i * w)] = v[q];
+      X[(size_t)i * ws + (f - i * w)] = ggr::widen<T>(v[q]);
     }
   }
   for (; e < total; e += G) {
     const int i = e / w;
-    X[(size_t)i * ws + (e - i * w)] = src[e];
+    X[(size_t)i * ws + (e - i * w)] = ggr::widen<T>(src[e]);
   }
 
   const int steps = n_piv < t ? n_piv : t;
@@ -108,38 +118,39 @@ batched_geqrt_kernel(const T* __restrict__ in, T* __restrict__ out, int t, int w
       ggr::coeff_chain(tid, n, [&](int i) { return top[(size_t)i * ws + c]; }, rec, slot);
     __syncthreads();  // coefficients, sigma and t_0 in place
     const T sigma = slot[0], t0 = slot[1];
-    T* Yc = Y + (size_t)c * w;
+    S* Yc = Y + (size_t)c * w;
     if (!(t0 > ggr::eps<T>())) {  // do_any false: the tile stays as it is
-      for (int j = tid; j < w; j += G) Yc[j] = top[j];
+      for (int j = tid; j < w; j += G) Yc[j] = ggr::narrow<S>(top[j]);
       continue;
     }
     for (int j = c + 1 + tid; j < w; j += G)
-      ggr::column_walk<T, 4>(n, top + ws + j, ws, top[j], rec, t0, Yc + j);
+      ggr::column_walk<S, T, 4>(n, top + ws + j, ws, top[j], rec, t0, Yc + j);
     // the annihilated column: sigma*t_0 at the pivot, zeros below; the pivot
     // row keeps its values left of c
     for (int r = c + 1 + tid; r < t; r += G) X[(size_t)r * ws + c] = T(0);
-    for (int j = tid; j <= c; j += G) Yc[j] = j == c ? sigma * t0 : top[j];
+    for (int j = tid; j <= c; j += G) Yc[j] = ggr::narrow<S>(j == c ? sigma * t0 : top[j]);
   }
 
   __syncthreads();
   for (int e2 = steps * w + tid; e2 < total; e2 += G) {  // rows past the last pivot
     const int i = e2 / w;
-    Y[e2] = X[(size_t)i * ws + (e2 - i * w)];
+    Y[e2] = ggr::narrow<S>(X[(size_t)i * ws + (e2 - i * w)]);
   }
 }
 
-template <typename T>
-int launch(const T* in, T* out, int B, int t, int w, int n_piv, int G, int ws,
+template <typename S, typename T>
+int launch(const S* in, S* out, int B, int t, int w, int n_piv, int G, int ws,
            int device, void* stream) {
   if (G < 32 || G % 32 || G > 512 || ws < w || t < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = tile_elems(t, ws) * sizeof(T);
-  err = cudaFuncSetAttribute(batched_geqrt_kernel<T>,
+  err = cudaFuncSetAttribute(batched_geqrt_kernel<S, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  batched_geqrt_kernel<T><<<B, G, smem, (cudaStream_t)stream>>>(in, out, t, w, n_piv, ws);
+  batched_geqrt_kernel<S, T><<<B, G, smem, (cudaStream_t)stream>>>(in, out, t, w, n_piv,
+                                                                  ws);
   return (int)cudaGetLastError();
 }
 
@@ -149,12 +160,22 @@ extern "C" {
 
 int ggr_batched_geqrt_f32(const float* in, float* out, int B, int t, int w, int n_piv,
                           int G, int ws, int device, void* stream) {
-  return launch<float>(in, out, B, t, w, n_piv, G, ws, device, stream);
+  return launch<float, float>(in, out, B, t, w, n_piv, G, ws, device, stream);
 }
 
 int ggr_batched_geqrt_f64(const double* in, double* out, int B, int t, int w,
                           int n_piv, int G, int ws, int device, void* stream) {
-  return launch<double>(in, out, B, t, w, n_piv, G, ws, device, stream);
+  return launch<double, double>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_bf16_f32(const __nv_bfloat16* in, __nv_bfloat16* out, int B, int t,
+                               int w, int n_piv, int G, int ws, int device, void* stream) {
+  return launch<__nv_bfloat16, float>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_f16_f32(const __half* in, __half* out, int B, int t, int w,
+                              int n_piv, int G, int ws, int device, void* stream) {
+  return launch<__half, float>(in, out, B, t, w, n_piv, G, ws, device, stream);
 }
 
 const char* ggr_panel_error_string(int code) {

@@ -71,6 +71,20 @@
 // device memory (resident == 0) and runs the same code through a generic
 // pointer.  Per-column planes of v/sigma and t go to `work` as (b, m) rows
 // and are transposed into V and T through shared-memory tiles at the end.
+//
+// Mixed precision: the bf16 / f16 instances (storage S, compute float) keep
+// the float instance's design and layout: the slab, the vectors, the
+// exchange arrays and `work` hold float (ggr_panel.py sizes shared memory,
+// the capacity and `work` at the compute itemsize).  The state rounds as the
+// JAX kernel rounds it, at every column step: each row det2_walk writes
+// back (the DET2 rows and the pivot row P_p / t_p) goes through S as it is
+// stored, and the annihilated column is written as sigma * t_p with both
+// factors rounded to S first and the product rounded again (the JAX kernel
+// takes sigma and t at cd there).  The step's own DET2 takes the float v and
+// t; only the stored V and T planes are rounded, as the JAX kernel returns
+// v.astype(cd) and t.astype(cd).  A slab kept in device memory (resident ==
+// 0) cannot live in R, which holds S: a mixed instance keeps it in `work`,
+// m * b more values a panel.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -88,11 +102,12 @@ constexpr int kPart = kTile * (kTile + 1) > kThreads ? kTile * (kTile + 1) : kTh
 // Scratch `work` per panel: t and v/sigma of every column as (b, m) planes,
 // then the exchange arrays A (nblk), B (nblk) and C (nblk x (2b + 2): the
 // slab's dots, its bottom row, that row's k and l), then, when the slabs live
-// in device memory, each slab's vectors v/sigma, t, k, l (rows_max + 2 each).
-size_t work_size(int m, int b, int nblk, int resident) {
+// in device memory, each slab's vectors v/sigma, t, k, l (rows_max + 2 each)
+// and, for a mixed instance, the slabs themselves (m x b).
+size_t work_size(int m, int b, int nblk, int resident, bool mixed) {
   const size_t rows_max = (m + nblk - 1) / nblk;
   return 2 * (size_t)b * m + (size_t)nblk * (2 * b + 4) +
-         (resident ? 0 : 4 * (size_t)nblk * (rows_max + 2));
+         (resident ? 0 : 4 * (size_t)nblk * (rows_max + 2) + (mixed ? (size_t)m * b : 0));
 }
 
 // Shared memory per block: scan/transpose slots, reduction slots, sigma, t_p,
@@ -114,10 +129,10 @@ __device__ __forceinline__ void grid_barrier(int nblk) {
 }
 
 // dst rows [lo, hi) (m x b, row-major) <- column planes src (b x m) for rows
-// r >= pivot0 + c, and `above` (0 or t_p) for the rows above each pivot;
-// coalesced both ways through a kTile x kTile shared tile.
-template <typename T, typename Above>
-__device__ void transpose_out(const T* src, T* dst, int m, int b, int lo, int hi,
+// r >= pivot0 + c, and `above` (0 or t_p) for the rows above each pivot,
+// rounded to S; coalesced both ways through a kTile x kTile shared tile.
+template <typename S, typename T, typename Above>
+__device__ void transpose_out(const T* src, S* dst, int m, int b, int lo, int hi,
                               int pivot0, T* tile, Above above) {
   const int tx = threadIdx.x % kTile, ty0 = threadIdx.x / kTile;
   const int tys = blockDim.x / kTile;
@@ -131,7 +146,7 @@ __device__ void transpose_out(const T* src, T* dst, int m, int b, int lo, int hi
       __syncthreads();
       for (int ty = ty0; ty < kTile; ty += tys) {  // write along c
         const int cw = c0 + tx, rw = r0 + ty;
-        if (cw < b && rw < hi) dst[(size_t)rw * b + cw] = tile[tx * (kTile + 1) + ty];
+        if (cw < b && rw < hi) dst[(size_t)rw * b + cw] = ggr::narrow<S>(tile[tx * (kTile + 1) + ty]);
       }
       __syncthreads();
     }
@@ -139,10 +154,10 @@ __device__ void transpose_out(const T* src, T* dst, int m, int b, int lo, int hi
 }
 
 // Grid (panels, nblk): block (q, k) factors slab k of panel q.
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(kThreads)
-panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__ V,
-                    T* __restrict__ Tn, T* __restrict__ work, int m, int b,
+panel_factor_kernel(const S* __restrict__ in, S* __restrict__ R, S* __restrict__ V,
+                    S* __restrict__ Tn, T* __restrict__ work, int m, int b,
                     int pivot0, int nblk, int resident, int ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* part = reinterpret_cast<T*>(smem_raw);  // scan slots / transpose tile
@@ -178,7 +193,10 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
     ld = b + 1;
   } else {
     vec = exC + (size_t)nblk * cs + (size_t)k * 4 * nv;
-    X = R + (size_t)lo * b;
+    if constexpr (std::is_same_v<S, T>)
+      X = R + (size_t)lo * b;
+    else  // the slabs after every slab's vectors
+      X = exC + (size_t)nblk * cs + (size_t)nblk * 4 * nv + (size_t)lo * b;
     ld = b;
   }
   T* vs = vec;      // v/sigma
@@ -188,7 +206,7 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
 
   for (int i = threadIdx.x; i < rows * b; i += blockDim.x) {
     const int r = i / b;
-    X[r * ld + (i - r * b)] = in[(size_t)lo * b + i];
+    X[r * ld + (i - r * b)] = ggr::widen<T>(in[(size_t)lo * b + i]);
   }
   for (int c = threadIdx.x; c < b; c += blockDim.x) sig[c] = tpv[c] = T(0);
   __syncthreads();
@@ -331,7 +349,7 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
       ggr::det2_walk<T, G>(
           s.lo, s.hi, p, pcar[j] + carry, s.lo == lo ? halo[j] : hal, tp,
           [=](int r) { return X[(r - lo) * ld + col]; },
-          [=](int r, T val) { X[(r - lo) * ld + col] = val; }, v,
+          [=](int r, T val) { X[(r - lo) * ld + col] = ggr::round_to<S>(val); }, v,
           [=](int r) { return kk[r - lo + 1]; }, [=](int r) { return ll[r - lo + 1]; });
       __syncthreads();
     }
@@ -345,8 +363,8 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
     const int r = lo + rl;
     T val = X[rl * ld + c];
     if (r >= pivot0 + c && tpv[c] > ggr::eps<T>())
-      val = r == pivot0 + c ? sig[c] * tpv[c] : T(0);
-    R[(size_t)lo * b + i] = val;
+      val = r == pivot0 + c ? ggr::round_to<S>(sig[c]) * ggr::round_to<S>(tpv[c]) : T(0);
+    R[(size_t)lo * b + i] = ggr::narrow<S>(val);
   }
   // V and T: the column planes, zero / t_p above each pivot
   transpose_out(vplane, V, m, b, lo, hi, pivot0, part, [](int) { return T(0); });
@@ -358,13 +376,13 @@ panel_factor_kernel(const T* __restrict__ in, T* __restrict__ R, T* __restrict__
 constexpr int kMaxSmem = 232448;  // an H100 block's limit (_cuda.MAX_SMEM_BYTES)
 constexpr int kMaxDevices = 64;
 
-template <typename T>
+template <typename S, typename T>
 cudaError_t allow_smem(int device) {
   static bool done[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      panel_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      panel_factor_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   done[device] = err == cudaSuccess;
   return err;
 }
@@ -372,20 +390,21 @@ cudaError_t allow_smem(int device) {
 // `cap`: the blocks that can be co-resident at this launch's shared memory,
 // from ggr_panel_factor_capacity (queried once per shape and cached by the
 // caller); the launch refuses an nblk over it.
-template <typename T>
-int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
+template <typename S, typename T>
+int launch(const S* in, S* R, S* V, S* Tn, T* work, int B, int m, int b,
            int pivot0, int nblk, int resident, int ws, int cap, int device,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nblk < 1 || nblk > m || (size_t)ws < work_size(m, b, nblk, resident))
+  if (nblk < 1 || nblk > m ||
+      (size_t)ws < work_size(m, b, nblk, resident, !std::is_same_v<S, T>))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(m, b, nblk, resident);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  err = allow_smem<T>(device);
+  err = allow_smem<S, T>(device);
   if (err != cudaSuccess) return (int)err;
   if (nblk == 1) {
-    panel_factor_kernel<T><<<dim3(B, 1), kThreads, smem, (cudaStream_t)stream>>>(
+    panel_factor_kernel<S, T><<<dim3(B, 1), kThreads, smem, (cudaStream_t)stream>>>(
         in, R, V, Tn, work, m, b, pivot0, nblk, resident, ws);
     return (int)cudaGetLastError();
   }
@@ -394,13 +413,13 @@ int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
   const size_t panel = (size_t)m * b;
   for (int q0 = 0; q0 < B; q0 += per) {
     const int nb = B - q0 < per ? B - q0 : per;
-    const T* a_in = in + q0 * panel;
-    T* a_R = R + q0 * panel;
-    T* a_V = V + q0 * panel;
-    T* a_T = Tn + q0 * panel;
+    const S* a_in = in + q0 * panel;
+    S* a_R = R + q0 * panel;
+    S* a_V = V + q0 * panel;
+    S* a_T = Tn + q0 * panel;
     T* a_work = work + (size_t)q0 * ws;
     void* args[] = {&a_in, &a_R, &a_V, &a_T, &a_work, &m, &b, &pivot0, &nblk, &resident, &ws};
-    err = cudaLaunchCooperativeKernel((const void*)panel_factor_kernel<T>, dim3(nb, nblk),
+    err = cudaLaunchCooperativeKernel((const void*)panel_factor_kernel<S, T>, dim3(nb, nblk),
                                       dim3(kThreads), args, smem, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
@@ -409,13 +428,13 @@ int launch(const T* in, T* R, T* V, T* Tn, T* work, int B, int m, int b,
 
 // Blocks of the kernel that can be co-resident on the card at `smem` bytes of
 // shared memory each: occupancy x SMs, or -(CUDA error).
-template <typename T>
+template <typename S, typename T>
 int capacity(int smem, int device) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = allow_smem<T>(device);
+  if (err == cudaSuccess) err = allow_smem<S, T>(device);
   int per_sm = 0, sms = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_factor_kernel<T>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_factor_kernel<S, T>,
                                                         kThreads, (size_t)smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -429,23 +448,46 @@ extern "C" {
 int ggr_panel_factor_f32(const float* in, float* R, float* V, float* Tn,
                          float* work, int B, int m, int b, int pivot0, int nblk,
                          int resident, int ws, int cap, int device, void* stream) {
-  return launch<float>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws, cap,
-                       device, stream);
+  return launch<float, float>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                              cap, device, stream);
 }
 
 int ggr_panel_factor_f64(const double* in, double* R, double* V, double* Tn,
                          double* work, int B, int m, int b, int pivot0, int nblk,
                          int resident, int ws, int cap, int device, void* stream) {
-  return launch<double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws, cap,
-                        device, stream);
+  return launch<double, double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                                cap, device, stream);
+}
+
+int ggr_panel_factor_bf16_f32(const __nv_bfloat16* in, __nv_bfloat16* R, __nv_bfloat16* V,
+                              __nv_bfloat16* Tn, float* work, int B, int m, int b,
+                              int pivot0, int nblk, int resident, int ws, int cap,
+                              int device, void* stream) {
+  return launch<__nv_bfloat16, float>(in, R, V, Tn, work, B, m, b, pivot0, nblk,
+                                      resident, ws, cap, device, stream);
+}
+
+int ggr_panel_factor_f16_f32(const __half* in, __half* R, __half* V, __half* Tn,
+                             float* work, int B, int m, int b, int pivot0, int nblk,
+                             int resident, int ws, int cap, int device, void* stream) {
+  return launch<__half, float>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                               cap, device, stream);
 }
 
 int ggr_panel_factor_capacity_f32(int smem, int device) {
-  return capacity<float>(smem, device);
+  return capacity<float, float>(smem, device);
 }
 
 int ggr_panel_factor_capacity_f64(int smem, int device) {
-  return capacity<double>(smem, device);
+  return capacity<double, double>(smem, device);
+}
+
+int ggr_panel_factor_capacity_bf16_f32(int smem, int device) {
+  return capacity<__nv_bfloat16, float>(smem, device);
+}
+
+int ggr_panel_factor_capacity_f16_f32(int smem, int device) {
+  return capacity<__half, float>(smem, device);
 }
 
 const char* ggr_panel_factor_error_string(int code) {

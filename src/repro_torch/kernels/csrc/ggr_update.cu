@@ -68,6 +68,21 @@
 // pivot row is then loaded at the start of its step (the parent kernel's
 // footprint).
 //
+// Mixed precision: the bf16 / f16 instances (storage S, compute float) keep
+// the layout and the schedule of the float instance (shared memory holds T
+// values, so the layout takes T's size: ggr_update.py::_update_layout is
+// given the compute itemsize).  The state rounds as the JAX kernel rounds
+// it, at every column step: each DET2 row written back to shared memory,
+// the pivot row P_0 / t_0 and the annihilated column's sigma * t_0 go
+// through S at the step that writes them (column_walk, narrow), so shared
+// memory only ever holds values of the tile dtype; v, sigma, the suffix
+// norms and dots and k, l are float.  cp.async copies bytes and cannot
+// convert, so a mixed instance loads the next pivot row through registers
+// instead: each thread issues its (at most two) loads where the float
+// instance issues its cp.async, before the coefficient chain, and widens
+// them into the other pivot buffer after the sweep (the launch refuses a
+// layout that would give a thread more than two).
+//
 // Every shared access stays inside its problem's region: records 0..n-1 only
 // (coefficients of row i+1 are written only where i+1 < n), pivot-row and
 // appended-row columns below w <= ws, appended rows 1..n-1 only (a walk's
@@ -112,12 +127,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Pivot-row elements a thread of a mixed instance holds in registers.
+constexpr int kNextRegs = 2;
+
 // Every thread walks whole columns (column_walk), w - c - 1 of them over the
 // G threads of a problem.
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(512)
-batched_update_kernel(const T* __restrict__ in, T* __restrict__ out, int B,
+batched_update_kernel(const S* __restrict__ in, S* __restrict__ out, int B,
                       int m, int w, int n_piv, int G, int ws, int nbuf) {
+  constexpr bool kSame = std::is_same_v<S, T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = m - n_piv;
   const int n = p + 1;  // active rows: the pivot row, then the appended rows
@@ -131,68 +150,86 @@ batched_update_kernel(const T* __restrict__ in, T* __restrict__ out, int B,
   T* piv = base + 4 * n;
   T* A = piv + nbuf * ws;  // active rows 1..p at A[(r-1)*ws]
   T* slot = A + p * ws;    // sigma, t_0
-  const T* X = in + prob * m * w;
-  T* Y = out + prob * m * w;
+  const S* X = in + prob * m * w;
+  S* Y = out + prob * m * w;
 
   for (int e = tid; e < p * w; e += G) {
     const int i = e / w, j = e - i * w;
-    A[i * ws + j] = X[(size_t)(n_piv + i) * w + j];
+    A[i * ws + j] = ggr::widen<T>(X[(size_t)(n_piv + i) * w + j]);
   }
-  for (int j = tid; j < w; j += G) piv[j] = X[j];
+  for (int j = tid; j < w; j += G) piv[j] = ggr::widen<T>(X[j]);
+  [[maybe_unused]] S nx[kNextRegs];  // a mixed instance's next pivot row, in flight
 
   for (int c = 0; c < n_piv; ++c) {
     T* row0 = piv + (nbuf == 2 ? (c & 1) * ws : 0);
     if (nbuf == 1 && c > 0) {
       group_sync(g, G);  // every read of the last pivot row is done
-      for (int j = tid; j < w; j += G) row0[j] = X[(size_t)c * w + j];
+      for (int j = tid; j < w; j += G) row0[j] = ggr::widen<T>(X[(size_t)c * w + j]);
     }
     group_sync(g, G);  // pivot row c in place; the last step's sweep done
     if (nbuf == 2 && c + 1 < n_piv) {
-      T* next = piv + ((c + 1) & 1) * ws;
-      for (int j = tid; j < w; j += G) cp_async(next + j, X + (size_t)(c + 1) * w + j);
+      if constexpr (kSame) {
+        T* next = piv + ((c + 1) & 1) * ws;
+        for (int j = tid; j < w; j += G) cp_async(next + j, X + (size_t)(c + 1) * w + j);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kNextRegs; ++q)
+          if (tid + q * G < w) nx[q] = X[(size_t)(c + 1) * w + tid + q * G];
+      }
     }
     if (tid < 32)
       ggr::coeff_chain(tid, n, [&](int r) { return r == 0 ? row0[c] : A[(r - 1) * ws + c]; },
                   rec, slot);
     group_sync(g, G);  // coefficients, sigma and t_0 in place
     const T sigma = slot[0], t0 = slot[1];
-    T* Yc = Y + (size_t)c * w;
+    S* Yc = Y + (size_t)c * w;
     if (t0 > ggr::eps<T>()) {  // do_any: the same for every thread of the problem
       // Columns left of c are zero in every active row (R is upper
       // triangular, and each earlier column was annihilated), so only the
       // w - c - 1 columns right of c are swept.
       for (int j = c + 1 + tid; j < w; j += G)
-        ggr::column_walk<T, 4>(n, A + j, ws, row0[j], rec, t0, Yc + j);
+        ggr::column_walk<S, T, 4>(n, A + j, ws, row0[j], rec, t0, Yc + j);
       // the annihilated column: sigma*t_0 at the pivot, zeros below
       for (int r = 1 + tid; r < n; r += G) A[(r - 1) * ws + c] = T(0);
-      for (int j = tid; j <= c; j += G) Yc[j] = j == c ? sigma * t0 : row0[j];
+      for (int j = tid; j <= c; j += G)
+        Yc[j] = ggr::narrow<S>(j == c ? sigma * t0 : row0[j]);
     } else {  // nothing to annihilate: the problem stays as it is
-      for (int j = tid; j < w; j += G) Yc[j] = row0[j];
+      for (int j = tid; j < w; j += G) Yc[j] = ggr::narrow<S>(row0[j]);
     }
-    if (nbuf == 2) cp_async_wait_all();
+    if (nbuf == 2) {
+      if constexpr (kSame) {
+        cp_async_wait_all();
+      } else if (c + 1 < n_piv) {  // the last step's reads of this buffer are done
+        T* next = piv + ((c + 1) & 1) * ws;
+#pragma unroll
+        for (int q = 0; q < kNextRegs; ++q)
+          if (tid + q * G < w) next[tid + q * G] = ggr::widen<T>(nx[q]);
+      }
+    }
   }
 
   group_sync(g, G);
   for (int e = tid; e < p * w; e += G) {
     const int i = e / w, j = e - i * w;
-    Y[(size_t)(n_piv + i) * w + j] = A[i * ws + j];
+    Y[(size_t)(n_piv + i) * w + j] = ggr::narrow<S>(A[i * ws + j]);
   }
 }
 
-template <typename T>
-int launch(const T* in, T* out, int B, int m, int w, int n_piv, int G, int PB,
+template <typename S, typename T>
+int launch(const S* in, S* out, int B, int m, int w, int n_piv, int G, int PB,
            int ws, int nbuf, int device, void* stream) {
   if (G < 32 || G % 32 || PB < 1 || G * PB > 512 || (G > 32 && PB > 15) ||
-      (nbuf != 1 && nbuf != 2) || ws < w || n_piv < 1 || m <= n_piv)
+      (nbuf != 1 && nbuf != 2) || ws < w || n_piv < 1 || m <= n_piv ||
+      (!std::is_same_v<S, T> && nbuf == 2 && (w + G - 1) / G > kNextRegs))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = PB * group_elems(m - n_piv + 1, ws, nbuf) * sizeof(T);
-  err = cudaFuncSetAttribute(batched_update_kernel<T>,
+  err = cudaFuncSetAttribute(batched_update_kernel<S, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((B + PB - 1) / PB);
-  batched_update_kernel<T><<<grid, G * PB, smem, (cudaStream_t)stream>>>(
+  batched_update_kernel<S, T><<<grid, G * PB, smem, (cudaStream_t)stream>>>(
       in, out, B, m, w, n_piv, G, ws, nbuf);
   return (int)cudaGetLastError();
 }
@@ -204,13 +241,27 @@ extern "C" {
 int ggr_batched_update_f32(const float* in, float* out, int B, int m, int w,
                            int n_piv, int G, int PB, int ws, int nbuf, int device,
                            void* stream) {
-  return launch<float>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
+  return launch<float, float>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
 }
 
 int ggr_batched_update_f64(const double* in, double* out, int B, int m, int w,
                            int n_piv, int G, int PB, int ws, int nbuf, int device,
                            void* stream) {
-  return launch<double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
+  return launch<double, double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device,
+                                stream);
+}
+
+int ggr_batched_update_bf16_f32(const __nv_bfloat16* in, __nv_bfloat16* out, int B,
+                                int m, int w, int n_piv, int G, int PB, int ws,
+                                int nbuf, int device, void* stream) {
+  return launch<__nv_bfloat16, float>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device,
+                                      stream);
+}
+
+int ggr_batched_update_f16_f32(const __half* in, __half* out, int B, int m, int w,
+                               int n_piv, int G, int PB, int ws, int nbuf, int device,
+                               void* stream) {
+  return launch<__half, float>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
 }
 
 const char* ggr_update_error_string(int code) {

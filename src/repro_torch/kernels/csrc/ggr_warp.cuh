@@ -132,17 +132,19 @@ __device__ void coeff_chain(int lane, int n, Col col, Rec<T>* rec, T* slot) {
 
 // One thread's walk of a whole column j, bottom-up:
 // P_i = v_i a_i + P_{i+1}, row i <- valid_{i-1} ? k_{i-1} P_i - l_{i-1} a_{i-1}
-// : a_i, and the pivot row P_0 / t_0 to *y.  colA: active row 1 of the
-// column (rows ws apart), top: its pivot-row value.  WG rows at a time load
+// : a_i, and the pivot row P_0 / t_0 to *y (device memory, storage type S).
+// colA: active row 1 of the column (rows ws apart), top: its pivot-row value.
+// Each row written back is rounded through S at this step (round_to): the
+// state of a mixed kernel holds only values of its tile dtype.  WG rows at a time load
 // together before any of them is stored (every read sees the old value, and
 // the load latency is paid once a group), each row's coefficients in one
 // record.  The last 1..WG rows go one at a time in a loop kept rolled:
 // NVVM (CUDA 12.8) unrolls it four times and, in the unrolled body, loads the
 // fourth row above from an address register it sets only later in that body,
 // a load that runs whenever more than four rows are left (PERF.md §6).
-template <typename T, int WG>
+template <typename S, typename T, int WG>
 __device__ __forceinline__ void column_walk(int n, T* colA, int ws, T top,
-                                            const Rec<T>* rec, T t0, T* y) {
+                                            const Rec<T>* rec, T t0, S* y) {
   T P = T(0);
   T* pa = colA + (n - 2) * ws;  // active row i = n-1, stepping up by ws
   T a = n > 1 ? *pa : top;
@@ -158,7 +160,7 @@ __device__ __forceinline__ void column_walk(int n, T* colA, int ws, T top,
 #pragma unroll
     for (int q = 0; q < WG; ++q) {
       P += rc[q].v * a;
-      pa[-q * ws] = rc[q].l > T(0) ? rc[q].k * P - rc[q].l * up[q] : a;
+      pa[-q * ws] = round_to<S>(rc[q].l > T(0) ? rc[q].k * P - rc[q].l * up[q] : a);
       a = up[q];
     }
   }
@@ -167,11 +169,11 @@ __device__ __forceinline__ void column_walk(int n, T* colA, int ws, T top,
     const T up = i >= 2 ? pa[-ws] : top;
     const Rec<T> rc = rec[i];
     P += rc.v * a;
-    *pa = rc.l > T(0) ? rc.k * P - rc.l * up : a;
+    *pa = round_to<S>(rc.l > T(0) ? rc.k * P - rc.l * up : a);
     a = up;
   }
   P += rec[0].v * a;
-  *y = P / t0;
+  *y = narrow<S>(P / t0);
 }
 
 }  // namespace ggr

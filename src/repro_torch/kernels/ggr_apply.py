@@ -19,7 +19,7 @@ import torch
 
 from . import _cuda
 from .backend import count_resolution, resolve_precision
-from .ggr_panel import _EPS, _accum_dt, _kernel_dtype_check, _revcumsum
+from .ggr_panel import _EPS, _accum_dt, _kernel_dtype_check, _launched, _revcumsum
 
 __all__ = ["apply_factors", "apply_factors_plain"]
 
@@ -79,6 +79,9 @@ def _apply_factors_cuda(V, T, C, pivot0, accum_dtype, out):
     if C.device.type != "cuda":
         raise ValueError(f"apply_factors: unsupported device {C.device}")
     _kernel_dtype_check(C, accum_dtype, "apply_factors")
+    if not V.dtype == T.dtype == C.dtype:
+        raise ValueError(f"apply_factors: V {V.dtype}, T {T.dtype} and C {C.dtype} "
+                         "must share a dtype on the card")
     B, m, b = V.shape
     w = C.shape[2]
     if out is None:
@@ -101,13 +104,15 @@ def _apply_factors_cuda(V, T, C, pivot0, accum_dtype, out):
         ntiles = -(-(m - p0 + 2 * bg - 1) // _TICKS)
         warps = B * -(-w // (32 // lanes))
         nwarps = min(_MAX_WARPS, -(-warps // _WAVE))
+        # the (a, c) pairs: float values from the tile-dtype V and T
         coef = torch.empty((B, ntiles * _TICKS, lanes * per_lane, 2),
-                           dtype=C.dtype, device=C.device)
+                           dtype=_accum_dt(C, accum_dtype), device=C.device)
         _cuda.launch("ggr_apply", "ggr_apply_factors", [Vg, Tg, src, dst, coef],
                      B, m, bg, w, p0, lanes, per_lane, nwarps, ntiles,
-                     src.stride(0), src.stride(1), dst.stride(0), dst.stride(1))
+                     src.stride(0), src.stride(1), dst.stride(0), dst.stride(1),
+                     accum=accum_dtype)
         apply_factors.launches += 1
-        apply_factors.shapes.add((tuple(C.shape), (bg, p0), C.dtype))
+        apply_factors.shapes.add((tuple(C.shape), (bg, p0), *_launched(C, accum_dtype)))
         src = dst
     if dst is not out:
         out.copy_(dst)
@@ -126,8 +131,9 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     with the JAX signature) sets no tiling; it must be positive.  ``out``
     (optional, C's shape) receives the result and may be C itself — a
     strided view of a larger frame is updated in place.  ``precision``
-    selects compute + accumulation dtypes; on CUDA tensors only the uniform
-    f32/f64 policies have a kernel.  The launch count is
+    selects compute + accumulation dtypes; on CUDA tensors the kernel takes
+    the uniform f32 / f64 policies and bf16 / f16 tiles with f32
+    accumulation.  The launch count is
     ``apply_factors.launches``; more than 128 transforms take one launch per
     128.
     """
@@ -160,4 +166,4 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
 
 
 apply_factors.launches = 0  # kernel launches, for tests and chip_smoke.py
-apply_factors.shapes = set()  # (C shape, (b, pivot0), dtype) of every launch
+apply_factors.shapes = set()  # (C shape, (b, pivot0), dtype, accum name) of every launch

@@ -23,6 +23,8 @@ plain PyTorch.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
@@ -61,13 +63,20 @@ def _check_stack(x: torch.Tensor, n_pivots: int, block_b: int, what: str):
 
 
 def _kernel_dtype_check(x: torch.Tensor, accum_dtype: str | None, what: str):
-    """The CUDA kernels run f32/f64 tiles accumulating at tile dtype only."""
-    if x.dtype not in (torch.float32, torch.float64) or (
-            accum_dtype is not None and accum_dtype != dtype_name(x.dtype)):
-        raise NotImplementedError(
-            f"{what}: no CUDA kernel for {dtype_name(x.dtype)} tiles with "
-            f"{accum_dtype or dtype_name(x.dtype)} accumulation (the bf16/f16 "
-            "kernels are not ported; their plain versions run on CPU tensors)")
+    """The CUDA kernels' (tile, accumulation) pairs: float32 / float64 tiles
+    at their own width, bfloat16 / float16 tiles with float32 accumulation
+    (the two named mixed policies).  Any other pair raises
+    ``NotImplementedError`` naming both dtypes."""
+    try:
+        _cuda.suffix(x.dtype, accum_dtype)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{what}: {e}") from None
+
+
+def _launched(x: torch.Tensor, accum_dtype: str | None) -> tuple:
+    """The (tile, accumulation) pair of a launch, as its shape record holds
+    it: the tile dtype and the accumulation dtype's name."""
+    return x.dtype, dtype_name(_accum_dt(x, accum_dtype))
 
 
 def panel_factor_plain(panel: torch.Tensor, pivot0: int = 0,
@@ -201,7 +210,7 @@ def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
         raise ValueError(f"batched_geqrt: unsupported device {tiles.device}")
     _kernel_dtype_check(tiles, accum_dtype, "batched_geqrt")
     B, t, w = tiles.shape
-    size = tiles.element_size()
+    size = _accum_dt(tiles, accum_dtype).itemsize  # shared memory holds the sums' dtype
     layout = _geqrt_layout(t, w, size)
     if layout is None:
         raise ValueError(
@@ -212,9 +221,10 @@ def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
     if tiles.numel() == 0:
         return out
     _cuda.launch("ggr_panel", "ggr_batched_geqrt", [tiles, out], B, t, w, n_pivots,
-                 *layout)
+                 *layout, accum=accum_dtype)
     batched_geqrt.launches += 1
-    batched_geqrt.shapes.add((tuple(tiles.shape), n_pivots, tiles.dtype))
+    batched_geqrt.shapes.add((tuple(tiles.shape), n_pivots,
+                              *_launched(tiles, accum_dtype)))
     return out
 
 
@@ -233,8 +243,9 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
     laid out by ``_geqrt_layout`` from the tile's shape, so ``block_b`` (kept
     for parity with the JAX signature) sets no tiling; it must be positive.  ``precision`` selects tile compute dtype + in-kernel
     accumulation dtype (``None`` = tiles at their own dtype, same-width
-    accumulation); on CUDA tensors only the uniform f32/f64 policies have a
-    kernel.  The launch count is ``batched_geqrt.launches``.
+    accumulation); on CUDA tensors the kernel takes the uniform f32 / f64
+    policies and bf16 / f16 tiles with f32 accumulation.  The launch count
+    is ``batched_geqrt.launches``.
     """
     _check_stack(tiles, n_pivots, block_b, "batched_geqrt")
     accum = None
@@ -249,7 +260,7 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
 
 
 batched_geqrt.launches = 0  # kernel launches, for tests and chip_smoke.py
-batched_geqrt.shapes = set()  # (shape, n_pivots, dtype) of every launch
+batched_geqrt.shapes = set()  # (shape, n_pivots, dtype, accum name) of every launch
 
 
 _PANEL_THREADS = 256  # mirrors kThreads in ggr_panel_factor.cu
@@ -298,16 +309,28 @@ def _panel_blocks(m: int, b: int, itemsize: int, capacity) -> tuple[int, bool]:
         nblk = max(need, cap)
 
 
-_CAPACITY: dict = {}  # (dtype, device, smem bytes) -> co-resident blocks
+def _work_elems(m: int, b: int, nblk: int, resident: bool, mixed: bool) -> int:
+    """Scratch values of one panel (mirrors work_size in
+    ggr_panel_factor.cu): the t and v/sigma planes (b, m), the exchange
+    arrays, and with the slabs in device memory their vectors and, for a
+    mixed instance, the slabs themselves (R holds the tile dtype)."""
+    ws = 2 * b * m + nblk * (2 * b + 4)
+    if not resident:
+        ws += 4 * nblk * (-(-m // nblk) + 2) + (m * b if mixed else 0)
+    return ws
 
 
-def _panel_capacity(x: torch.Tensor, smem: int) -> int:
-    """Blocks of the panel kernel co-resident on x's card at ``smem`` bytes
-    each, queried from the kernel once per (dtype, device, smem) and cached."""
-    key = (x.dtype, x.device.index, smem)
+_CAPACITY: dict = {}  # (dtype, accum, device, smem bytes) -> co-resident blocks
+
+
+def _panel_capacity(x: torch.Tensor, smem: int, accum_dtype: str | None = None) -> int:
+    """Blocks of the panel kernel's (x's dtype, ``accum_dtype``) instance
+    co-resident on x's card at ``smem`` bytes each, queried from the kernel
+    once per (pair, device, smem) and cached."""
+    key = (x.dtype, accum_dtype, x.device.index, smem)
     if key not in _CAPACITY:
         _CAPACITY[key] = _cuda.query("ggr_panel_factor", "ggr_panel_factor_capacity",
-                                     x, smem)
+                                     x, smem, accum=accum_dtype)
     return _CAPACITY[key]
 
 
@@ -317,7 +340,8 @@ def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
         raise ValueError(f"panel_factor: unsupported device {panel.device}")
     _kernel_dtype_check(panel, accum_dtype, "panel_factor")
     B, m, b = panel.shape
-    size = panel.element_size()
+    compute = _accum_dt(panel, accum_dtype)  # the slabs, sums and scratch
+    size = compute.itemsize
     if _panel_smem(0, b, size, False) > _cuda.MAX_SMEM_BYTES:
         raise ValueError(f"panel_factor: a panel of width {b} needs more shared "
                          f"memory for its per-column values than a block's "
@@ -331,21 +355,18 @@ def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
         V.zero_()
         T.zero_()
         return R.copy_(panel), V, T
-    nblk, resident = _panel_blocks(m, b, size, lambda smem: _panel_capacity(panel, smem))
-    cap = _panel_capacity(panel, _panel_smem(-(-m // nblk), b, size, resident))
-    # per panel (mirrors work_size in ggr_panel_factor.cu): t and v/sigma
-    # planes (b, m), the exchange arrays, the slabs' vectors in device memory
-    ws = 2 * b * m + nblk * (2 * b + 4)
-    if not resident:
-        ws += 4 * nblk * (-(-m // nblk) + 2)
+    capacity = functools.partial(_panel_capacity, panel, accum_dtype=accum_dtype)
+    nblk, resident = _panel_blocks(m, b, size, capacity)
+    cap = capacity(_panel_smem(-(-m // nblk), b, size, resident))
+    ws = _work_elems(m, b, nblk, resident, compute != panel.dtype)
     if ws >= 2**31:
         raise ValueError(f"panel_factor: a ({m}, {b}) panel needs {ws} values of "
                          "scratch; the kernel indexes it with 32-bit offsets")
-    work = torch.empty((B, ws), dtype=panel.dtype, device=panel.device)
+    work = torch.empty((B, ws), dtype=compute, device=panel.device)
     _cuda.launch("ggr_panel_factor", "ggr_panel_factor", [panel, R, V, T, work],
-                 B, m, b, pivot0, nblk, int(resident), ws, cap)
+                 B, m, b, pivot0, nblk, int(resident), ws, cap, accum=accum_dtype)
     panel_factor.launches += 1
-    panel_factor.shapes.add((tuple(panel.shape), pivot0, panel.dtype))
+    panel_factor.shapes.add((tuple(panel.shape), pivot0, *_launched(panel, accum_dtype)))
     return R, V, T
 
 
@@ -362,7 +383,8 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
 
     ``precision`` selects the panel's compute dtype and the in-kernel
     accumulation dtype (``None`` = the panel's own dtype throughout); on CUDA
-    tensors only the uniform f32/f64 policies have a kernel.  The CUDA kernel
+    tensors the kernel takes the uniform f32 / f64 policies and bf16 / f16
+    panels with f32 accumulation.  The CUDA kernel
     splits each panel by rows over co-resident blocks (``_panel_blocks``); a
     large batch may take several launches, and a call counts once in
     ``panel_factor.launches``.
@@ -388,4 +410,4 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
 
 
 panel_factor.launches = 0  # kernel launches, for tests and chip_smoke.py
-panel_factor.shapes = set()  # (shape, pivot0, dtype) of every launch
+panel_factor.shapes = set()  # (shape, pivot0, dtype, accum name) of every launch

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 
 from . import _cuda
 from .backend import count_resolution, dtype_name, resolve_precision
-from .ggr_panel import _EPS, _accum_dt, _check_stack, _kernel_dtype_check, _revcumsum
+from .ggr_panel import (_EPS, _accum_dt, _check_stack, _kernel_dtype_check, _launched,
+                        _revcumsum)
 
 __all__ = ["batched_update", "batched_update_plain", "pad_batch", "pad_to_tile"]
 
@@ -170,7 +171,7 @@ def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
         raise ValueError(f"batched_update: unsupported device {stacked.device}")
     _kernel_dtype_check(stacked, accum_dtype, "batched_update")
     B, m, w = stacked.shape
-    size = stacked.element_size()
+    size = _accum_dt(stacked, accum_dtype).itemsize  # shared memory holds the sums' dtype
     layout = (_update_layout(m, w, n_pivots, size)
               if w <= _cuda.MAX_THREADS else None)
     if layout is None:
@@ -184,9 +185,10 @@ def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
     if B == 0:
         return out
     _cuda.launch("ggr_update", "ggr_batched_update", [stacked, out], B, m, w,
-                 n_pivots, *layout)
+                 n_pivots, *layout, accum=accum_dtype)
     batched_update.launches += 1
-    batched_update.shapes.add((tuple(stacked.shape), n_pivots, stacked.dtype))
+    batched_update.shapes.add((tuple(stacked.shape), n_pivots,
+                               *_launched(stacked, accum_dtype)))
     return out
 
 
@@ -208,8 +210,9 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
     parity with the JAX signature) sets no tiling; it must be positive.
     ``precision`` selects tile compute + in-kernel accumulation dtypes
     (``None`` = the batch at its own dtype with same-width accumulation); on
-    CUDA tensors only the uniform f32/f64 policies have a kernel.  The
-    launch count is ``batched_update.launches``.
+    CUDA tensors the kernel takes the uniform f32 / f64 policies and bf16 /
+    f16 tiles with f32 accumulation.  The launch count is
+    ``batched_update.launches``.
     """
     _check_stack(stacked, n_pivots, block_b, "batched_update")
     m = stacked.shape[1]
@@ -229,4 +232,4 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
 
 
 batched_update.launches = 0  # kernel launches, for tests and chip_smoke.py
-batched_update.shapes = set()  # (shape, n_pivots, dtype) of every launch
+batched_update.shapes = set()  # (shape, n_pivots, dtype, accum name) of every launch

@@ -39,6 +39,7 @@ reference's ``vmap`` over filters.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -261,6 +262,13 @@ def kf_step_batched(R: torch.Tensor, d: torch.Tensor, F: torch.Tensor,
     w = Qi.shape[-1]
     if precision is not None:
         precision = resolve_precision(precision)
+    # operands of mixed dtypes step at their promoted dtype, as the
+    # reference's jnp arithmetic promotes them (a bf16 state beside f32
+    # models builds an f32 stack; the policy casts it for the kernel)
+    dt = functools.reduce(torch.promote_types,
+                          [M.dtype for M in (R, d, F, Qi, H, z, G) if M is not None])
+    R, d, F, Qi, H, z = (M.to(dt) for M in (R, d, F, Qi, H, z))
+    G = None if G is None else G.to(dt)
 
     def bcast(M):
         if M is None or M.ndim == 3:

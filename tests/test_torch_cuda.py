@@ -10,29 +10,43 @@ import pytest
 import torch
 
 from repro_torch.core import blocked
-from repro_torch.kernels import _cuda, batched_geqrt, batched_update, ggr_qr_pallas
+from repro_torch.kernels import (Precision, _cuda, batched_geqrt, batched_update,
+                                 ggr_qr_pallas)
 from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
 from repro_torch.launch import serve_qr
+from repro_torch.testing import kernel_check as kc
 
 # kernel vs plain version, each output on its own: the worst error over that
-# output's rms (so one wrong row of a tall output shows) within rel_bound(),
-# as in chip_smoke.py: a per-kernel, per-dtype constant (f32, f64) grown with
-# the rows of a problem (B1, B2), the column steps an entry sees (B3) or the
-# square root of the rows a suffix dot runs over (B4)
-REL = {"batched_update": (7.5e-4, 1e-12), "batched_geqrt": (1e-3, 3e-12),
-       "panel_factor": (3e-4, 3e-12), "apply_factors": (2e-4, 3e-13)}
+# output's rms within kc.rel_bound() (the table chip_smoke.py holds the
+# kernels to); bf16 / f16 tiles run with f32 accumulation on
+# kc.condition_-ed data, against the plain version at the same pair, and
+# hold the parts of their outputs the algorithm determines (_worst_rel)
+rel_bound, _rel_err = kc.rel_bound, kc.rel_err
+# the tile dtypes the kernels take: f32 / f64 at their own width, and the
+# mixed ones, each with its named policy (f32 accumulation)
+MIXED = {getattr(torch, tile): policy for tile, policy in kc.POLICY.items()}
+DTYPES = [torch.float32, torch.float64, *MIXED]
 
 
-def rel_bound(name, m, w, dtype):
-    grow = {"batched_update": m / 64, "batched_geqrt": m / 64,
-            "panel_factor": w / 64, "apply_factors": (m / 4096) ** 0.5}[name]
-    return REL[name][dtype == torch.float64] * max(1.0, grow)
+def _accum(dtype):
+    """The accumulation dtype's name of a tile dtype's kernel (the plain
+    version's ``accum_dtype``: None is the tile dtype itself)."""
+    return "float32" if dtype in MIXED else None
 
 
-def _rel_err(got, want):
-    rms = float(want.double().square().mean().sqrt())
-    err = float((got - want).abs().max())
-    return err / rms if rms > 0 else (0.0 if err == 0 else float("inf"))
+def _worst_rel(name, param, got, want):
+    """max|err| / rms of each output (f32 / f64) or of each part a bf16 /
+    f16 kernel's algorithm determines (kc.determined), the worst."""
+    got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+    if got[0].dtype in MIXED:
+        got, want = kc.determined(name, param, got), kc.determined(name, param, want)
+    return max(_rel_err(a, b) for a, b in zip(got, want))
+
+
+def _mixed_data(x, name, param):
+    """A mixed case's inputs well conditioned, as the main path's states
+    are (kc.condition_); f32 / f64 cases keep their Gaussian data."""
+    return kc.condition_(x, name, param) if x.dtype in MIXED else x
 
 
 def test_cpu_tensors_never_reach_the_cuda_binding(monkeypatch):
@@ -64,51 +78,61 @@ def card():
 def _stack(g, card, B, m, w, n_piv, dtype):
     X = torch.randn((B, m, w), generator=g, device=card, dtype=dtype)
     X[:, :n_piv, :n_piv] = torch.triu(X[:, :n_piv, :n_piv])
+    _mixed_data(X, "batched_update", n_piv)
     X[0] = 0
     return X
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,m,w,n_piv", [(2, 12, 9, 8), (67, 40, 33, 32),
                                          (7, 104, 65, 64), (5, 128, 192, 64),
                                          (2, 128, 192, 64), (32, 128, 192, 64),
                                          (3, 200, 65, 64), (2, 12, 1, 1),
-                                         (2, 12, 1000, 8)])
+                                         (2, 12, 1000, 8), (2, 600, 9, 8)])
 def test_batched_update_kernel_matches_plain(card, dtype, B, m, w, n_piv):
     """Problem 0 is all zero and every other one random, so each case holds
     at least one real problem.  (2, 128, 192) is the tree's last coupling
     round (one problem) beside the zero one, (32, 128, 192) its first;
     (3, 200, 65) has p+1 = 137 active rows, (2, 12, 1) one pivot and one
-    column, (2, 12, 1000) a width near the 1024 threads of a block."""
+    column, (2, 12, 1000) a width near the 1024 threads of a block (a
+    mixed instance holds two elements of the next pivot row in registers),
+    (2, 600, 9) one pivot buffer.  bf16 / f16 tiles run with f32
+    accumulation, the launch recorded at that pair and the result at the
+    tile dtype."""
     g = torch.Generator(device=card).manual_seed(B + m)
     X = _stack(g, card, B, m, w, n_piv, dtype)
     n0 = batched_update.launches
-    out = batched_update(X, n_piv)
+    out = batched_update(X, n_piv, precision=MIXED.get(dtype))
     assert batched_update.launches == n0 + 1
-    ref = ggr_update.batched_update_plain(X, n_piv)
-    assert _rel_err(out, ref) <= rel_bound("batched_update", m, w, dtype)
-    bits = out[0].view(torch.int32 if dtype == torch.float32 else torch.int64)
-    assert bool((bits == 0).all())  # the zero problem comes back bitwise zero
+    assert ((B, m, w), n_piv, dtype, _accum(dtype) or str(dtype)[6:]) in \
+        batched_update.shapes
+    assert out.dtype == dtype
+    ref = ggr_update.batched_update_plain(X, n_piv, _accum(dtype))
+    assert _worst_rel("batched_update", n_piv, out, ref) <= rel_bound("batched_update", m, w,
+                                                                        dtype)
+    assert _bits_zero(out[0])  # the zero problem comes back bitwise zero
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, *MIXED])
 @pytest.mark.parametrize("m,w,n_piv", [(40, 33, 32), (104, 65, 64), (128, 192, 64)])
-def test_batched_update_result_does_not_depend_on_the_batch(card, m, w, n_piv):
+def test_batched_update_result_does_not_depend_on_the_batch(card, m, w, n_piv, dtype):
     """40 problems at the serving append, serving kalman and tree-coupling
     shapes: each equals itself launched alone, bit for bit, wherever it sits
     in the batch (the serving and solver contracts of batched == sequential
-    rest on this)."""
+    rest on this), at f32 tiles and at bf16 / f16 tiles with f32 sums."""
     g = torch.Generator(device=card).manual_seed(m + w)
-    X = _stack(g, card, 40, m, w, n_piv, torch.float32)
-    got = batched_update(X, n_piv)
+    X = _stack(g, card, 40, m, w, n_piv, dtype)
+    pol = MIXED.get(dtype)
+    got = batched_update(X, n_piv, precision=pol)
     for i in range(40):
-        assert torch.equal(got[i], batched_update(X[i:i + 1], n_piv)[0])
-    assert torch.equal(got[7:20], batched_update(X[7:20], n_piv))
+        assert torch.equal(got[i], batched_update(X[i:i + 1], n_piv, precision=pol)[0])
+    assert torch.equal(got[7:20], batched_update(X[7:20], n_piv, precision=pol))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,t,w,n_piv", [(2, 8, 16, 8), (67, 64, 128, 64),
                                          (9, 20, 24, 16), (4, 12, 30, 16),
                                          (3, 65, 131, 65), (3, 128, 200, 128),
@@ -116,24 +140,50 @@ def test_batched_update_result_does_not_depend_on_the_batch(card, m, w, n_piv):
                                          (2, 1, 1, 1), (3, 300, 20, 20)])
 def test_batched_geqrt_kernel_matches_plain(card, dtype, B, t, w, n_piv):
     """Tile 0 is all zero and comes back bitwise; 65 and 128 active rows put
-    two and four rows on a lane of the coefficient warp; n_piv = 0 copies;
-    900 columns give a thread two; 300 rows, more than the warp holds in
-    registers (three passes through the records), with n_piv = w."""
+    two and four rows on a lane of the coefficient warp; n_piv = 0 copies
+    (bitwise); 900 columns give a thread two; 300 rows, more than the warp
+    holds in registers (three passes through the records), with n_piv = w.
+    bf16 / f16 tiles run with f32 accumulation."""
     g = torch.Generator(device=card).manual_seed(B + t)
-    X = torch.randn((B, t, w), generator=g, device=card, dtype=dtype)
+    X = _mixed_data(torch.randn((B, t, w), generator=g, device=card, dtype=dtype),
+                    "batched_geqrt", n_piv)
     X[0] = 0
     n0 = batched_geqrt.launches
-    out = batched_geqrt(X, n_piv)
+    out = batched_geqrt(X, n_piv, precision=MIXED.get(dtype))
     assert batched_geqrt.launches == n0 + 1
-    ref = ggr_panel.batched_geqrt_plain(X, n_piv)
-    assert _rel_err(out, ref) <= rel_bound("batched_geqrt", t, w, dtype)
+    assert out.dtype == dtype
+    ref = ggr_panel.batched_geqrt_plain(X, n_piv, _accum(dtype))
+    assert _worst_rel("batched_geqrt", n_piv, out, ref) <= rel_bound("batched_geqrt", t, w,
+                                                                       dtype)
     assert torch.equal(out[0], X[0])
+    if n_piv == 0:
+        assert torch.equal(out, X)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(MIXED))
+def test_batched_geqrt_mixed_on_the_trees_tiles(card, dtype):
+    """The tree's (64, 64, 128) [pan | I] tiles at bf16 / f16: within
+    rel_bound of the plain version, the [0 | I] tiles bitwise as they were
+    (0 and 1 are exact in both), and each tile's bits independent of its
+    batch."""
+    g = torch.Generator(device=card).manual_seed(65)
+    X = _tree_tiles(g, card, 64, 64, dtype)
+    pol = MIXED[dtype]
+    out = batched_geqrt(X, 64, precision=pol)
+    assert _worst_rel("batched_geqrt", 64, out,
+                      ggr_panel.batched_geqrt_plain(X, 64, "float32")) <= rel_bound(
+        "batched_geqrt", 64, 128, dtype)
+    assert torch.equal(out[32:], X[32:])
+    for i in (0, 17, 63):
+        assert torch.equal(out[i], batched_geqrt(X[i:i + 1], 64, precision=pol)[0])
 
 
 def _tree_tiles(g, card, B, b, dtype):
     """[pan | I] tiles as the tree schedule builds them, the second half
     [0 | I] (row tiles past the matrix)."""
-    pan = torch.randn((B, b, b), generator=g, device=card, dtype=dtype)
+    pan = _mixed_data(torch.randn((B, b, b), generator=g, device=card, dtype=dtype),
+                      "batched_geqrt", b)
     pan[B // 2:] = 0
     eye = torch.eye(b, device=card, dtype=dtype).expand(B, b, b)
     return torch.cat([pan, eye], 2).contiguous()
@@ -175,12 +225,12 @@ def test_batched_geqrt_result_does_not_depend_on_the_batch(card, data):
 
 
 def _bits_zero(x):
-    return bool((x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
-                 == 0).all())
+    itype = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    return bool((x.view(itype) == 0).all())
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,m,b,pivot0", [(1, 8, 4, 0), (3, 48, 8, 13),
                                           (2, 4096, 64, 0), (1, 1500, 32, 700),
                                           (2, 40, 8, 36), (1, 10000, 8, 0),
@@ -194,18 +244,43 @@ def test_panel_factor_kernel_matches_plain(card, dtype, B, m, b, pivot0):
     300 puts the pivots inside the second slab; pivot0 = 36 of 40 rows runs
     pivots onto the last row and past the end; 65536 rows f64 (32 MiB) keep
     the slabs in device memory; widths 300 and 520 sweep their columns in
-    two and three groups of the block's 256 threads.  Each of R, V, T is
-    held on its own scale, its rms, so one wrong row of a tall panel shows."""
+    two and three groups of the block's 256 threads.  bf16 / f16 panels run
+    with f32 accumulation.  Each of R, V, T is held on its own scale, its
+    rms, so one wrong row of a tall panel shows."""
     g = torch.Generator(device=card).manual_seed(B + m + b)
-    X = torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype)
+    X = _mixed_data(torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype),
+                    "panel_factor", pivot0)
     X[0] = 0
     n0 = ggr_panel.panel_factor.launches
-    got = ggr_panel.panel_factor(X, pivot0=pivot0)
+    got = ggr_panel.panel_factor(X, pivot0=pivot0, precision=MIXED.get(dtype))
     assert ggr_panel.panel_factor.launches == n0 + 1
-    want = ggr_panel.panel_factor_plain(X, pivot0)
-    for a, w in zip(got, want):
-        assert _rel_err(a, w) <= rel_bound("panel_factor", m, b, dtype)
+    want = ggr_panel.panel_factor_plain(X, pivot0, _accum(dtype))
+    assert _worst_rel("panel_factor", pivot0, got, want) <= rel_bound("panel_factor", m, b,
+                                                                       dtype)
+    for a in got:
+        assert a.dtype == dtype
         assert _bits_zero(a[0])  # the zero panel comes back bitwise zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(MIXED))
+def test_panel_factor_mixed_keeps_device_slabs_in_the_scratch(card, dtype):
+    """A (1, 140000, 64) bf16 / f16 panel: more rows than the co-resident
+    blocks hold in shared memory at f32, so its slabs live in device memory,
+    in the scratch buffer (R holds the tile dtype): each of R, V, T within
+    rel_bound of the plain version, the zero panel bitwise zero."""
+    g = torch.Generator(device=card).manual_seed(140065)
+    X = torch.randn((2, 140000, 64), generator=g, device=card, dtype=dtype)
+    X[0] = 0
+    cap = lambda smem: ggr_panel._panel_capacity(X, smem, "float32")  # noqa: E731
+    assert not ggr_panel._panel_blocks(140000, 64, 4, cap)[1]
+    got = ggr_panel.panel_factor(X, precision=MIXED[dtype])
+    want = ggr_panel.panel_factor_plain(X, 0, "float32")
+    assert _worst_rel("panel_factor", 0, got, want) <= rel_bound("panel_factor", 140000, 64,
+                                                                  dtype)
+    for a in got:
+        assert a.dtype == dtype
+        assert _bits_zero(a[0])
 
 
 @pytest.mark.gpu
@@ -223,7 +298,7 @@ def test_panel_factor_result_does_not_depend_on_the_batch(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,m,b,w,pivot0", [(1, 16, 4, 8, 0), (2, 96, 8, 45, 5),
                                             (1, 4096, 64, 300, 0),
                                             (2, 2000, 16, 70, 900),
@@ -233,25 +308,58 @@ def test_panel_factor_result_does_not_depend_on_the_batch(card):
 def test_apply_factors_kernel_matches_plain(card, dtype, B, m, b, w, pivot0):
     """b = 24 leaves lanes of the warp idle and b = 33 fills one stage of a
     lane's second pair; widths 37 and 21 end inside a block's columns and b =
-    130 takes two launches (128 transforms each at most)."""
+    130 takes two launches (128 transforms each at most).  bf16 / f16
+    factors and columns run with f32 accumulation."""
     g = torch.Generator(device=card).manual_seed(B + m + w)
-    pans = torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype)
+    pans = _mixed_data(torch.randn((B + 1, m, b), generator=g, device=card, dtype=dtype),
+                       "apply_factors", (b, pivot0))
     pans[0] = 0
-    _, V, T = ggr_panel.panel_factor_plain(pans, pivot0)
+    _, V, T = ggr_panel.panel_factor_plain(pans, pivot0, _accum(dtype))
     C = torch.randn((B + 1, m, w), generator=g, device=card, dtype=dtype)
     C[0] = 0
+    pol = MIXED.get(dtype)
     n0 = ggr_apply.apply_factors.launches
-    got = ggr_apply.apply_factors(V, T, C, pivot0=pivot0)
+    got = ggr_apply.apply_factors(V, T, C, pivot0=pivot0, precision=pol)
     assert ggr_apply.apply_factors.launches == n0 + -(-b // 128)
-    want = ggr_apply.apply_factors_plain(V, T, C, pivot0)
-    assert _rel_err(got, want) <= rel_bound("apply_factors", m, w, dtype)
+    assert got.dtype == dtype
+    want = ggr_apply.apply_factors_plain(V, T, C, pivot0, _accum(dtype))
+    assert _worst_rel("apply_factors", (b, pivot0), got, want) <= rel_bound(
+        "apply_factors", m, w, dtype)
     assert _bits_zero(got[0])
     # in place on a strided view of a wider frame: the same values
     frame = torch.zeros((B + 1, m, w + 7), device=card, dtype=dtype)
     frame[:, :, 7:] = C
     view = frame[:, :, 7:]
-    ggr_apply.apply_factors(V, T, view, pivot0=pivot0, out=view)
+    ggr_apply.apply_factors(V, T, view, pivot0=pivot0, precision=pol, out=view)
     assert torch.equal(view, got) and not frame[:, :, :7].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["bf16", "mixed_f16"])
+@pytest.mark.parametrize("schedule", ["tree", "fused"])
+def test_blocked_qr_mixed_on_the_card_is_bitwise_the_same_under_auto(card, precision,
+                                                                     schedule):
+    """ggr_qr_blocked at a mixed policy on the card: R at the tile dtype,
+    the schedule's kernels launched at the pair, "auto" bitwise "fused", and
+    the gram residual within the reference's budget."""
+    from repro_torch.testing import error_budget, gram_residual
+
+    A = torch.from_numpy(np.random.default_rng(5).standard_normal((300, 130))).float()
+    n0 = {f: f.launches for f in (batched_update, batched_geqrt, ggr_panel.panel_factor,
+                                  ggr_apply.apply_factors)}
+    R = blocked.ggr_qr_blocked(A.to(card), tile=32, schedule=schedule, precision=precision)
+    tile = torch.bfloat16 if precision == "bf16" else torch.float16
+    assert R.dtype == tile
+    launched = [f for f, n in n0.items() if f.launches > n]
+    assert set(launched) == ({batched_geqrt, batched_update} if schedule == "tree" else
+                             {ggr_panel.panel_factor, ggr_apply.apply_factors})
+    for f in launched:
+        assert {(s[2], s[3]) for s in f.shapes} >= {(tile, "float32")}
+    if schedule == "fused":
+        auto = blocked.ggr_qr_blocked(A.to(card), tile=32, precision=precision)
+        assert torch.equal(R, auto)
+    assert gram_residual(A.double().numpy(), R.float().cpu().numpy()) < error_budget(
+        tile, "gram_residual", 300, 130)
 
 
 @pytest.mark.gpu
@@ -284,13 +392,70 @@ def test_auto_is_the_fused_schedule_on_the_card(card):
     assert torch.equal(R, blocked.ggr_qr_blocked(A, tile=32, schedule="fused"))
 
 
+# (kernel, shape, param) of the main path, cut in batch, each with a part of
+# at least kc.READ_ENTRIES entries: the serving append and kalman sweeps and
+# the tree coupling (B1), the tree's level 0 (B2), the fused QR's panel (B3)
+# and its trailing columns (B4)
+ROUNDING_CASES = [("batched_update", (2048, 40, 33), 32),
+                  ("batched_update", (1024, 104, 65), 64),
+                  ("batched_update", (16, 128, 192), 64),
+                  ("batched_geqrt", (32, 64, 128), 64),
+                  ("panel_factor", (1, 4096, 64), 0),
+                  ("apply_factors", (1, 4096, 1024), (64, 0))]
+
+
+def _mixed_case(card, name, shape, param, dtype):
+    """(kernel(), x, plain(z, accum)) of a mixed case (kc.mixed_inputs)."""
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    x, plain, factors = kc.mixed_inputs(name, shape, param, dtype, g)
+    pol = MIXED[dtype]
+    if name == "apply_factors":
+        return (lambda: ggr_apply.apply_factors(*factors, x, param[1], precision=pol), x,
+                plain)
+    kernel = {"batched_update": batched_update, "batched_geqrt": batched_geqrt,
+              "panel_factor": ggr_panel.panel_factor}[name]
+    return lambda: kernel(x, param, precision=pol), x, plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(MIXED))
+@pytest.mark.parametrize("name,shape,param", ROUNDING_CASES)
+def test_mixed_kernel_rounds_its_state_at_every_step(card, name, shape, param, dtype):
+    """Each part of a bf16 / f16 kernel's outputs (kc.parts) lies as far
+    from the exact result (the plain version in f64) as the plain version
+    at the same pair, within kc.ROUNDING: the state rounded to the tile
+    dtype at every step.  The f32 plain version rounded once to the tile
+    dtype, the result of a kernel that keeps its state in f32, fails the
+    same check."""
+    kernel, x, plain = _mixed_case(card, name, shape, param, dtype)
+
+    def parts(r):
+        return kc.parts(name, param, r if isinstance(r, tuple) else (r,))
+
+    ref, exact = parts(plain(x, "float32")), parts(plain(x.double(), None))
+    stepped, ratios = kc.per_step(parts(kernel()), ref, exact)
+    assert ratios and stepped, ratios
+    once = tuple(o.to(dtype) for o in parts(plain(x.float(), None)))
+    fooled, once_ratios = kc.per_step(once, ref, exact)
+    assert not fooled, once_ratios
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(card):
+    """bf16 / f16 tiles run with f32 accumulation (the named policies); the
+    pairs with wider accumulation, and tiles summed at their own bf16 / f16
+    width, raise NotImplementedError naming both dtypes."""
     X = torch.zeros((2, 12, 9), device=card)
+    wide = [Precision(t, "float64", t) for t in ("float32", "bfloat16", "float16")]
     for fn in (batched_update, batched_geqrt):
-        with pytest.raises(NotImplementedError):
-            fn(X, 8, precision="bf16")
-        with pytest.raises(NotImplementedError):
+        for tile, pol in MIXED.items():
+            out = fn(X, 8, precision=pol)
+            assert out.dtype == tile and _bits_zero(out)
+        for prec in wide:
+            with pytest.raises(NotImplementedError,
+                               match=f"{prec.compute_dtype} tiles with float64"):
+                fn(X, 8, precision=prec)
+        with pytest.raises(NotImplementedError, match="float16 tiles with float16"):
             fn(X.half(), 8)
     big = torch.zeros((1, 240, 256), device=card, dtype=torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
@@ -298,14 +463,24 @@ def test_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="threads"):
         batched_update(torch.zeros((1, 9, 1100), device=card), 8)
     pan = torch.zeros((64, 8), device=card)
-    with pytest.raises(NotImplementedError):
-        ggr_panel.panel_factor(pan, precision="bf16")
-    with pytest.raises(NotImplementedError):
+    for tile, pol in MIXED.items():
+        assert all(o.dtype == tile and _bits_zero(o)
+                   for o in ggr_panel.panel_factor(pan, precision=pol))
+        out = ggr_apply.apply_factors(pan, pan, pan, precision=pol)
+        assert out.dtype == tile and _bits_zero(out)
+    for prec in wide:
+        with pytest.raises(NotImplementedError,
+                           match=f"{prec.compute_dtype} tiles with float64"):
+            ggr_panel.panel_factor(pan, precision=prec)
+        with pytest.raises(NotImplementedError,
+                           match=f"{prec.compute_dtype} tiles with float64"):
+            ggr_apply.apply_factors(pan, pan, pan, precision=prec)
+    with pytest.raises(NotImplementedError, match="bfloat16 tiles with bfloat16"):
         ggr_panel.panel_factor(pan.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="must share a dtype"):
+        ggr_apply.apply_factors(pan.bfloat16(), pan.bfloat16(), pan)
     with pytest.raises(ValueError, match="shared memory"):  # no width limit but this
         ggr_panel.panel_factor(torch.zeros((4, 7000), device=card, dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
-        ggr_apply.apply_factors(pan, pan, pan, precision="mixed_bf16")
     # the kernel streams each column, so a frame of any height runs: here
     # 60000 rows f32, more than one column holds in shared memory
     g = torch.Generator(device=card).manual_seed(6)

@@ -7,15 +7,14 @@ bottom-up walk (the layout sets only which thread walks which column, so one
 order serves every layout).  It is held against ``batched_update_plain`` at
 f64, so the arithmetic the card runs has a check where there is no card.  The kernel itself is held against the plain
 version on the card in tests/test_torch_cuda.py."""
-import importlib.util
 import inspect
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _cuda, ggr_update
+from repro_torch.testing import kernel_check
 
 EPS = 1e-30
 
@@ -195,24 +194,16 @@ def test_update_layout_takes_what_the_parent_took(w, itemsize):
         assert ggr_update._update_layout(n_piv + rows - 1, w, n_piv, itemsize)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("row", [0, 63, 64, 127])
 def test_one_wrong_row_of_the_tree_coupling_output_fails_the_check(row):
-    """chip_smoke.py's rule (max|err| / rms(out) within rel_bound) refuses a
-    (64, 128, 192) f32 output with one row of one problem wrong — here that
-    row of another problem — and passes the output rounded to f32 from f64."""
-    smoke = _chip_smoke()
+    """chip_smoke.py's rule (max|err| / rms(out) within rel_bound, from
+    repro_torch.testing.kernel_check) refuses a (64, 128, 192) f32 output
+    with one row of one problem wrong — here that row of another problem —
+    and passes the output rounded to f32 from f64."""
     X = np.stack([_stack(128, 192, 64, s) for s in range(64)])
     want = ggr_update.batched_update_plain(torch.from_numpy(X), 64)
     got = want.float()
-    bound = smoke.rel_bound("batched_update", (64, 128, 192), "float32")
+    bound = kernel_check.rel_bound("batched_update", 128, 192, "float32")
 
     def rel(o):
         return float((o.double() - want).abs().max() / want.square().mean().sqrt())

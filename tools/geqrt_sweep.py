@@ -10,7 +10,7 @@ columns, and the row stride in shared memory (``ggr_panel._geqrt_layout``).
 For each shape the sweep launches the kernel through its C entry point at
 every G in 32, 64, 128, 256, 512, with the rule's ws.  Each layout is held
 against the plain version (max|err| / rms(out) within
-``chip_smoke.rel_bound``) and timed with CUDA events (mean of 10 launches
+``kernel_check.rel_bound``) and timed with CUDA events (mean of 10 launches
 after 2); each line names the layout, marks the rule's, and gives its time.
 The shapes are the tree QR's level-0 launches on random tiles and on the
 tree's own tiles (``chip_smoke.tree_tiles``: [pan | I], half of them
@@ -53,7 +53,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("geqrt_sweep.py: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import cuda_ms, rel_bound, tree_tiles
+    from chip_smoke import cuda_ms, tree_tiles
+    from repro_torch.testing.kernel_check import rel_bound
     from repro_torch.kernels import _cuda, ggr_panel
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -69,7 +70,7 @@ def main() -> int:
             x = torch.randn((B, t, w), generator=gen, device="cuda", dtype=dtype)
         ref = ggr_panel.batched_geqrt_plain(x, n_piv)
         rms = float(ref.double().square().mean().sqrt())
-        bound = rel_bound("batched_geqrt", (B, t, w), dname)
+        bound = rel_bound("batched_geqrt", t, w, dname)
         label = f"({B}, {t}, {w}) n_piv {n_piv} {dname} {data}"
         if args.public:
             def run():

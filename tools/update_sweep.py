@@ -11,7 +11,7 @@ each shape the sweep launches the kernel through its C entry point at every
 G in 32, 64, 128, 192, 256, 512 and every PB in 1, 2, 4, 8, 16 that the
 kernel takes and that fits shared memory, with the rule's ws and nbuf.  Each
 layout is held against the plain version (max|err| / rms(out) within
-``chip_smoke.rel_bound``) and timed with CUDA events (mean of 10 launches
+``kernel_check.rel_bound``) and timed with CUDA events (mean of 10 launches
 after 2); each line names the layout, marks the rule's, and gives its time.
 The card's name and power limit are printed first.  Imports nothing of the
 JAX package.
@@ -21,6 +21,13 @@ the same shapes and on the tree's coupling data (``COUPLING``), and ``--src
 DIR`` imports ``repro_torch`` from another checkout's ``src``: so one call
 can time two commits at shapes the older one's ``chip_smoke.py`` does not
 run.
+
+``--mixed-nbuf`` times the bf16 / f16 instances (f32 sums) at the main
+path's three shapes under the rule's layout, whose two pivot buffers fill
+the next pivot row through registers, and under the layout the rule gives
+with one buffer (each pivot row loaded at the start of its step), in the
+order rule, one, one, rule, three times over; each layout held against the
+plain version as above, on ``kernel_check.condition_``-ed data.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ SHAPES = [  # (B, m, w, n_piv, dtype name): serving append, kalman, tree rounds
 # [R_a | I | 0; R_b | 0 | I] of R factors of random 64 x 64 tiles, whose
 # columns are zero below each R's diagonal (random data has no zeros)
 COUPLING = [(32, 128, 192, 64, "float32"), (1, 128, 192, 64, "float32")]
+# --mixed-nbuf: the serving append and kalman shapes and the tree coupling
+MIXED_NBUF = [(8192, 40, 33, 32), (8192, 104, 65, 64), (64, 128, 192, 64)]
 GROUP_THREADS = (32, 64, 128, 192, 256, 512)
 PROBLEMS_PER_BLOCK = (1, 2, 4, 8, 16)
 
@@ -49,6 +58,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--public", action="store_true",
                     help="time batched_update as it stands, no layout sweep")
+    ap.add_argument("--mixed-nbuf", action="store_true",
+                    help="time the bf16 / f16 instances with two pivot buffers and one")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory to import repro_torch from")
     args = ap.parse_args()
@@ -58,13 +69,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("update_sweep.py: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import cuda_ms, rel_bound
+    from chip_smoke import cuda_ms
+    from repro_torch.testing.kernel_check import rel_bound
     from repro_torch.kernels import _cuda, ggr_update
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.mixed_nbuf:
+        return mixed_nbuf(gen)
     failed = 0
     cases = [(*s, False) for s in SHAPES]
     if args.public:
@@ -84,7 +98,7 @@ def main() -> int:
             x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
         ref = ggr_update.batched_update_plain(x, n_piv)
         rms = float(ref.double().square().mean().sqrt())
-        bound = rel_bound("batched_update", (B, m, w), dname)
+        bound = rel_bound("batched_update", m, w, dname)
         if args.public:
             def run():
                 return ggr_update.batched_update(x, n_piv)
@@ -120,6 +134,46 @@ def main() -> int:
                 print(f"  ({B}, {m}, {w}) n_piv {n_piv} {dname}: layout {lay}{mark} "
                       f"{ms:.4f} ms, rel err {rel:.2e}{'' if ok else ' FAIL'}",
                       flush=True)
+    return 1 if failed else 0
+
+
+def mixed_nbuf(gen) -> int:
+    """``--mixed-nbuf``: the rule's layout against its one-buffer twin."""
+    import torch
+
+    from chip_smoke import cuda_ms
+    from repro_torch.kernels import _cuda, ggr_update
+    from repro_torch.testing.kernel_check import condition_, rel_bound
+
+    failed = 0
+    for dname in ("bfloat16", "float16"):
+        for B, m, w, n_piv in MIXED_NBUF:
+            x = condition_(torch.randn((B, m, w), generator=gen, device="cuda",
+                                       dtype=getattr(torch, dname)), "batched_update", n_piv)
+            ref = ggr_update.batched_update_plain(x, n_piv, "float32")
+            rms = float(ref.double().square().mean().sqrt())
+            rule = ggr_update._update_layout(m, w, n_piv, 4)  # shared memory holds f32
+            G = rule[0]
+            elems = ggr_update._smem_elems(m - n_piv + 1, w, 1) * 4
+            one = (G, min(max(1, ggr_update._BLOCK_THREADS // G), _cuda.MAX_SMEM_BYTES // elems,
+                          32 if G == 32 else ggr_update._NAMED_BARRIERS), w, 1)
+            times = {rule: [], one: []}
+            for _ in range(3):
+                for lay in (rule, one, one, rule):
+                    out = torch.empty_like(x)
+
+                    def run(lay=lay, out=out):
+                        _cuda.launch("ggr_update", "ggr_batched_update", [x, out],
+                                     B, m, w, n_piv, *lay, accum="float32")
+                        return out
+
+                    rel = float((run().double() - ref.double()).abs().max()) / rms
+                    failed += not rel <= rel_bound("batched_update", m, w, dname)
+                    times[lay].append(cuda_ms(run, reps=20, warmup=2))
+            print(f"  ({B}, {m}, {w}) n_piv {n_piv} {dname}/float32: "
+                  + "; ".join(f"layout {lay}{' (the rule)' if lay == rule else ''} "
+                              + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+                              for lay, ts in times.items()), flush=True)
     return 1 if failed else 0
 
 
