@@ -196,7 +196,21 @@ Drives the port's main path on the card and checks it, phase by phase:
    held against the plain version, its rounding at every step included;
    every launch of (a)-(c) at the run's
    pair, and the phase's wall printed;
-15. a JSON line of per-kernel numbers (a row for each kernel's f32 / f64
+15. the dry run on the card's host (``repro_torch.launch.dryrun``; no CUDA
+   work) — (a) ``python -m repro_torch.launch.dryrun --arch olmo-1b --shape
+   train_4k``: one AdamW step on meta tensors over a fake 16x16 mesh of
+   256 ranks with the depth probe, the reference's result keys, 256 chips,
+   a dominant roofline term, local FLOPs and collective bytes, the
+   useful-FLOPs ratio within the hand count's band
+   (``testing.dryrun_check``); per-device FLOPs, bytes, collective bytes by
+   kind and the three roofline seconds printed; (b) the same cell with
+   ``--optimizer orthant --no-probe``: B3/B4's launches and FLOPs a rank,
+   counted by shape, beside phase 13 (b)'s launches, and the momenta's
+   all-gather bytes beside AdamW's; (c) ``launch.specs``' olmo-1b
+   parameter and Orthant-state trees on a fake 1x4 mesh: rank 0's bytes
+   exactly those phase 13 (b)'s rank 0 holds; the phase's wall beside its
+   60 s budget;
+16. a JSON line of per-kernel numbers (a row for each kernel's f32 / f64
    instance, and one for each of its bf16 / f16 instances), then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -391,51 +405,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-# ----------------------------------------------------------- kernel models
+# ------------------------------- kernel models (operation counts: core.counts)
 def _itemsize(dtype_name: str) -> int:
     return {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2}[dtype_name]
-
-
-def _sweep_flops(rows: int, cols: int) -> int:
-    """One column step: the coefficient chain (~8 per active row), the pivot
-    row's division (1 per swept column) and the DET2 sweep (5 per active
-    element of the swept columns)."""
-    return 5 * rows * cols + cols + 8 * rows
-
-
-def update_flops(shape, n_piv: int) -> float:
-    """Operations the row-append sweep needs on these inputs.  Column c has
-    p+1 active rows; columns j < c of those rows are already zero and column
-    c is written as constants, so only the w-c-1 columns right of it are
-    swept."""
-    B, m, w = shape
-    a = m - n_piv + 1
-    return float(B * sum(_sweep_flops(a, w - c - 1) for c in range(n_piv)))
-
-
-def geqrt_flops(shape, n_piv: int) -> float:
-    """Operations the GEQRT sweep needs: column c sweeps its t-c active rows
-    over the w-c-1 columns right of it (the rest are zero or constants)."""
-    B, t, w = shape
-    return float(B * sum(_sweep_flops(t - c, w - c - 1)
-                         for c in range(min(n_piv, t))))
-
-
-def panel_flops(shape, pivot0: int) -> float:
-    """Operations the fused panel factorization needs: column c sweeps its
-    m - p active rows (p = pivot0 + c) over the b-c-1 columns right of it."""
-    B, m, b = shape
-    return float(B * sum(_sweep_flops(m - pivot0 - c, b - c - 1)
-                         for c in range(b) if pivot0 + c < m))
-
-
-def apply_flops(shape, b: int, pivot0: int) -> float:
-    """Operations the trailing apply needs: step c sweeps the m - p active
-    rows of all w columns at ~5 flops per element (the coefficients, ~8 per
-    row, are shared by all columns)."""
-    B, m, w = shape
-    return float(B * sum(5 * (m - pivot0 - c) * w + 8 * (m - pivot0 - c)
-                         for c in range(b) if pivot0 + c < m))
 
 
 def tree_tiles(B: int, b: int, gen, dtype, conditioned: bool = False):
@@ -478,6 +450,7 @@ class KernelCase:
     def __init__(self, name, shape, param, dtype, gen, data="random", accum=None):
         import torch
 
+        from repro_torch.core.counts import apply_flops, geqrt_flops, panel_flops, update_flops
         from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
         from repro_torch.testing import kernel_check as kc
 
@@ -2504,6 +2477,7 @@ def mesh_full_rank() -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import local_nbytes
     from repro_torch.testing.mesh_check import block_digests
     from repro_torch.train import Trainer
 
@@ -2515,7 +2489,9 @@ def mesh_full_rank() -> dict:
     t0 = time.perf_counter()
     tr = Trainer(cfg, mesh=make_debug_mesh(1, 4), optimizer="orthant", seq_len=TRAIN_SEQ,
                  global_batch=TRAIN_BATCH, lr=FULL_LR)
-    out = {"init_s": time.perf_counter() - t0, "steps": [], "digests": []}
+    out = {"init_s": time.perf_counter() - t0, "steps": [], "digests": [],
+           # this rank's bytes of its blocks, which phase 15 (c) lays out by shape
+           "local_bytes": {"params": local_nbytes(tr.params), "opt": local_nbytes(tr.opt_state)}}
     p0 = _block_matrices(tr.params)
     for step in range(1, MESH_FULL_STEPS + 1):
         torch.cuda.synchronize()
@@ -2920,7 +2896,10 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
     rec["card_peak_gib"] = max(s["card_used"] for s in rec["steps"]) / 2**30
     rec["init_s"] = [r["init_s"] for r in full]
     rec["losses"] = losses
+    rec["local_bytes"] = full[0]["local_bytes"]
     out["full"] = rec
+    print(f"  (b) rank 0's blocks: parameters {rec['local_bytes']['params']} bytes, optimizer "
+          f"state {rec['local_bytes']['opt']} bytes (phase 15 (c) lays them out by shape)")
     print(f"  (b) olmo-1b on 1x4: {rec['s_step']:.2f} s/step over steps 2-{MESH_FULL_STEPS}, "
           f"{rec['tok_s']:.1f} tok/s; peak allocated a rank "
           f"{', '.join(f'{x:.2f}' for x in rec['peak_gib'])} GiB, the card's memory in use "
@@ -3141,6 +3120,130 @@ def mixed_phase(kernels, card: str, reqs, f32_req_s: float, M, dense_ms: dict,
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(f"  phase 14 wall {out['wall_s']['phase']:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
+    return out
+
+
+# ------------------------------------------------------------ phase 15
+# the dry run of olmo-1b's train_4k cell on a fake 16x16 mesh of 256 ranks,
+# on the card's host: its outputs, each subprocess's time limit, the phase's
+# budget (printed beside its wall)
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_TIMEOUT, DRYRUN_BUDGET = 150.0, 60.0
+# (a) AdamW with the depth probe, (b) Orthant without it
+DRYRUN_CELLS = {"adamw": ([], "olmo-1b__train_4k__pod1.json"),
+                "orthant": (["--optimizer", "orthant", "--no-probe"],
+                            "olmo-1b__train_4k__pod1.orthant.json")}
+
+
+def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
+    """Phase 15: (a) ``python -m repro_torch.launch.dryrun --arch olmo-1b
+    --shape train_4k`` (16x16 fake ranks, AdamW, the depth probe): the
+    reference's keys, 256 chips, a dominant term, local FLOPs and collective
+    bytes, the useful-FLOPs ratio within the hand count's band
+    (``testing.dryrun_check``); (b) the same cell with Orthant, B3/B4's
+    launches and FLOPs a rank and the momenta's all-gather bytes beside
+    AdamW's; (c) ``launch.specs``' parameter and Orthant-state trees of
+    olmo-1b on a fake 1x4 mesh in this process: rank 0's bytes exactly those
+    of phase 13 (b)'s rank 0 (``mesh_full``).  (a) and (b) run as two
+    subprocesses beside (c); no kernel is launched."""
+    import torch
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel import MeshRules
+    from repro_torch.testing.dryrun_check import missing_keys, useful_band
+
+    t_phase = time.perf_counter()
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for name, (extra, fname) in DRYRUN_CELLS.items():
+        path = DRYRUN_DIR / fname
+        path.unlink(missing_ok=True)
+        procs[name] = (path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
+             "--shape", "train_4k", *extra, "--out", str(path)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, env=env))
+    out = {"wall_s": {}}
+
+    # (c) meanwhile: phase 13 (b)'s blocks laid out by shape on a fake 1x4 mesh
+    t0 = time.perf_counter()
+    before = _counts(kernels)[0]
+    cfg = get_config("olmo-1b")
+    try:
+        with dryrun.fake_mesh((1, 4), ("data", "model")) as mesh:
+            rules = MeshRules(mesh)
+            p = specs.param_specs(cfg, rules)
+            o = specs.opt_specs(p, cfg, rules, make_optimizer("orthant")[0])
+            laid = {"params": specs.local_nbytes(p), "opt": specs.local_nbytes(o)}
+    except Exception as e:  # a failed check, not a crash of the whole run
+        laid = {"error": repr(e)}
+    real = (mesh_full or {}).get("local_bytes")
+    out["local_bytes"] = {"dry run": laid, "card": real}
+    out["wall_s"]["c"] = time.perf_counter() - t0
+    check(real is not None and laid == real and _counts(kernels)[0] == before,
+          f"(c) olmo-1b on a fake 1x4 mesh: rank 0's parameter / Orthant-state bytes "
+          f"{laid} by shape, phase 13 (b)'s rank 0 on the card {real} (exactly equal); no "
+          f"kernel launched ({out['wall_s']['c']:.1f} s)")
+
+    res = {}
+    for name, (path, proc) in procs.items():
+        left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_phase))
+        try:
+            _, err = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        ok = proc.returncode == 0 and path.exists()
+        part = "a" if name == "adamw" else "b"
+        args = " ".join(["--arch olmo-1b --shape train_4k", *DRYRUN_CELLS[name][0]])
+        check(ok, f"({part}) launch.dryrun {args} exits 0 (rc {proc.returncode})"
+                  + ("" if ok else f": {err[-2000:]}"))
+        res[name] = json.loads(path.read_text()) if ok else None
+    out["wall_s"]["a+b"] = time.perf_counter() - t_phase
+
+    a = res["adamw"]
+    if a is not None:
+        pd, roof = a["per_device"], a["roofline_seconds_corrected"]
+        lo, hi = useful_band(cfg, get_shape("train_4k"))
+        ratio = a["useful_flops_ratio_corrected"]
+        missing = missing_keys(a)
+        check(not missing and a["chips"] == 256
+              and roof["dominant"] in ("compute", "memory", "collective")
+              and pd["hlo_flops"] > 0 and pd["collective_bytes"] > 0 and lo <= ratio <= hi,
+              f"(a) olmo-1b train_4k on 16x16 (AdamW): keys missing {missing}, chips "
+              f"{a['chips']}, dominant {roof['dominant']}, useful FLOPs ratio {ratio:.4f} in "
+              f"[{lo:.4f}, {hi:.4f}] (the hand count's band)")
+        print(f"  (a) per device: {pd['hlo_flops']:.6e} FLOPs, {pd['hlo_bytes']:.6e} bytes, "
+              f"collectives {json.dumps(pd['collectives'])} ({pd['collective_bytes']} bytes); "
+              f"roofline compute {roof['compute']:.6f} s, memory {roof['memory']:.6f} s, "
+              f"collective {roof['collective']:.6f} s (H100 constants: {dryrun.PEAK_FLOPS:.3e} "
+              f"FLOP/s, {dryrun.HBM_BW:.3e} B/s, {dryrun.ICI_BW:.3e} B/s); the step took "
+              f"{a['compile_seconds']:.2f} s on this host; card {card}")
+        out["adamw"] = {"per_device": pd, "roofline_corrected": roof, "useful": ratio,
+                        "band": [lo, hi], "seconds": a["compile_seconds"]}
+    b = res["orthant"]
+    if b is not None:
+        ks = b["per_device"].get("kernels", {})
+        b3, b4 = ks.get("panel_factor", {}), ks.get("apply_factors", {})
+        card_steps = (mesh_full or {}).get("steps") or [{}]
+        on_card = (card_steps[0].get("B3", [None])[0], card_steps[0].get("B4", [None])[0])
+        gathered = b["per_device"]["collectives"]["all-gather"] - (
+            a["per_device"]["collectives"]["all-gather"] if a else 0)
+        check(b["chips"] == 256 and b3.get("launches", 0) > 0 and b4.get("launches", 0) > 0,
+              f"(b) olmo-1b train_4k on 16x16 (Orthant): B3 {b3.get('launches')} launches, "
+              f"{b3.get('flops', 0):.6e} FLOPs; B4 {b4.get('launches')} launches, "
+              f"{b4.get('flops', 0):.6e} FLOPs a rank a step, counted by shape (phase 13 (b)'s "
+              f"rank 0 launched {on_card[0]} / {on_card[1]} in its first step); all-gather "
+              f"{b['per_device']['collectives']['all-gather']} bytes, {gathered} more than "
+              f"AdamW's (the momenta each rank gathers whole); card {card}")
+        out["orthant"] = {"kernels": ks, "per_device": b["per_device"],
+                          "momenta_all_gather_bytes": gathered, "card_launches": on_card,
+                          "seconds": b["compile_seconds"]}
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 15 wall {out['wall_s']['phase']:.1f} s (budget {DRYRUN_BUDGET:.0f} s; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
     return out
 
 
@@ -3404,7 +3507,11 @@ def main() -> int:
     mixed = mixed_phase(kernels, card, reqs, req_s, M, dense_ms, gen)
 
     # ------------------------------------------------------------ phase 15
-    phase("15. summary")
+    phase("15. the dry run on the card's host")
+    dry = dryrun_phase(kernels, card, mesh.get("full"))
+
+    # ------------------------------------------------------------ phase 16
+    phase("16. summary")
     headline = {"batched_update": ("batched_update", (8192, 40, 33), "float32"),
                 "batched_geqrt": ("batched_geqrt", (128, 64, 128), "float32"),
                 "panel_factor": ("panel_factor", (1, 4096, 64), "float32"),
@@ -3463,6 +3570,7 @@ def main() -> int:
     print(f"  phase 12: {json.dumps({k: v for k, v in train.items() if k != 'shapes'})}")
     print(f"  phase 13: {json.dumps({k: v for k, v in mesh.items() if k != 'shapes'})}")
     print(f"  phase 14: {json.dumps({k: v for k, v in mixed.items() if k != 'shapes'})}")
+    print(f"  phase 15: {json.dumps(dry)}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

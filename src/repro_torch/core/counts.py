@@ -31,8 +31,17 @@ any custom op) or a launch of one of the port's hand-written CUDA kernels,
 which run outside the dispatcher (their launch counters are read before and
 after ``fn``).  ``torch.utils.flop_counter`` is no substitute: it counts
 matrix products only, and a GGR sweep is all elementwise work.
+
+The kernels' operation models (``update_flops``, ``geqrt_flops``,
+``panel_flops``, ``apply_flops``) count what each hand-written kernel does
+on given inputs; ``chip_smoke.py`` bounds each kernel's time by them, and
+the dry run (``launch.dryrun``) adds them to a step's FLOPs where the fused
+schedule meets meta tensors: ``kernel_tally`` collects the launches and
+operations ``tally_kernel`` reports there, with no kernel launched.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -50,6 +59,12 @@ __all__ = [
     "householder_qr2_mults",
     "count_mults",
     "MultCount",
+    "update_flops",
+    "geqrt_flops",
+    "panel_flops",
+    "apply_flops",
+    "kernel_tally",
+    "tally_kernel",
 ]
 
 
@@ -223,3 +238,70 @@ def count_mults(fn, *args, **kwargs) -> MultCount:
         fn(*args, **kwargs)
     exact = census.exact and _kernel_launches() == before
     return MultCount(census.total, exact)
+
+
+# ---------------------------------------------------------------- kernel models
+def _sweep_flops(rows: int, cols: int) -> int:
+    """One column step: the coefficient chain (~8 per active row), the pivot
+    row's division (1 per swept column) and the DET2 sweep (5 per active
+    element of the swept columns)."""
+    return 5 * rows * cols + cols + 8 * rows
+
+
+def update_flops(shape, n_piv: int) -> float:
+    """Operations the row-append sweep needs on these inputs.  Column c has
+    p+1 active rows; columns j < c of those rows are already zero and column
+    c is written as constants, so only the w-c-1 columns right of it are
+    swept."""
+    B, m, w = shape
+    a = m - n_piv + 1
+    return float(B * sum(_sweep_flops(a, w - c - 1) for c in range(n_piv)))
+
+
+def geqrt_flops(shape, n_piv: int) -> float:
+    """Operations the GEQRT sweep needs: column c sweeps its t-c active rows
+    over the w-c-1 columns right of it (the rest are zero or constants)."""
+    B, t, w = shape
+    return float(B * sum(_sweep_flops(t - c, w - c - 1)
+                         for c in range(min(n_piv, t))))
+
+
+def panel_flops(shape, pivot0: int) -> float:
+    """Operations the fused panel factorization needs: column c sweeps its
+    m - p active rows (p = pivot0 + c) over the b-c-1 columns right of it."""
+    B, m, b = shape
+    return float(B * sum(_sweep_flops(m - pivot0 - c, b - c - 1)
+                         for c in range(b) if pivot0 + c < m))
+
+
+def apply_flops(shape, b: int, pivot0: int) -> float:
+    """Operations the trailing apply needs: step c sweeps the m - p active
+    rows of all w columns at ~5 flops per element (the coefficients, ~8 per
+    row, are shared by all columns)."""
+    B, m, w = shape
+    return float(B * sum(5 * (m - pivot0 - c) * w + 8 * (m - pivot0 - c)
+                         for c in range(b) if pivot0 + c < m))
+
+
+_TALLIES: list = []  # the open kernel_tally records, innermost last
+
+
+@contextlib.contextmanager
+def kernel_tally():
+    """Collects, under it, what the kernel wrappers report for meta tensors
+    (``tally_kernel``): ``{name: {"launches": n, "flops": f}}``, the
+    launches a card would make and their operations by the models above."""
+    record: dict = {}
+    _TALLIES.append(record)
+    try:
+        yield record
+    finally:
+        _TALLIES.remove(record)
+
+
+def tally_kernel(name: str, launches: int, flops: float) -> None:
+    """Adds a kernel call on meta tensors to every open ``kernel_tally``."""
+    for record in _TALLIES:
+        entry = record.setdefault(name, {"launches": 0, "flops": 0.0})
+        entry["launches"] += launches
+        entry["flops"] += flops

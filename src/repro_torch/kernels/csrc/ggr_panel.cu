@@ -14,7 +14,7 @@
 // while column c sweeps its t-c active rows over the w-c-1 columns right of it
 // (columns left of c are already zero) at about 5 flops per element, so the
 // work is B*sum_c (5*(t-c)*(w-c-1) + (w-c-1) + 8*(t-c)) flops
-// (chip_smoke.py::geqrt_flops).  At the tree schedule's level-0 shape (t = b
+// (core/counts.py::geqrt_flops).  At the tree schedule's level-0 shape (t = b
 // = 64, w = 2b) that is 17 flops per byte in f32 and 8.6 in f64, under the
 // H100's ridge of 20 and 10 (67 / 34 TFLOP/s over 3.35 TB/s), so bytes bound
 // it.  Each element is read from device memory once and written once: the

@@ -14,7 +14,7 @@
 // elements.  Column c sweeps its p+1 active rows over the w-c-1 columns right
 // of it (columns left of c are already zero), about 5 flops per element, so
 // the work is B*sum_c (5*(p+1)*(w-c-1) + (w-c-1) + 8*(p+1)) flops
-// (chip_smoke.py::update_flops).  That is 2.5 flops per byte at the serving
+// (core/counts.py::update_flops).  That is 2.5 flops per byte at the serving
 // append shape (40 x 33, f32), 8.3 at the kalman shape (104 x 65, f32) and
 // 17 / 8.6 at the tree-coupling shape (128 x 192, 64 pivots) in f32 / f64:
 // all under the H100's ridge of 20 f32 and 10 f64 flops per byte (67 and 34

@@ -119,6 +119,27 @@ def _apply_factors_cuda(V, T, C, pivot0, accum_dtype, out):
     return out
 
 
+def _apply_factors_meta(V, T, C, pivot0, accum_dtype, out):
+    """The kernel's result as a meta tensor of C's shape and dtype (``out``
+    itself when given), nothing computed: the dry run's stand-in for the
+    launches (``launch.dryrun``).  It tallies the launches the card would
+    make (one per ``_MAX_STAGES`` transforms with a pivot row) and their
+    operations (``core.counts.apply_flops``) in any open
+    ``core.counts.kernel_tally``, and leaves ``launches`` and ``shapes`` as
+    they are."""
+    from repro_torch.core import counts
+
+    _kernel_dtype_check(C, accum_dtype, "apply_factors")
+    B, m, b = V.shape
+    w = C.shape[2]
+    if B and m and w and b:
+        launches = len([g0 for g0 in range(0, b, _MAX_STAGES) if pivot0 + g0 < m])
+        counts.tally_kernel("apply_factors", launches, counts.apply_flops(C.shape, b, pivot0))
+    if out is None:
+        out = torch.empty_like(C, memory_format=torch.contiguous_format)
+    return out
+
+
 def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
                   pivot0: int = 0, block_w: int = 256, precision=None,
                   out: torch.Tensor | None = None) -> torch.Tensor:
@@ -135,7 +156,8 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     the uniform f32 / f64 policies and bf16 / f16 tiles with f32
     accumulation.  The launch count is
     ``apply_factors.launches``; more than 128 transforms take one launch per
-    128.
+    128.  A meta tensor computes nothing: the result's shape comes back and
+    the launches are tallied for the dry run (``_apply_factors_meta``).
     """
     if block_w <= 0:
         raise ValueError(f"block_w must be positive, got {block_w}")
@@ -160,6 +182,8 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     if C.device.type == "cpu":
         res = apply_factors_plain(V, T, C, pivot0, accum)
         res = res if out is None else out.copy_(res)
+    elif C.device.type == "meta":
+        res = _apply_factors_meta(V, T, C, pivot0, accum, out)
     else:
         res = _apply_factors_cuda(V, T, C, pivot0, accum, out)
     return res if batched else res[0]

@@ -370,6 +370,22 @@ def _panel_factor_cuda(panel: torch.Tensor, pivot0: int,
     return R, V, T
 
 
+def _panel_factor_meta(panel: torch.Tensor, pivot0: int, accum_dtype: str | None):
+    """The kernel's (R, V, T) as meta tensors of their shapes and dtypes,
+    nothing computed: the dry run's stand-in for a launch
+    (``launch.dryrun``).  It tallies the launch the card would make and its
+    operations (``core.counts.panel_flops``) in any open
+    ``core.counts.kernel_tally``, and leaves ``launches`` and ``shapes`` as
+    they are."""
+    from repro_torch.core import counts
+
+    _kernel_dtype_check(panel, accum_dtype, "panel_factor")
+    if panel.numel():
+        counts.tally_kernel("panel_factor", 1, counts.panel_flops(panel.shape, pivot0))
+    return tuple(torch.empty_like(panel, memory_format=torch.contiguous_format)
+                 for _ in range(3))
+
+
 def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
     """Fused GGR factorization of an (m, b) panel, or a (B, m, b) batch;
     returns (R, V, T) of the panel's shape.
@@ -387,7 +403,9 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
     panels with f32 accumulation.  The CUDA kernel
     splits each panel by rows over co-resident blocks (``_panel_blocks``); a
     large batch may take several launches, and a call counts once in
-    ``panel_factor.launches``.
+    ``panel_factor.launches``.  A meta tensor computes nothing: the outputs'
+    shapes come back and the call is tallied for the dry run
+    (``_panel_factor_meta``).
     """
     if panel.ndim not in (2, 3):
         raise ValueError(f"panel_factor expects (m, b) or (B, m, b), got "
@@ -404,6 +422,8 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
     count_resolution(x)
     if x.device.type == "cpu":
         out = panel_factor_plain(x, pivot0, accum)
+    elif x.device.type == "meta":
+        out = _panel_factor_meta(x, pivot0, accum)
     else:
         out = _panel_factor_cuda(x, pivot0, accum)
     return out if batched else tuple(o[0] for o in out)

@@ -22,13 +22,26 @@ _F32 = torch.float32
 
 
 def constrain_act(h, cfg: ArchConfig):
-    """Between-block activation sharding constraint of the JAX package's
-    GSPMD path.  The port has no counterpart: the identity without sequence
-    parallelism, and it raises rather than ignore ``act_sp_axis``."""
-    if cfg.act_sp_axis is None:
+    """Between-block activation sharding constraint (SP when act_sp_axis set).
+
+    With sequence parallelism the residual stream lives sharded over the
+    model axis on the sequence dim: a ``DTensor`` ``h`` is redistributed to
+    ``P(dp, act_sp_axis, None)``, so each tensor-parallel all-reduce becomes a
+    reduce-scatter here plus an all-gather at the next matmul (half the
+    bytes), and norms and elementwise ops run on 1/P of the tokens.  Without
+    ``act_sp_axis`` it is the identity; a plain tensor with ``act_sp_axis``
+    set raises, as there is no mesh to constrain it on.
+    """
+    if cfg.act_sp_axis is None or cfg.act_dp_axes is None:
         return h
-    raise NotImplementedError(
-        "act_sp_axis (GSPMD sequence parallelism) has no counterpart in the port")
+    if not mesh_ops.is_dtensor(h):
+        raise ValueError(f"constrain_act: act_sp_axis={cfg.act_sp_axis!r} needs a DTensor on "
+                         "a mesh, got a plain tensor")
+    from repro_torch.parallel import PartitionSpec, placements
+
+    dp = cfg.act_dp_axes if len(cfg.act_dp_axes) > 1 else cfg.act_dp_axes[0]
+    place = placements(PartitionSpec(dp, cfg.act_sp_axis, None), h.device_mesh)
+    return h if tuple(h.placements) == place else h.redistribute(h.device_mesh, place)
 
 
 def checkpointed(fn, *args, policy: str = "full"):
@@ -170,9 +183,11 @@ def _qkv(params, x, cfg: ArchConfig):
 
 
 def attention_fwd(params, h, cfg: ArchConfig, positions=None, chunk: int = 512):
-    """Full (training/prefill) self-attention with RoPE + GQA (+ SWA)."""
-    B, S, d = h.shape
-    q, k, v = _qkv(params, h.to(cfg.cdt), cfg)
+    """Full (training/prefill) self-attention with RoPE + GQA (+ SWA).  On a
+    mesh it reads ``h`` with its sequence whole and leaves its output in
+    ``h``'s placements (``mesh_ops.seq_gathered`` / ``reduced_like``)."""
+    S = h.shape[1]
+    q, k, v = _qkv(params, mesh_ops.seq_gathered(h).to(cfg.cdt), cfg)
     if positions is None:
         positions = torch.arange(S, device=h.device)[None, :]
     inv = rope_freqs(cfg, h.device)
@@ -181,8 +196,8 @@ def attention_fwd(params, h, cfg: ArchConfig, positions=None, chunk: int = 512):
     ck = min(chunk, S)
     while S % ck:
         ck //= 2
-    out = _chunked_causal_attention(q, k, v, cfg.swa_window, ck)
-    return (out.reshape(B, S, -1) @ params["wo"].to(cfg.cdt)).to(h.dtype)
+    out = mesh_ops.merge_heads(_chunked_causal_attention(q, k, v, cfg.swa_window, ck))
+    return mesh_ops.reduced_like((out @ params["wo"].to(cfg.cdt)).to(h.dtype), h)
 
 
 def _ring_write(cache, new, pos):
@@ -190,7 +205,11 @@ def _ring_write(cache, new, pos):
     (B, Smax, ...) in place.  ``pos`` is a Python int or a 0-d tensor on the
     cache's device; neither reads the device from the host."""
     Smax = cache.shape[1]
-    if isinstance(pos, torch.Tensor):
+    if mesh_ops.is_dtensor(cache):
+        slot = (pos % Smax if isinstance(pos, torch.Tensor)
+                else torch.tensor(pos % Smax, device=cache.device))
+        mesh_ops.cache_write(cache, new.to(cache.dtype), slot.reshape(1).long())
+    elif isinstance(pos, torch.Tensor):
         cache.index_copy_(1, (pos % Smax).reshape(1).long(), new.to(cache.dtype))
     else:
         cache[:, pos % Smax] = new[:, 0].to(cache.dtype)
@@ -207,7 +226,6 @@ def attention_decode(params, h, cache_k, cache_v, pos, cfg: ArchConfig):
     """
     B = h.shape[0]
     hd = cfg.head_dim
-    Smax = cache_k.shape[1]
     q, k, v = _qkv(params, h.to(cfg.cdt), cfg)
     inv = rope_freqs(cfg, h.device)
     if isinstance(pos, torch.Tensor):
@@ -218,18 +236,27 @@ def attention_decode(params, h, cache_k, cache_v, pos, cfg: ArchConfig):
     k = apply_rope(k, posb, inv)
     _ring_write(cache_k, k, pos)  # a no-op ring when Smax >= S
     _ring_write(cache_v, v, pos)
+    out = _decode_core(q, cache_k, cache_v, pos)
+    out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.cdt)
+    return (mesh_ops.reduced_like((out @ params["wo"].to(cfg.cdt)).to(h.dtype), h),
+            cache_k, cache_v)
 
-    G = cfg.n_heads // cfg.n_kv_heads
-    qf = (q * hd ** -0.5).to(_F32).reshape(B, cfg.n_kv_heads, G, hd)
+
+@mesh_ops.headwise
+def _decode_core(q, cache_k, cache_v, pos):
+    """One query token against the cache: q (B, 1, H, D), cache (B, Smax,
+    Hkv, D) -> (B, 1, H, D) in f32."""
+    B, _, H, hd = q.shape
+    Smax, Hkv = cache_k.shape[1:3]
+    qf = (q * hd ** -0.5).to(_F32).reshape(B, Hkv, H // Hkv, hd)
     s_ = torch.einsum("bhgd,bshd->bhgs", qf, cache_k.to(_F32))  # (B, Hkv, G, Smax)
-    idx = torch.arange(Smax, device=h.device)
+    idx = torch.arange(Smax, device=q.device)
     # pre-wrap: only slots <= pos are live; post-wrap (ring): all slots live
     valid = (idx <= pos) | (pos >= Smax)
     s_ = s_.masked_fill(~valid, float("-inf"))
     p = torch.softmax(s_, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.to(_F32))
-    out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.cdt)
-    return (out @ params["wo"].to(cfg.cdt)).to(h.dtype), cache_k, cache_v
+    return out.reshape(B, 1, H, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -247,14 +274,15 @@ def init_mlp(gen, cfg: ArchConfig, d_ff: Optional[int] = None, lead=(), device=N
 
 
 def mlp_fwd(params, h, cfg: ArchConfig):
+    """The MLP; on a mesh placed as ``attention_fwd``."""
     cdt = cfg.cdt
-    x = h.to(cdt)
+    x = mesh_ops.seq_gathered(h).to(cdt)
     a = x @ params["w1"].to(cdt)
     if cfg.activation == "sq_relu":  # nemotron: squared ReLU, ungated
         inner = torch.square(torch.relu(a))
     else:
         inner = act_fn(a, cfg) * (x @ params["w3"].to(cdt))
-    return (inner @ params["w2"].to(cdt)).to(h.dtype)
+    return mesh_ops.reduced_like((inner @ params["w2"].to(cdt)).to(h.dtype), h)
 
 
 # ---------------------------------------------------------------------------

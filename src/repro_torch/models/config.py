@@ -59,9 +59,8 @@ class ArchConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
-    # activation-sharding constraints of the JAX package's GSPMD launcher;
-    # the port has no counterpart (``blocks.constrain_act`` raises when
-    # ``act_sp_axis`` is set)
+    # batch dims over act_dp_axes; optionally megatron-style sequence parallel
+    # over act_sp_axis between blocks (``blocks.constrain_act``, on a mesh)
     act_dp_axes: Optional[tuple] = None
     act_sp_axis: Optional[str] = None
 

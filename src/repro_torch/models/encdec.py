@@ -55,8 +55,7 @@ def _softmax_attend(q, k, v):
 def _attend(params, q, k, v, cfg: ArchConfig):
     """Unmasked softmax attention of q (B, S, H, hd) over k, v (B, T, Hkv,
     hd), then the output projection."""
-    B, S = q.shape[:2]
-    o = _softmax_attend(q, k, v).reshape(B, S, -1).to(cfg.cdt)
+    o = mesh_ops.merge_heads(_softmax_attend(q, k, v)).to(cfg.cdt)
     return o @ params["wo"].to(cfg.cdt)
 
 
@@ -68,7 +67,7 @@ def _bidir_attention(params, h, cfg: ArchConfig):
     inv = blocks.rope_freqs(cfg, h.device)
     q = blocks.apply_rope(q, pos, inv)
     k = blocks.apply_rope(k, pos, inv)
-    return _attend(params, q, k, v, cfg).to(h.dtype)
+    return mesh_ops.reduced_like(_attend(params, q, k, v, cfg).to(h.dtype), h)
 
 
 def _cross_kv(params, enc_out, cfg: ArchConfig):
@@ -82,14 +81,14 @@ def cross_attention(params, h, enc_out, cfg: ArchConfig):
     q = mesh_ops.split_heads(h.to(cfg.cdt) @ params["wq"].to(cfg.cdt), cfg.n_heads,
                              cfg.head_dim)
     k, v = _cross_kv(params, enc_out, cfg)
-    return _attend(params, q, k, v, cfg).to(h.dtype)
+    return mesh_ops.reduced_like(_attend(params, q, k, v, cfg).to(h.dtype), h)
 
 
 def _xattn_decode(params, h, xk, xv, cfg: ArchConfig):
     """Cross-attention for one decoder token against precomputed encoder KV."""
     B = h.shape[0]
     q = (h.to(cfg.cdt) @ params["wq"].to(cfg.cdt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    return _attend(params, q, xk, xv, cfg).to(h.dtype)
+    return mesh_ops.reduced_like(_attend(params, q, xk, xv, cfg).to(h.dtype), h)
 
 
 def precompute_cross_kv(params, enc_out, cfg: ArchConfig):

@@ -26,7 +26,22 @@ parameters (``train.Trainer(mesh=...)``), and nothing more.
 - the ops in ``REPLICATED_OPS``, which have no rule or whose grouping of
   tokens a sharded batch would change: they run on their inputs
   redistributed to ``Replicate()`` on every mesh dimension, their outputs
-  replicated, as GSPMD runs an op it has no rule for.
+  replicated, as GSPMD runs an op it has no rule for;
+- the tensor-parallel blocks' ends, placed as Megatron places them: a
+  row-parallel output's partial sums are reduced into the residual
+  stream's placements where they leave the block (``reduced_like``: an
+  all-reduce, or with sequence parallelism a reduce-scatter), and a
+  sequence split over the mesh is gathered where a block reads it, the
+  gradient reduced there in the backward pass (``seq_gathered``; heads
+  merged for the row-parallel product keep their gradient in placements
+  the heads can be split from, ``merge_heads``).  Left to
+  ``DTensor``, partial sums (of activations forward, of gradients backward)
+  flow on into the next block, whose products its strategies may then run
+  on the partial sums with the weights gathered whole (a model-axis-fold
+  of their work), and a sequence-split input cannot be flattened into a
+  product's rows;
+- a decode step's write into a cache whose sequence is whole
+  (``cache_write``: on each rank's block; ``index_copy_`` has no rule).
 
 Everything here is the identity on plain tensors: one device's results keep
 their bits.
@@ -276,3 +291,95 @@ def vocab_parallel_lookup(table, tokens):
     else:
         rows = local[tok]
     return DTensor.from_local(rows, mesh, tok_place, run_check=False)
+
+
+class _Reduce(torch.autograd.Function):
+    """Partial sums reduced into ``place`` in the forward pass; in the
+    backward the gradient as it comes (Megatron's "g" operator: the
+    gradient of a sum is each term's).  ``DTensor``'s own backward of the
+    reduction leaves the gradient partial, and the row-parallel product's
+    backward then runs on partial sums with its weight gathered whole."""
+
+    @staticmethod
+    def forward(ctx, y, place):
+        return y.redistribute(y.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduced_like(y, like):
+    """A block's output ``y`` whose partial sums (``Partial()`` placements,
+    a row-parallel product's) are reduced into the placements of ``like``,
+    the residual stream the block read; anything else as it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not any(isinstance(p, Partial) for p in y.placements):
+        return y
+    # a stream itself partial (a norm's mean over a dimension the model axis
+    # splits) takes the sums whole
+    return _Reduce.apply(y, tuple(Replicate() if isinstance(p, Partial) else p
+                                  for p in like.placements))
+
+
+class _Read(torch.autograd.Function):
+    """``x`` in ``place`` in the forward pass (a gather, or nothing); in the
+    backward the gradient reduced into ``x``'s own placements (Megatron's
+    "f" operator: the column-parallel products leave the gradient of their
+    input partial, and the reduction belongs here, before it flows on)."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        ctx.place = x.placements
+        return x.view_as(x) if tuple(x.placements) == place else x.redistribute(
+            x.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != tuple(ctx.place):
+            g = g.redistribute(g.device_mesh, ctx.place)
+        return g, None
+
+
+def merge_heads(x):
+    """``x`` (..., H, D) as (..., H·D).  A ``DTensor``'s gradient comes back
+    in the merged tensor's own placements: a row-parallel product's
+    backward splits it over the model axis, finer than the heads where they
+    do not divide that axis, and ``DTensor`` cannot split such a gradient
+    back into heads."""
+    flat = x.reshape(*x.shape[:-2], -1)
+    return _Read.apply(flat, tuple(flat.placements)) if is_dtensor(flat) else flat
+
+
+def seq_gathered(x):
+    """A (B, S, ...) ``DTensor`` block input with its sequence dimension
+    (1) whole (sequence parallelism's all-gather), its gradient reduced into
+    its own placements in the backward pass; anything else as it is."""
+    if not (is_dtensor(x) and x.ndim >= 3):
+        return x
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if any(isinstance(p, Partial) for p in x.placements):
+        return unsharded(x, 1)  # no gradient can be reduced into partial sums
+    place = tuple(Replicate() if p in (Shard(1), Shard(1 - x.ndim)) else p
+                  for p in x.placements)
+    return _Read.apply(x, place)
+
+
+def cache_write(cache, new, index) -> None:
+    """``cache.index_copy_(1, index, new)`` for a ``DTensor`` cache whose
+    dimension 1 (the sequence) is whole: each rank writes its own block,
+    ``new`` placed as the cache is.  A cache split along the sequence (a
+    long context whose batch does not divide the data axes) raises
+    ``NotImplementedError``: the slot may lie on another rank."""
+    from torch.distributed.tensor import Shard
+
+    if any(p in (Shard(1), Shard(1 - cache.ndim)) for p in cache.placements):
+        raise NotImplementedError("a decode write into a cache split along its sequence "
+                                  "over the mesh")
+    if new.placements != cache.placements:
+        new = new.redistribute(cache.device_mesh, cache.placements)
+    cache.to_local().index_copy_(1, index, new.to_local())

@@ -173,7 +173,8 @@ def forward_hidden(params, embeds, cfg: ArchConfig, positions=None):
     else:
         raise ValueError(cfg.family)
 
-    return blocks.apply_norm(params["final_norm"], h, cfg)
+    # the head reads the whole sequence (sequence parallelism's last gather)
+    return mesh_ops.seq_gathered(blocks.apply_norm(params["final_norm"], h, cfg))
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):

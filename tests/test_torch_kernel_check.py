@@ -8,7 +8,10 @@ from the exact result.  Here the plain version with f64 sums at the same
 tile dtype stands in for a sound kernel (it rounds the state at the same
 points, from other sums), and the f32 plain version rounded once to the
 tile dtype is the fault the check is there for: the first must pass, the
-second must fail, at shapes where a part has READ_ENTRIES entries.
+second must fail, at shapes where a part has READ_ENTRIES entries.  Those
+cases, each kernel's, are in ``test_torch_kernel_check_{update,geqrt,
+panel,apply}.py``, one file a kernel so that they run on separate workers;
+this file holds the checks that take no kernel.
 """
 import numpy as np
 import pytest
@@ -18,79 +21,6 @@ from repro_torch.kernels.backend import resolve_precision
 from repro_torch.testing import kernel_check as kc
 
 KERNELS = ("batched_update", "batched_geqrt", "panel_factor", "apply_factors")
-# (kernel, shape, param) with a part of at least READ_ENTRIES entries:
-# B1's residual rows at the serving append's and the tree coupling's
-# widths, B2's tiles, B3's V and T, B4's columns
-CASES = [("batched_update", (2048, 40, 33), 32), ("batched_update", (8, 128, 192), 64),
-         ("batched_geqrt", (8, 64, 128), 64), ("panel_factor", (1, 1024, 64), 0),
-         ("apply_factors", (1, 512, 256), (64, 0))]
-
-
-def _case(name, shape, param, dtype, seed=1):
-    x, plain, _ = kc.mixed_inputs(name, shape, param, dtype,
-                                  torch.Generator().manual_seed(seed))
-    return x, plain
-
-
-def _outs(name, param, r):
-    return kc.parts(name, param, r if isinstance(r, tuple) else (r,))
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("name,shape,param", CASES)
-def test_rounding_at_every_step_is_told_from_rounding_once(name, shape, param, dtype):
-    """Every part of a state rounded at every step (f64 sums) reads within
-    ROUNDING; the f32 result rounded once reads below half its lower end on
-    some part."""
-    x, plain = _case(name, shape, param, dtype)
-    ref = _outs(name, param, plain(x, "float32"))
-    exact = _outs(name, param, plain(x.double(), None))
-    sound, ratios = kc.per_step(_outs(name, param, plain(x, "float64")), ref, exact)
-    assert ratios and sound, ratios
-    once = tuple(o.to(dtype) for o in _outs(name, param, plain(x.float(), None)))
-    fooled, once_ratios = kc.per_step(once, ref, exact)
-    assert not fooled and min(once_ratios) < 0.5 * kc.ROUNDING[0], once_ratios
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("name,shape,param", CASES)
-def test_a_sound_mixed_result_is_within_its_bound(name, shape, param, dtype):
-    """The f64-summed stand-in lies within rel_bound (max|err| / rms) of the
-    f32-summed plain version on every output: the bound has room for a
-    sound kernel's other sums."""
-    x, plain = _case(name, shape, param, dtype)
-    got, want = plain(x, "float64"), plain(x, "float32")
-    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-    bound = kc.rel_bound(name, shape[1], shape[2], dtype)
-    assert max(kc.rel_err(a, b) for a, b in zip(got, want)) <= bound
-
-
-@pytest.mark.parametrize("name,shape,param", [
-    ("batched_update", (16, 104, 65), 64), ("batched_update", (16, 40, 33), 32),
-    ("batched_geqrt", (16, 64, 128), 64), ("batched_geqrt", (16, 20, 24), 16),
-    ("panel_factor", (4, 96, 64), 0), ("panel_factor", (4, 300, 40), 200),
-    ("apply_factors", (4, 120, 30), (64, 0))])
-def test_condition_makes_every_problem_well_conditioned(name, shape, param):
-    """Each problem's pivot block (B1: the state [R; U] over its pivot
-    columns; B2, B3, the panel behind B4: the rows from the first pivot
-    down, over the pivot columns) has a condition number below 10 after
-    condition_, where a Gaussian one reaches 10^3 and more."""
-    B, m, w = shape
-    g = torch.Generator().manual_seed(3)
-    if name == "apply_factors":
-        x = torch.randn((B, m, param[0]), generator=g, dtype=torch.float64)
-    else:
-        x = torch.randn(shape, generator=g, dtype=torch.float64)
-    kc.condition_(x, name, param)
-    if name == "batched_update":
-        assert torch.equal(x[:, :param, :param], torch.triu(x[:, :param, :param]))
-        block = x[:, :, :param]
-    elif name == "batched_geqrt":
-        block = x[:, :, :param]
-    else:
-        row0 = param if name == "panel_factor" else param[1]
-        block = x[:, row0:]
-    assert float(torch.linalg.cond(block).max()) < 10
 
 
 def test_condition_leaves_a_tall_block_as_it_is():
