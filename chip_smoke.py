@@ -29,7 +29,15 @@ Drives the port's main path on the card and checks it, phase by phase:
    step: each output's error from the exact result (the plain version in
    f64) within ``kernel_check.ROUNDING`` of the plain version's, where the
    f32 plain version rounded once, run through the same comparison as a
-   control, must fail; the library call timed in f32 on the same inputs;
+   control, must fail; the library call timed in f32 on the same inputs.
+   batched_update and batched_geqrt also run with f32, bf16 and f16 tiles
+   and f64 sums (``WIDE_SHAPES``), each held on WIDE_DRAWS draws by the
+   wide rule (``kernel_check.wide_held``: the share of entries bitwise
+   equal to the plain version at the same pair, max|err| / rms within
+   ``kernel_check.wide_bound``), where the (tile, float32) instance on the
+   same inputs, the control, must fail; ``ggr_common.cuh``'s casts from
+   double run alone on tie values (``kernel_check.narrow_on_card``) against
+   the plain versions' (``to_tile``); the library call is the f64 QR;
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
@@ -47,9 +55,11 @@ Drives the port's main path on the card and checks it, phase by phase:
    the collector are printed; ``python -m repro_torch.launch.serve_qr
    --metrics build/smoke_metrics/serve --check --requests 512`` must exit 0
    with two CSV lines and files ``repro_torch.obs.export --validate``
-   accepts; (b) ``sketch_lstsq`` of a (65536, 256) f64 system at cond 1e8
-   with b = A x0 + r0, r0 orthogonal to range(A), ||r0|| = 0.1 (the sketch's
-   (1024, 256) QR runs the fused schedule's kernels): the residual within
+   accepts (it starts after the timed flushes, beside (b)-(e), with phase
+   7 (f)'s and phase 8 (e)'s CLI runs: ``start_cli``); (b) ``sketch_lstsq``
+   of a (65536, 256) f64 system at cond 1e8 with b = A x0 + r0, r0
+   orthogonal to range(A), ||r0|| = 0.1 (the sketch's (1024, 256) QR runs
+   the fused schedule's kernels): the residual within
    1e-6 of ||r0|| in at most 50 iterations, R_s the same bits twice, timed
    beside ``torch.linalg.lstsq``; (c) a ``ConditionMonitor`` over 32
    appends to a (256, 256) RLS state, within 2x of ``torch.linalg.cond``; a
@@ -79,7 +89,7 @@ Drives the port's main path on the card and checks it, phase by phase:
    ``RecursiveLS`` state on the card through ``StateVault``: restore falls
    back past a corrupted snapshot, bit-equal, and raises ``IntegrityError``
    when every snapshot is corrupted; (f) ``serve_qr --resilient --check
-   --requests 512`` exits 0 with two CSV lines;
+   --requests 512`` (started in phase 6) exits 0 with two CSV lines;
 8. sharded serving over a ``BatchMesh`` of 4 shards on ``cuda:0`` — (a)
    ``QRServer(mesh=...)`` beside the plain server on the 8192-request mix:
    append and kalman bitwise, lstsq and lstsq_pivoted within rtol = atol =
@@ -93,7 +103,8 @@ Drives the port's main path on the card and checks it, phase by phase:
    shared models bitwise; (d) ``QRServer(resilient=True, mesh=...)`` bitwise
    equal to the plain sharded server, and phase 7's chaos run on the mesh
    (every poisoned request quarantined, native survivors bitwise equal to a
-   fault-free run); (e) ``serve_qr --device cuda --mesh 4 --check``: with
+   fault-free run); (e) ``serve_qr --device cuda --mesh 4 --check``
+   (started in phase 6): with
    fewer than 4 cards it must exit non-zero naming the "4-device batch mesh";
    then ``batched_update``'s time at each shape the phase launched it at;
 9. distributed QR and the Orthant optimizer — (a)
@@ -110,11 +121,18 @@ Drives the port's main path on the card and checks it, phase by phase:
    ``torch.linalg.qr``'s Q held against its direction through the kernels'
    plain versions (``direction_check``), at OLMO_DEPTH of its 16 layers
    (batch 2; phase 12 (b) runs all 16, and phase 12 (e) holds the kernels
-   at the batch-16 shapes); (d) ``restore(shardings=)`` of a saved tree onto
-   2 ranks, the blocks bitwise the saved leaves; then panel_factor and
-   apply_factors timed at the largest shape each sub-run launched them at;
+   at the batch-16 shapes); panel_factor and apply_factors timed at the
+   largest shape each sub-run launched them at (after (c)'s step, before
+   its direction checks, whose plain driver also runs each B3 / B4 step on
+   the kernel on the same inputs: ``plain_hold``); (d) ``restore(shardings=)``
+   of a saved tree onto 2 ranks, the blocks bitwise the saved leaves,
+   beside (c)'s checks;
 10. every (shape, dtype) the kernels were launched at by phases 4-9, the
-   spawned ranks' included, is held against the plain version once more;
+   spawned ranks' included, is held against the plain version once more,
+   each launch phase 9 (c)'s plain driver held on its own steps excepted;
+   phase 13's smoke meshes ((a), (c), (d), (f): ``mesh_smoke_start``) and
+   phase 12 (d)'s CLI runs (``train_cli_start``) run beside phase 9 (c) to
+   here;
 11. LM serving — (a) every arch of ``repro_torch.configs`` at smoke size on
    the card: 8 decode steps at float32 and 8 at bfloat16 compute (finite
    logits, caches of ``cache_spec``'s shapes and dtypes), and for olmo-1b,
@@ -126,8 +144,9 @@ Drives the port's main path on the card and checks it, phase by phase:
    2), and the card's first 2 steps against the port on the CPU with the
    same weights, each within 1e-4 of rms; then ``python -m
    repro_torch.launch.serve --arch A --batch 8 --tokens 32 --cache-len
-   2048`` (bfloat16) for olmo-1b, zamba2-1.2b and xlstm-125m must exit 0;
-   their tok/s and peak memory are printed.  The path runs no GGR kernel:
+   2048`` (bfloat16) for olmo-1b, zamba2-1.2b and xlstm-125m must exit 0,
+   each started LM_SERVE_STAGGER s after the one before it
+   (``run_staggered``); their tok/s and peak memory are printed.  The path runs no GGR kernel:
    the counts, zeroed before it, must read 0 after it;
 12. LM training — (a) every arch at smoke size: the loss and every leaf's
    gradient on the card against the port on the CPU with the same weights
@@ -150,10 +169,11 @@ Drives the port's main path on the card and checks it, phase by phase:
    resumed by a new ``Trainer(resume=True)`` for step 3: its loss, params
    and optimizer state bitwise those of the uninterrupted run; (d) ``python
    -m repro_torch.launch.train --arch olmo-1b --steps 4 --optimizer X`` for
-   Orthant and AdamW must exit 0 (s/step, tok/s and peak memory printed);
+   Orthant and AdamW must exit 0 (s/step, tok/s and peak memory printed),
+   run one after the other beside phases 9 (c) to 10;
    (e) every (shape, dtype) phase 12 launched B3/B4 at that phase 10 did not
    hold is held against the plain version, and B3/B4 are timed at the
-   largest shape each launched at;
+   largest shape each launched at (after (b));
 13. LM training on a mesh (``Trainer(mesh=...)``, spawned ranks on
    cuda:0) — (a) olmo-1b (smoke) 3 Orthant steps on a 1x1 NCCL mesh: loss,
    params and optimizer state bitwise those of the one-device Trainer;
@@ -176,7 +196,8 @@ Drives the port's main path on the card and checks it, phase by phase:
    (e) the shapes this phase launched B3/B4 at that earlier phases did not
    hold; (f) ``launch.train --smoke --mesh 2x2 --steps 3`` exits 0 naming
    gloo, ``--mesh 16x16`` / ``prod`` / ``prod2`` exit non-zero naming the
-   ranks they need;
+   ranks they need.  (a), (c), (d) and (f) run beside phases 9 (c) to 10
+   (``mesh_smoke_start``), their checks here;
 14. mixed precision on the main path — (a) the 8192-request mix with every
    append and kalman request's operands stored in bf16, served by
    ``QRServer(device="cuda", precision="mixed_bf16")`` (a warm-up flush,
@@ -195,11 +216,20 @@ Drives the port's main path on the card and checks it, phase by phase:
    always), wall times beside phase 5's; (d) every (shape, pair) of (a)-(c)
    held against the plain version, its rounding at every step included;
    every launch of (a)-(c) at the run's
-   pair, and the phase's wall printed;
+   pair, and the phase's wall printed; (e) the same 4096^2 QR under
+   ``"tree"`` at ``Precision(t, "float64", t)`` for t = f32, bf16, f16
+   within the reference's budgets of t; (f) the bf16 / f16 stored appends
+   and kalman steps served with f64 sums, each kind within 8 eps(t) of the
+   same requests served in f64; (g) the fused schedule, ``"auto"``, B3 and
+   B4 at (float32, float64) raise ``NotImplementedError`` naming both
+   dtypes with no launch; every (shape, pair) of (e)-(f) held against the
+   plain version (``kernel_check.wide_accurate``);
 15. the dry run on the card's host (``repro_torch.launch.dryrun``; no CUDA
-   work) — (a) ``python -m repro_torch.launch.dryrun --arch olmo-1b --shape
-   train_4k``: one AdamW step on meta tensors over a fake 16x16 mesh of
-   256 ranks with the depth probe, the reference's result keys, 256 chips,
+   work; its subprocesses start at phase 11's start, at nice MESH_NICE,
+   and run on the host's cores beside phases 11 to 14) — (a) ``python -m
+   repro_torch.launch.dryrun --arch olmo-1b --shape train_4k``: one AdamW
+   step on meta tensors over a fake 16x16 mesh of 256 ranks with the depth
+   probe, the reference's result keys, 256 chips,
    a dominant roofline term, local FLOPs and collective bytes, the
    useful-FLOPs ratio within the hand count's band
    (``testing.dryrun_check``); per-device FLOPs, bytes, collective bytes by
@@ -208,11 +238,18 @@ Drives the port's main path on the card and checks it, phase by phase:
    counted by shape, beside phase 13 (b)'s launches, and the momenta's
    all-gather bytes beside AdamW's; (c) ``launch.specs``' olmo-1b
    parameter and Orthant-state trees on a fake 1x4 mesh: rank 0's bytes
-   exactly those phase 13 (b)'s rank 0 holds; the phase's wall beside its
-   60 s budget;
+   exactly those phase 13 (b)'s rank 0 holds; (d) the (a) cell with
+   ``--seq-parallel`` under the card's torch: fewer all-reduce bytes than
+   (a), reduce-scatter and all-gather present, the useful-FLOPs ratio in
+   the band; (e) the long_500k cells of zamba2-1.2b and mixtral-8x22b
+   (batch 1: the decode cache's sequence split over the data axes), each a
+   subprocess with its own time limit; the phase's wall beside its 60 s
+   budget.  A run still going WATCHDOG_S s after its start stops itself
+   (``watchdog``), naming its phase;
 16. a JSON line of per-kernel numbers (a row for each kernel's f32 / f64
-   instance, and one for each of its bf16 / f16 instances), then the last
-   line ``{"ok": true, "device": {...}}``.
+   instance, one for each of its bf16 / f16 instances, and for B1 / B2 one
+   for each f64-summed instance), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
 taken again against the plain version run in f64 on the same inputs
@@ -226,7 +263,7 @@ Launch counts are set to 0 just before the serving run, the dense run,
 phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too), phase
 11, phase 12 (a), each training run of phase 12 (b)-(c), in the ranks
 of phase 13 before each mesh run (each step in (b)), and before each run
-of phase 14 (a)-(c), and read just after
+of phase 14 (a)-(c) and (e)-(f), and read just after
 each; a route that does not launch its
 kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
@@ -350,6 +387,17 @@ MIXED_SHAPES = [
 MIXED = ("bfloat16", "float16")
 PHASE3 += [(name, shape, param, dname, *data) for dname in MIXED
            for name, shape, param, *data in MIXED_SHAPES]
+# a wide case's plain version takes up to WIDE_PLAIN_ELEMS elements of its
+# draws' problems in one call (KernelCase.compare_wide)
+WIDE_PLAIN_ELEMS = 2 ** 25
+# phase 3's wide cases (f32 / bf16 / f16 tiles, f64 sums: B1 and B2 only) at
+# the mixed cases' B1 / B2 shapes: the tree schedule at each pair (phase 14
+# (e)) and the bf16 / f16 stored mix served with f64 sums (phase 14 (f))
+WIDE = ("float32", "bfloat16", "float16")
+WIDE_SHAPES = [(name, shape, param, *(data or ["random"])) for name, shape, param, *data
+               in MIXED_SHAPES if name in ("batched_update", "batched_geqrt")]
+PHASE3 += [(name, shape, param, dname, data, "float64") for dname in WIDE
+           for name, shape, param, data in WIDE_SHAPES]
 SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chunk
 FAILURES: list[str] = []
 # phase 6's sketch least squares: the tall system, its spectrum and the oracle
@@ -385,7 +433,11 @@ def check(ok: bool, what: str, quiet: bool = False) -> None:
 _T0 = time.perf_counter()
 
 
+_PHASE = ["startup"]
+
+
 def phase(name: str) -> None:
+    _PHASE[0] = name
     print(f"\n== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
@@ -408,6 +460,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 # ------------------------------- kernel models (operation counts: core.counts)
 def _itemsize(dtype_name: str) -> int:
     return {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2}[dtype_name]
+
 
 
 def tree_tiles(B: int, b: int, gen, dtype, conditioned: bool = False):
@@ -445,13 +498,18 @@ class KernelCase:
     (default the tile dtype's, ``kernel_check.ACCUM``); a bf16 / f16 case
     runs the kernel and the plain version at (tile, f32) on
     ``kernel_check.condition_``-ed data, and its library call on the same
-    inputs in f32 (no library QR takes those tiles)."""
+    inputs in f32 (no library QR takes those tiles).  A wide case (``accum``
+    float64 for f32 / bf16 / f16 tiles: B1, B2) runs both at (tile, f64),
+    bf16 / f16 tiles on conditioned data, is held by the wide rule
+    (``kernel_check.wide_held``) and its library call runs in f64 on the
+    same inputs; its bound takes the bytes at the tile width and the
+    operations at the f64 rate."""
 
     def __init__(self, name, shape, param, dtype, gen, data="random", accum=None):
         import torch
 
         from repro_torch.core.counts import apply_flops, geqrt_flops, panel_flops, update_flops
-        from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
+        from repro_torch.kernels import Precision, ggr_apply, ggr_panel, ggr_update
         from repro_torch.testing import kernel_check as kc
 
         self.name, self.shape, self.param, self.dtype = name, shape, param, dtype
@@ -460,11 +518,18 @@ class KernelCase:
         self.fixed = None  # tiles that must come back bitwise as they were
         self.dname = str(dtype).removeprefix("torch.")
         self.accum = accum or kc.ACCUM[self.dname]
-        self.mixed = self.accum != self.dname
-        # the kernel wrappers' policy: None (the tile dtype throughout) or the
-        # named mixed policy of the tile dtype, whose sums are f32
-        prec = self.dname if self.mixed else None
-        ad = self.accum if self.mixed else None
+        self.wide = self.accum == "float64" and self.dname != "float64"
+        self.mixed = self.accum != self.dname and not self.wide
+        cond = self.dname in MIXED  # a 2-byte tile: conditioned data
+        # the kernel wrappers' policy: None (the tile dtype throughout), the
+        # named mixed policy of the tile dtype, whose sums are f32, or the
+        # tile with f64 sums
+        prec = (self.dname if self.mixed else Precision(self.dname, "float64", self.dname)
+                if self.wide else None)
+        ad = self.accum if (self.mixed or self.wide) else None
+        # the control of a wide case: the same inputs through the (tile,
+        # float32) instance, a kernel that sums in f32
+        ctrl = Precision(self.dname, "float32", self.dname)
         size = _itemsize(self.dname)
         csize = _itemsize(self.accum)  # the layout holds the sums' dtype
         B, m, w = shape
@@ -473,9 +538,10 @@ class KernelCase:
             n_piv = param
             # the kernel's contract: the top n_piv rows are upper triangular
             x[:, :n_piv, :n_piv] = torch.triu(x[:, :n_piv, :n_piv])
-            if self.mixed:
+            if cond:
                 kc.condition_(x, name, n_piv)
             self.fn = lambda z: ggr_update.batched_update(z, n_piv, precision=prec)
+            self.control = lambda: ggr_update.batched_update(x, n_piv, precision=ctrl)
             plain = lambda z, a=ad: ggr_update.batched_update_plain(z, n_piv, a)  # noqa: E731
             # R of the stacked matrix (same top n_piv rows up to signs; at the
             # tree-coupling shape it also triangularizes the riding columns)
@@ -487,11 +553,12 @@ class KernelCase:
         elif name == "batched_geqrt":
             n_piv = param
             if data == "tree":
-                x = tree_tiles(B, m, gen, dtype, conditioned=self.mixed)
+                x = tree_tiles(B, m, gen, dtype, conditioned=cond)
                 self.fixed = slice(B // 2, B)
-            elif self.mixed:
+            elif cond:
                 kc.condition_(x, name, n_piv)
             self.fn = lambda z: ggr_panel.batched_geqrt(z, n_piv, precision=prec)
+            self.control = lambda: ggr_panel.batched_geqrt(x, n_piv, precision=ctrl)
             plain = lambda z, a=ad: ggr_panel.batched_geqrt_plain(z, n_piv, a)  # noqa: E731
             # Q and R of the tile's pivot columns: [R | Qt] up to signs
             self.library = lambda: torch.linalg.qr(self.lib_x[:, :, :n_piv])
@@ -513,29 +580,45 @@ class KernelCase:
             pans = torch.randn((B, m, b), generator=gen, device="cuda", dtype=dtype)
             if self.mixed:
                 kc.condition_(pans, name, param)
-            _, V, T = ggr_panel.panel_factor_plain(pans, pivot0, ad)
+            # the panel's factors through B3 (held on its own), not its plain
+            # version, which costs as much as B4's at a tall shape
+            _, V, T = ggr_panel.panel_factor(pans, pivot0, precision=prec)
             self.fn = lambda z: ggr_apply.apply_factors(V, T, z, pivot0, precision=prec)
             plain = lambda z, a=ad: ggr_apply.apply_factors_plain(  # noqa: E731
                 V.to(z.dtype), T.to(z.dtype), z, pivot0, a)
-            # the same work in Householder's basis: Q^T C from geqrf's factors
-            a, tau = torch.geqrf(pans.float() if self.mixed else pans)
-            self.library = lambda: torch.ormqr(a, tau, self.lib_x, left=True,
-                                               transpose=True)
+            # the same work in Householder's basis: Q^T C from geqrf's factors,
+            # taken at the first call (a recheck times nothing)
+            qr = []
+
+            def library():
+                if not qr:
+                    qr.extend(torch.geqrf(pans.float() if self.mixed else pans))
+                return torch.ormqr(*qr, self.lib_x, left=True, transpose=True)
+
+            self.library = library
             self.flops = apply_flops(shape, b, pivot0)
             self.nbytes = (2.0 * m * w + 2.0 * m * b) * B * size  # C in/out, V, T
         self.x = x
-        self.lib_x = x.float() if self.mixed else x
+        self.lib_x = x.float() if self.mixed else x.double() if self.wide else x
         self.kernel = lambda: self.fn(x)
+        self.plain_of = plain  # the plain version of any inputs z of the case's kind
         self.plain = lambda: plain(x)
         self.plain64 = lambda: plain(x.double(), None)
         # a mixed case's f32 plain version rounded once, at the end, to the
         # tile dtype: what a kernel that kept the state in f32 would give
         self.once = lambda: tuple(o.to(dtype) for o in _as_outputs(plain(x.float(), None)))
-        self.rel_tol = kc.rel_bound(name, m, w, self.dname)
+        self.rel_tol = (kc.wide_bound(name, m, w, self.dname) if self.wide
+                        else kc.rel_bound(name, m, w, self.dname))
+
+    @property
+    def pair(self) -> str:
+        """'uniform', or the tile dtype's name and the sums' for a mixed or
+        a wide case."""
+        return f"{self.dname}/{self.accum}" if self.mixed or self.wide else "uniform"
 
     def label(self) -> str:
         data = "" if self.data == "random" else f" {self.data} data"
-        acc = f"/{self.accum}" if self.mixed else ""
+        acc = f"/{self.accum}" if self.mixed or self.wide else ""
         return f"{self.name} {self.shape} {self.dname}{acc} param={self.param}{data}"
 
     def compare(self, quiet: bool = False) -> float:
@@ -549,6 +632,8 @@ class KernelCase:
 
         from repro_torch.testing import kernel_check as kc
 
+        if self.wide:
+            return self.compare_wide(quiet)
         out, ref = self.kernel(), self.plain()
         outs, refs = _as_outputs(out), _as_outputs(ref)
         err, ok, rels, olds = 0.0, True, [], []
@@ -602,6 +687,75 @@ class KernelCase:
         check(ok, f"{self.label()}: max_abs_err {err:.3e}, max|err| / rms{what} "
                   f"{', '.join(f'{q:.2e}' for q in rels)}; each within "
                   f"{self.rel_tol:.1e}{old}{note}", quiet)
+        return err
+
+    def compare_wide(self, quiet: bool = False) -> float:
+        """The wide rule (``kernel_check.wide_held``) on WIDE_DRAWS draws of
+        the case's shape (its own inputs, then generator seeds 1, 2, ...),
+        or on its own inputs alone when ``quiet`` (the recheck of a launched
+        shape, held for its accuracy, ``kernel_check.wide_accurate``: one
+        draw of a few problems may hold a whole flipped one).  Unless
+        ``quiet``, the control, the (tile, float32) instance on the same
+        draws' inputs, must fail the rule.  The kernel and the control run
+        at the case's shape, a launch a draw; the plain version runs on
+        several draws' problems stacked along the batch at once, up to
+        WIDE_PLAIN_ELEMS elements (each problem's result is its own).
+        Returns the worst absolute error and keeps the worst max|err| / rms
+        in ``rel`` and the readings in ``readings``."""
+        import statistics
+
+        import torch
+
+        from repro_torch.testing import kernel_check as kc
+
+        draws = 1 if quiet else kc.WIDE_DRAWS
+        B, m, w = self.shape
+        group = max(1, WIDE_PLAIN_ELEMS // (B * m * w))  # draws a plain call takes
+        err, ok, reads, ctrl = 0.0, True, [], []
+        for i in range(draws):
+            if i % group == 0:  # the next group of draws, their plain version at once
+                batch = [self if j == 0 else KernelCase(
+                    self.name, self.shape, self.param, self.dtype,
+                    torch.Generator(device="cuda").manual_seed(j), self.data, self.accum)
+                    for j in range(i, min(i + group, draws))]
+                refs_of = self.plain_of(torch.cat([c.x for c in batch])).split(B)
+            case = batch[i % group]
+            outs, refs = _as_outputs(case.kernel()), (refs_of[i % group],)
+            ok = ok and all(o.dtype == r.dtype == self.dtype and bool(o.isfinite().all())
+                            for o, r in zip(outs, refs))
+            err = max(err, max(float((o.double() - r.double()).abs().max()) for o, r in
+                               zip(outs, refs)))
+            reads.append(kc.wide_reading(self.name, self.param, self.dname, outs, refs))
+            if not quiet:
+                ctrl.append(kc.wide_reading(self.name, self.param, self.dname,
+                                            _as_outputs(case.control()), refs))
+            if case.fixed is not None:
+                check(torch.equal(outs[0][case.fixed], case.x[case.fixed]),
+                      f"{case.label()}: the [0 | I] tiles come back bitwise as they were",
+                      quiet=True)
+        # a recheck (one draw, maybe of a few problems) holds the accuracy;
+        # the share is a statistic of many problems (phase 3's draws)
+        held = (kc.wide_accurate if quiet else kc.wide_held)(self.name, m, w, self.dname,
+                                                             reads)
+        fooled = bool(ctrl) and kc.wide_held(self.name, m, w, self.dname, ctrl)
+        self.rel, self.old = max(r for _, r in reads), float("inf")
+        self.readings = {"share": [sh for sh, _ in reads], "rel": [r for _, r in reads],
+                         "control_share": [sh for sh, _ in ctrl],
+                         "control_rel": [r for _, r in ctrl]}
+        ok = ok and held and not fooled
+        shares = self.readings["share"]
+        parts = "each output" if self.dname == "float32" else "the determined parts"
+        limit = "a reading" if quiet else f">= {kc.WIDE_EQUAL[self.dname]:g}"
+        note = (f"{draws} draw(s): share of entries bitwise equal to the plain version "
+                f"{statistics.fmean(shares):.7f} ({limit}; least draw {min(shares):.7f}), "
+                f"max|err| / rms of {parts} worst {self.rel:.2e} (<= {self.rel_tol:.1e})")
+        if ctrl:
+            cs, cr = self.readings["control_share"], self.readings["control_rel"]
+            note += (f"; control, the ({self.dname}, float32) instance on the same inputs, "
+                     f"must fail: share {statistics.fmean(cs):.7f} (draws {min(cs):.7f}-"
+                     f"{max(cs):.7f}), max|err| / rms worst {max(cr):.2e} "
+                     f"({'passes' if fooled else 'fails'})")
+        check(ok, f"{self.label()}: max_abs_err {err:.3e}, {note}", quiet)
         return err
 
     def against_f64(self, outs, refs) -> tuple:
@@ -679,10 +833,11 @@ class KernelCase:
 
     def times(self) -> dict:
         ms = cuda_ms(self.kernel, reps=20, warmup=2)
-        plain_ms = cuda_ms(self.plain, reps=3)
+        plain_ms = cuda_ms(self.plain, reps=1)  # 14 ms to 1.4 s a call: one is enough
         library_ms = cuda_ms(self.library, reps=5)
-        bound_ms, bound_by = bound(self.nbytes, self.dname, self.flops)
-        lib = " (f32, the same inputs)" if self.mixed else ""
+        bound_ms, bound_by = bound(self.nbytes, self.accum, self.flops)
+        lib = (" (f32, the same inputs)" if self.mixed else
+               " (f64, the same inputs)" if self.wide else "")
         print(f"  {self.label()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})"
               f"{self.note}", flush=True)
@@ -772,8 +927,58 @@ def wall_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def instrumented_phase(server, reqs, kernels, card: str) -> dict:
-    """Phase 6 (a)-(e); returns the launches it made and its numbers."""
+def start_cli(name: str, argv: list) -> tuple:
+    """``python -m argv`` as a subprocess, its output into files under
+    build/smoke_cli; returns the handle ``wait_cli`` takes."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    with open(CLI_DIR / f"{name}.out", "w") as fo, open(CLI_DIR / f"{name}.err", "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-m", *argv], stdout=fo, stderr=fe, env=env)
+    ended = []  # when it ended, seen by a thread that waits for it
+
+    def watch():
+        proc.wait()
+        ended.append(time.perf_counter())
+
+    threading.Thread(target=watch, daemon=True).start()
+    return name, time.perf_counter(), proc, ended
+
+
+def wait_cli(handle: tuple, timeout_s: float) -> tuple:
+    """(exit code, stdout, stderr, seconds from its start to its end) of a
+    ``start_cli`` run, killed if still running ``timeout_s`` after its start."""
+    name, t0, proc, ended = handle
+    try:
+        proc.wait(timeout=max(0.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    while not ended:  # the watching thread's reading
+        time.sleep(0.01)
+    return (proc.returncode, (CLI_DIR / f"{name}.out").read_text(),
+            (CLI_DIR / f"{name}.err").read_text(), ended[0] - t0)
+
+
+def run_staggered(cmds: dict, stagger_s: float, timeout_s: float) -> dict:
+    """Run each command of ``cmds`` (name -> argv after ``python -m``), each
+    started ``stagger_s`` after the one before it, so that its start-up
+    (imports, the CUDA context, the weights) overlaps the run before it.
+    Returns name -> ``wait_cli``'s tuple."""
+    handles = {}
+    for i, (name, argv) in enumerate(cmds.items()):
+        if i:
+            time.sleep(stagger_s)
+        handles[name] = start_cli(name, argv)
+    return {name: wait_cli(h, timeout_s) for name, h in handles.items()}
+
+
+def instrumented_phase(server, reqs, kernels, card: str, early: dict) -> dict:
+    """Phase 6 (a)-(e); returns the launches it made and its numbers.  After
+    (a)'s timed flushes it starts its own CLI run and phase 7 (f)'s and
+    phase 8 (e)'s (``start_cli``, into ``early``), which run beside (b)-(e);
+    its own is read at the phase's end."""
     import numpy as np
     import torch
 
@@ -824,20 +1029,13 @@ def instrumented_phase(server, reqs, kernels, card: str) -> dict:
     for f in (f"{prefix}.jsonl", f"{prefix}.prom"):
         if os.path.exists(f):
             os.remove(f)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
-                          "--metrics", str(prefix), "--check", "--requests", "512"],
-                         capture_output=True, text=True, env=env, timeout=600)
-    lines = cli.stdout.strip().splitlines()
-    check(cli.returncode == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
-          f"(a) serve_qr --metrics --check --requests 512 exits "
-          f"{cli.returncode} with {len(lines)} CSV lines: {lines[-1:]}")
-    val = subprocess.run([sys.executable, "-m", "repro_torch.obs.export",
-                          "--validate", f"{prefix}.jsonl"],
-                         capture_output=True, text=True, env=env, timeout=300)
-    check(val.returncode == 0 and os.path.exists(f"{prefix}.prom"),
-          f"(a) obs.export --validate accepts {prefix}.jsonl: "
-          f"{(val.stdout or val.stderr).strip()[:120]}")
+    serve_qr = "repro_torch.launch.serve_qr"
+    early["6"] = start_cli("serve_qr_metrics", [serve_qr, "--metrics", str(prefix), "--check",
+                                                "--requests", "512"])
+    early["7"] = start_cli("serve_qr_resilient", [serve_qr, "--resilient", "--check",
+                                                  "--requests", "512"])
+    early["8"] = start_cli("serve_qr_mesh4", [serve_qr, "--device", "cuda", "--mesh", "4",
+                                              "--check"])
 
     # (b) sketch-preconditioned least squares at full size, f64
     t0 = time.perf_counter()
@@ -966,6 +1164,19 @@ def instrumented_phase(server, reqs, kernels, card: str) -> dict:
     launches = {k: fn.launches for k, fn in kernels.items()}
     out["launches"] = launches
     out["shapes"] = {k: set(fn.shapes) for k, fn in kernels.items()}
+
+    # (a)'s CLI run, started after the timed flushes
+    rc, text, err, wall = wait_cli(early["6"], 600)
+    lines = text.strip().splitlines()
+    check(rc == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
+          f"(a) serve_qr --metrics --check --requests 512 exits {rc} with {len(lines)} CSV "
+          f"lines in {wall:.1f} s, beside (b)-(e): {lines[-1:]}")
+    val = subprocess.run([sys.executable, "-m", "repro_torch.obs.export",
+                          "--validate", f"{prefix}.jsonl"], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)), timeout=300)
+    check(val.returncode == 0 and os.path.exists(f"{prefix}.prom"),
+          f"(a) obs.export --validate accepts {prefix}.jsonl: "
+          f"{(val.stdout or val.stderr).strip()[:120]}")
     print(f"  launches in phase 6: {launches} "
           f"({(time.perf_counter() - t_phase):.1f} s wall)")
     for k in ("batched_update", "panel_factor", "apply_factors"):
@@ -1019,8 +1230,9 @@ def counter_sum(reg, name: str, /, **labels) -> float:
                and all(dict(m.labels).get(k) == v for k, v in labels.items()))
 
 
-def resilient_phase(reqs, kernels, card: str) -> dict:
-    """Phase 7 (a)-(f); returns the launches it made and its numbers."""
+def resilient_phase(reqs, kernels, card: str, cli: tuple) -> dict:
+    """Phase 7 (a)-(f); returns the launches it made and its numbers.  ``cli``:
+    (f)'s run, started in phase 6 (``start_cli``)."""
     import shutil
 
     import numpy as np
@@ -1322,15 +1534,12 @@ def resilient_phase(reqs, kernels, card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     lap("e")
 
-    # (f) the CLI
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
-                          "--resilient", "--check", "--requests", "512"],
-                         capture_output=True, text=True, env=env, timeout=600)
-    lines = cli.stdout.strip().splitlines()
-    check(cli.returncode == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
-          f"(f) serve_qr --resilient --check --requests 512 exits {cli.returncode} with "
-          f"{len(lines)} CSV lines: {lines[-1:]}")
+    # (f) the CLI, started in phase 6
+    rc, text, _, wall = wait_cli(cli, 600)
+    lines = text.strip().splitlines()
+    check(rc == 0 and len(lines) == 2 and len(lines[-1].split(",")) == 3,
+          f"(f) serve_qr --resilient --check --requests 512 exits {rc} with {len(lines)} "
+          f"CSV lines in {wall:.1f} s (started in phase 6): {lines[-1:]}")
     lap("f")
     launches = {k: fn.launches for k, fn in kernels.items()}
     out["launches"] = launches
@@ -1361,8 +1570,9 @@ def close_to(a, b, tol: float = 1e-6) -> bool:
     return True
 
 
-def sharded_phase(reqs, kernels, card: str) -> dict:
-    """Phase 8 (a)-(e); returns the launches it made and its numbers."""
+def sharded_phase(reqs, kernels, card: str, cli: tuple) -> dict:
+    """Phase 8 (a)-(e); returns the launches it made and its numbers.  ``cli``:
+    (e)'s run, started in phase 6 (``start_cli``)."""
     from collections import Counter
 
     import numpy as np
@@ -1571,21 +1781,18 @@ def sharded_phase(reqs, kernels, card: str) -> dict:
     del runs
     lap("d")
 
-    # (e) the CLI
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    # (e) the CLI, started in phase 6
     cards = torch.cuda.device_count()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_qr",
-                          "--device", "cuda", "--mesh", "4", "--check"],
-                         capture_output=True, text=True, env=env, timeout=600)
-    lines = cli.stdout.strip().splitlines()
+    rc, text, err, _ = wait_cli(cli, 600)
+    lines = text.strip().splitlines()
     print(f"  (e) {cards} visible card(s); serve_qr --device cuda --mesh 4 --check exits "
-          f"{cli.returncode}: {(lines[-1:] or [cli.stderr.strip()[-160:]])[0]}")
+          f"{rc}: {(lines[-1:] or [err.strip()[-160:]])[0]}")
     if cards < 4:
-        check(cli.returncode != 0 and "4-device batch mesh" in cli.stderr,
+        check(rc != 0 and "4-device batch mesh" in err,
               "(e) with fewer than 4 cards, --mesh 4 exits non-zero naming the "
               "4-device batch mesh")
     else:
-        check(cli.returncode == 0 and len(lines) == 2 and "mesh=4" in lines[-1],
+        check(rc == 0 and len(lines) == 2 and "mesh=4" in lines[-1],
               "(e) --mesh 4 serves with two CSV lines and mesh=4")
     lap("e")
 
@@ -1703,19 +1910,41 @@ def _work(kernel: str, shape, param, *_) -> int:
     return B * (m - (param if kernel == "panel_factor" else param[1])) * w
 
 
-def direction_check(mom) -> dict:
+def plain_hold(held: dict, worst: dict):
+    """A ``plain_driver`` hold (``orthant_check``): each B3 / B4 step of the
+    plain driver also runs on the kernel, on the same inputs, and the
+    (shape, param, dtype, accum) of a launch whose every output is finite,
+    of the plain version's dtype and within ``rel_bound`` of it (the rule of
+    ``KernelCase.compare``) goes into ``held[kernel]`` and its worst
+    absolute error into ``worst[kernel]``; phase 10 holds any other the
+    usual way."""
+    from repro_torch.testing import kernel_check as kc
+
+    def hold(name, key, kernel_out, plain_out):
+        B, m, w = key[0]
+        pairs = list(zip(_as_outputs(kernel_out), _as_outputs(plain_out)))
+        if all(o.dtype == r.dtype and bool(o.isfinite().all())
+               and kc.rel_err(o, r) <= kc.rel_bound(name, m, w, key[2]) for o, r in pairs):
+            held[name].add(key)
+            worst[name] = max(worst[name], max(
+                float((o.double() - r.double()).abs().max()) for o, r in pairs))
+
+    return hold
+
+
+def direction_check(mom, hold=None) -> dict:
     """Phase 9 (c) on one momentum leaf: each matrix's Orthant direction Q
     (``orthant._orthogonalize``, the kernels) read for max|QᵀQ - I| and for
     max|Q - Q_lib·D| (Q_lib ``torch.linalg.qr``'s Q, D each column's sign
     matched to the port's diag(R)), each within DIR_FACTOR x the same
     reading of its direction through the kernels' plain versions, plus
     DIR_FLOOR.  The ratios to the same formula with cuSOLVER's R are kept
-    as readings."""
+    as readings.  ``hold``: ``plain_driver``'s (``plain_hold``)."""
     import torch
 
     from repro_torch.testing.orthant_check import direction_readings
 
-    rd = direction_readings(mom.reshape(-1, *mom.shape[-2:]))
+    rd = direction_readings(mom.reshape(-1, *mom.shape[-2:]), hold=hold)
     got, plain, lib = rd["kernels"], rd["plain"], rd["cusolver"]
     ok = torch.ones_like(got[0], dtype=torch.bool)
     for i in (0, 1):
@@ -1727,8 +1956,13 @@ def direction_check(mom) -> dict:
             "ok": bool(ok.all())}
 
 
-def distributed_phase(kernels, card: str, gen) -> dict:
-    """Phase 9 (a)-(d); returns the launches it made and its numbers."""
+def distributed_phase(kernels, card: str, gen, timed=None) -> dict:
+    """Phase 9 (a)-(d); returns the launches it made and its numbers, and
+    under "plain_held" the B3 / B4 launches (c)'s plain driver held on its
+    own steps (``plain_hold``).  ``timed()`` is called once B3 / B4 are
+    timed, before (c)'s direction checks."""
+    import threading
+
     import torch
 
     from repro_torch.checkpoint import save
@@ -1828,8 +2062,43 @@ def distributed_phase(kernels, card: str, gen) -> dict:
           f"{step_s:.2f} s wall, peak {peak / 2**30:.2f} GiB allocated ({card})")
     check(step_s <= 60, f"(c) the step takes {step_s:.2f} s (<= 60 s at this depth)")
     del grads, params
+
+    # B3 and B4 alone at the largest shape each sub-run launched them at
+    out["timed"] = {}
+    for part, launched in parts.items():
+        for k in ("panel_factor", "apply_factors"):
+            if launched[k]:
+                shape, param, dtype, accum = max(launched[k], key=lambda s: _work(k, *s))
+                case = KernelCase(k, shape, param, dtype, gen, accum=accum)
+                case.compare()
+                out["timed"][f"{part}: {case.label()}"] = case.times()
+    out["shapes"] = {k: set().union(*(launched[k] for launched in parts.values()))
+                     for k in kernels}
+    if timed is not None:
+        timed()
+
+    # (d) restore(shardings=) of a saved tree onto 2 ranks, beside (c)'s checks
+    g = torch.Generator().manual_seed(93)
+    tree = {k: (torch.randn(shape, generator=g).to(getattr(torch, dt)) if dt != "int32"
+                else torch.randint(0, 2**31 - 1, shape, generator=g, dtype=torch.int32))
+            for k, (shape, dt, _) in CKPT_SPEC.items()}
+    ckpt_dir = ROOT / "build" / "smoke_ckpt"
+    save(str(ckpt_dir), 1, tree)
+    restored = {}
+
+    def restore_run():
+        try:
+            restored["blocks"] = spawn_ranks(restore_ranks, 2, str(ckpt_dir), backend="gloo",
+                                             timeout_s=300)
+        except BaseException as e:  # re-raised below, in the phase's thread
+            restored["error"] = e
+
+    th = threading.Thread(target=restore_run)
+    th.start()
+    out["plain_held"] = {k: set() for k in kernels}
+    out["plain_worst"] = dict.fromkeys(kernels, 0.0)
     for key, mom in olmo_leaves(state.momentum).items():
-        res = direction_check(mom)
+        res = direction_check(mom, plain_hold(out["plain_held"], out["plain_worst"]))
         out["orthant"]["leaves"][key] = res
         check(res["ok"], f"(c) {key} {tuple(mom.shape)}: max|QᵀQ - I| {res['orth']:.3e}, "
                          f"max|Q - Q_lib·D| {res['agree']:.3e} (plain versions "
@@ -1843,14 +2112,10 @@ def distributed_phase(kernels, card: str, gen) -> dict:
     del new_params, state
     torch.cuda.empty_cache()
 
-    # (d) restore(shardings=) of a saved tree onto 2 ranks
-    g = torch.Generator().manual_seed(93)
-    tree = {k: (torch.randn(shape, generator=g).to(getattr(torch, dt)) if dt != "int32"
-                else torch.randint(0, 2**31 - 1, shape, generator=g, dtype=torch.int32))
-            for k, (shape, dt, _) in CKPT_SPEC.items()}
-    ckpt_dir = ROOT / "build" / "smoke_ckpt"
-    save(str(ckpt_dir), 1, tree)
-    blocks = spawn_ranks(restore_ranks, 2, str(ckpt_dir), backend="gloo", timeout_s=300)
+    th.join()
+    if "error" in restored:
+        raise restored["error"]
+    blocks = restored["blocks"]
     for k, (shape, dt, d) in CKPT_SPEC.items():
         devs = {blk[k][0] for blk in blocks}
         got = [blk[k][1] for blk in blocks]
@@ -1861,17 +2126,6 @@ def distributed_phase(kernels, card: str, gen) -> dict:
               f"onto 2 ranks: blocks on {sorted(devs)}, bitwise equal to the saved leaf")
 
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
-    # B3 and B4 alone at the largest shape each sub-run launched them at
-    out["timed"] = {}
-    for part, launched in parts.items():
-        for k in ("panel_factor", "apply_factors"):
-            if launched[k]:
-                shape, param, dtype, accum = max(launched[k], key=lambda s: _work(k, *s))
-                case = KernelCase(k, shape, param, dtype, gen, accum=accum)
-                case.compare()
-                out["timed"][f"{part}: {case.label()}"] = case.times()
-    out["shapes"] = {k: set().union(*(launched[k] for launched in parts.values()))
-                     for k in kernels}
     print(f"  launches in phase 9: {out['launches']} "
           f"({out['wall_s']['phase']:.1f} s wall)")
     check(out["launches"]["panel_factor"] > 0 and out["launches"]["apply_factors"] > 0,
@@ -1889,6 +2143,9 @@ LM_SMOKE_S, LM_FULL_S, LM_FULL_B, LM_CPU_STEPS = 24, 64, 2, 2
 # launch.serve at full width, default bfloat16 compute
 LM_SERVE_ARCHS = ("olmo-1b", "zamba2-1.2b", "xlstm-125m")
 LM_SERVE_ARGS = ("--batch", "8", "--tokens", "32", "--cache-len", "2048")
+# each run started this long after the one before it: its start-up (~14 s)
+# overlaps the run before it, whose decode takes ~1-2 s at its end
+LM_SERVE_STAGGER = 6.0
 
 
 def lm_phase(kernels, card: str) -> dict:
@@ -2000,26 +2257,24 @@ def lm_phase(kernels, card: str) -> dict:
     check(not any(launches.values()),
           f"the LM path launched none of the GGR kernels: {launches}")
 
-    env = dict(os.environ, PYTHONPATH=str(SRC))
     out["serve"] = {}
+    runs = run_staggered({f"serve_{arch}": ["repro_torch.launch.serve", "--arch", arch,
+                                            *LM_SERVE_ARGS] for arch in LM_SERVE_ARCHS},
+                         LM_SERVE_STAGGER, 300)
     for arch in LM_SERVE_ARCHS:
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                              "--arch", arch, *LM_SERVE_ARGS],
-                             capture_output=True, text=True, env=env, timeout=300)
-        wall = time.perf_counter() - t0
-        text = cli.stdout.strip()
+        rc, text, err, wall = runs[f"serve_{arch}"]
+        text = text.strip()
         tok_s = re.search(r": ([0-9.]+) tok/s", text)
         peak = re.findall(r"(load|decode) ([0-9.]+) GiB", text)
-        out["serve"][arch] = {"rc": cli.returncode, "wall_s": wall,
+        out["serve"][arch] = {"rc": rc, "wall_s": wall,
                               "tok_s": float(tok_s.group(1)) if tok_s else None,
                               "peak_gib": {k: float(v) for k, v in peak}}
         for line in text.splitlines():
             print(f"    {line}")
-        check(cli.returncode == 0 and tok_s is not None,
+        check(rc == 0 and tok_s is not None,
               f"(b) launch.serve --arch {arch} {' '.join(LM_SERVE_ARGS)} (bf16) exits "
-              f"{cli.returncode} in {wall:.1f} s ({card})"
-              + ("" if cli.returncode == 0 else f": {cli.stderr.strip()[-400:]}"))
+              f"{rc} in {wall:.1f} s, started {LM_SERVE_STAGGER:g} s after the one before "
+              f"it ({card})" + ("" if rc == 0 else f": {err.strip()[-400:]}"))
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(f"  phase 11 wall {out['wall_s']['phase']:.1f} s; weights cast to bf16 once "
           "at load, embedding rows gathered before the cast")
@@ -2123,7 +2378,36 @@ def step_matrices(tree) -> dict:
             for p, x in _walk(tree)}
 
 
-def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
+def train_cli_start() -> dict:
+    """Phase 12 (d)'s CLI runs, ``python -m repro_torch.launch.train --arch
+    olmo-1b --steps 4 --optimizer X`` for each of TRAIN_CLI_OPTIMIZERS one
+    after the other in a thread, started ahead of the phase (after phase
+    9's B3 / B4 timings) to run beside phase 9 (c) to 10.  Returns the
+    handle ``train_phase`` reads: under "runs" each optimizer's (exit
+    code, stdout, stderr, seconds); join "thread" first."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    h = {"runs": {}, "t0": time.perf_counter()}
+
+    def cli_runs():
+        for opt in TRAIN_CLI_OPTIMIZERS:
+            t0 = time.perf_counter()
+            try:
+                cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                                      "--arch", "olmo-1b", "--steps", "4", "--optimizer", opt],
+                                     capture_output=True, text=True, env=env, timeout=600)
+                h["runs"][opt] = (cli.returncode, cli.stdout, cli.stderr,
+                                  time.perf_counter() - t0)
+            except subprocess.TimeoutExpired as e:
+                h["runs"][opt] = (None, "", repr(e), time.perf_counter() - t0)
+
+    h["thread"] = threading.Thread(target=cli_runs)
+    h["thread"].start()
+    return h
+
+
+def train_phase(kernels, card: str, gen, recorded: dict, step1: dict, cli: dict) -> dict:
     """Phase 12: (a) every arch at smoke size — one ``value_and_grad`` on the
     card against the port on the CPU with the same weights and batch (f32
     compute; MoE at ``no_drop_f32``'s capacity), then one AdamW
@@ -2136,9 +2420,11 @@ def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
     saved at step 2 and resumed for step 3 equals the uninterrupted run bit
     for bit (loss, params, optimizer state); (d) ``python -m
     repro_torch.launch.train --arch olmo-1b --steps 4 --optimizer X`` for
-    both optimizers; (e) every (shape, dtype) it launched B3/B4 at and phase
-    10 did not hold is held against the plain version, and B3/B4 are timed
-    at the largest shape each launched at.  ``step1`` receives the Orthant
+    both optimizers, run beside phases 9 (c) to 10 (``cli``:
+    ``train_cli_start``'s handle, joined);
+    (e) every (shape, dtype) it launched B3/B4 at and phase 10 did not hold
+    is held against the plain version, and B3/B4 are timed at the largest
+    shape each launched at (after (b)).  ``step1`` receives the Orthant
     run's first step (``step_matrices`` of the parameters before and after
     it and of the momentum after it, and its loss) for phase 13 (b)."""
     import gc
@@ -2299,6 +2585,16 @@ def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
               + (f", {rec['check_s']:.1f} s of it the momentum check" if "check_s" in rec
                  else ""))
 
+    # (e)'s timings: B3/B4 at the largest shape (b) launched each at
+    out["timed"] = {}
+    for k in ("panel_factor", "apply_factors"):
+        if out["shapes"][k]:
+            shape, param, dtype, accum = max(out["shapes"][k], key=lambda s: _work(k, *s))
+            case = KernelCase(k, shape, param, dtype, gen, accum=accum)
+            case.compare()
+            out["timed"][case.label()] = case.times()
+            del case
+
     # (c) bitwise resume at olmo-1b's widths, RESUME_DEPTH layers
     t0 = time.perf_counter()
     cfg2 = cfg.scaled(n_layers=RESUME_DEPTH)
@@ -2331,30 +2627,7 @@ def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (d) the CLI, both optimizers
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    out["cli"] = {}
-    for opt in TRAIN_CLI_OPTIMIZERS:
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                              "olmo-1b", "--steps", "4", "--optimizer", opt],
-                             capture_output=True, text=True, env=env, timeout=600)
-        wall = time.perf_counter() - t0
-        text = cli.stdout.strip()
-        s_step = re.search(r": ([0-9.]+) s/step, ([0-9.]+) tok/s", text)
-        peak = re.search(r"peak memory allocated ([0-9.]+) GiB", text)
-        out["cli"][opt] = {"rc": cli.returncode, "wall_s": wall,
-                           "s_step": float(s_step.group(1)) if s_step else None,
-                           "tok_s": float(s_step.group(2)) if s_step else None,
-                           "peak_gib": float(peak.group(1)) if peak else None}
-        for line in text.splitlines()[-3:]:
-            print(f"    {line}")
-        check(cli.returncode == 0 and s_step is not None and "done: 4 steps" in text,
-              f"(d) launch.train --arch olmo-1b --steps 4 --optimizer {opt} exits "
-              f"{cli.returncode} in {wall:.1f} s ({card})"
-              + ("" if cli.returncode == 0 else f": {cli.stderr.strip()[-400:]}"))
-
-    # (e) the shapes phase 10 did not hold, then B3/B4 at the largest of each
+    # (e) the shapes phase 10 did not hold (B3/B4 were timed after (b))
     t0 = time.perf_counter()
     new = {k: out["shapes"][k] - recorded[k] for k in kernels}
     n_all = sum(len(s) for s in out["shapes"].values())
@@ -2363,13 +2636,24 @@ def train_phase(kernels, card: str, gen, recorded: dict, step1: dict) -> dict:
     print(f"  (e) {n_all} (shape, dtype) launches in phase 12: {n_all - n_new} held in "
           f"phase 10, {n_new} held now ({time.perf_counter() - t0:.1f} s); worst errors "
           f"{out['recheck_worst']}")
-    out["timed"] = {}
-    for k in ("panel_factor", "apply_factors"):
-        if out["shapes"][k]:
-            shape, param, dtype, accum = max(out["shapes"][k], key=lambda s: _work(k, *s))
-            case = KernelCase(k, shape, param, dtype, gen, accum=accum)
-            case.compare()
-            out["timed"][case.label()] = case.times()
+
+    # (d) the CLI runs, made beside phases 9 (c) to 10 (``train_cli_start``)
+    out["cli"] = {}
+    for opt in TRAIN_CLI_OPTIMIZERS:
+        rc, text, err, wall = cli["runs"][opt]
+        text = text.strip()
+        s_step = re.search(r": ([0-9.]+) s/step, ([0-9.]+) tok/s", text)
+        peak = re.search(r"peak memory allocated ([0-9.]+) GiB", text)
+        out["cli"][opt] = {"rc": rc, "wall_s": wall,
+                           "s_step": float(s_step.group(1)) if s_step else None,
+                           "tok_s": float(s_step.group(2)) if s_step else None,
+                           "peak_gib": float(peak.group(1)) if peak else None}
+        for line in text.splitlines()[-3:]:
+            print(f"    {line}")
+        check(rc == 0 and s_step is not None and "done: 4 steps" in text,
+              f"(d) launch.train --arch olmo-1b --steps 4 --optimizer {opt} exits {rc} in "
+              f"{wall:.1f} s, beside phases 9 (c) to 10 ({card})"
+              + ("" if rc == 0 else f": {err.strip()[-400:]}"))
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(f"  phase 12 wall {out['wall_s']['phase']:.1f} s; launches {out['launches']}")
     return out
@@ -2385,7 +2669,9 @@ MESH_FAMILIES = ("olmo-1b", "mixtral-8x22b", "phi-3-vision-4.2b", "zamba2-1.2b",
                  "xlstm-125m")
 MESH_SMOKE = ((2, 2), (4, 1))
 MESH_GAP = 1e-4  # testing.step_check's one-step rule, at float32 compute
-MESH_FULL_STEPS = 3
+# one step, held against the one-device steps and timed (a depth cut of the
+# two steps that ran before, to keep the run inside its time: PERF.md §6)
+MESH_FULL_STEPS = 1
 FULL_LR = 3e-4  # the Trainer's default, phase 12 (b)'s
 # (b) at bfloat16: the mesh's step (tensor-parallel partial sums rounded to
 # bfloat16 where one device rounds a whole product once) is held by its
@@ -2395,6 +2681,9 @@ FULL_LR = 3e-4  # the Trainer's default, phase 12 (b)'s
 # never held tighter than MESH_GAP
 BF16_RATIO = 1.5
 MESH_CKPT = ROOT / "build" / "smoke_mesh_ckpt"
+# the niceness of the smoke meshes' processes (``mesh_smoke_start``): they
+# take the cores phases 9 (c) to 10 leave idle
+MESH_NICE = 10
 
 
 def _mesh_cfg(arch: str):
@@ -2415,6 +2704,7 @@ def mesh_one_rank() -> dict:
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.train import Trainer
 
+    os.nice(MESH_NICE)  # started beside phases 9-10: their work first
     torch.cuda.set_device(0)
     kernels = _kernel_fns()
     cfg = get_config("olmo-1b", smoke=True)
@@ -2530,6 +2820,7 @@ def mesh_smoke_ranks(ckpt_dir: str) -> dict:
     from repro_torch.testing.mesh_check import UniformBatches, block_digests, flat_global
     from repro_torch.train import Trainer
 
+    os.nice(MESH_NICE)  # started beside phases 9-10: their work first
     torch.cuda.set_device(0)
     kernels = _kernel_fns()
     rank = dist.get_rank()
@@ -2587,6 +2878,7 @@ def mesh_resume_rank(ckpt_dir: str) -> dict:
     from repro_torch.testing.mesh_check import UniformBatches, flat_global
     from repro_torch.train import Trainer
 
+    os.nice(MESH_NICE)  # started beside phases 9-10: their work first
     torch.cuda.set_device(0)
     cfg = _mesh_cfg("olmo-1b")
     tr = Trainer(cfg, mesh=make_debug_mesh(1, 2), optimizer="adamw", seq_len=MESH_SEQ,
@@ -2631,7 +2923,72 @@ def _leading_mask(m):
     return mask.reshape(m.shape), ranks.tolist()
 
 
-def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
+def mesh_smoke_start() -> dict:
+    """Phase 13's smoke meshes, started ahead of the phase (after phase 9's
+    B3 / B4 timings) to run on the host's cores beside phase 9 (c)-(d) and
+    phase 10: (a)'s 1x1 NCCL rank and (c)+(d)'s gloo groups in threads, (f)'s
+    CLI runs as subprocesses, every process at nice MESH_NICE.  Returns the
+    handle ``mesh_smoke_join`` completes."""
+    import shutil
+    import threading
+
+    from repro_torch.testing.spawn import spawn_ranks
+
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    nice = ["nice", "-n", str(MESH_NICE)] if shutil.which("nice") else []
+    res = {}
+    h = {"t0": time.perf_counter(), "res": res}
+
+    def popen(*args):
+        return subprocess.Popen([*nice, sys.executable, "-m", "repro_torch.launch.train",
+                                 "--arch", "olmo-1b", *args], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env)
+
+    h["cli"] = popen("--smoke", "--mesh", "2x2", "--steps", "3")
+
+    def groups():
+        try:
+            t0 = time.perf_counter()
+            res["smoke"] = spawn_ranks(mesh_smoke_ranks, 4, str(MESH_CKPT), timeout_s=600)
+            res["resume"] = spawn_ranks(mesh_resume_rank, 2, str(MESH_CKPT), timeout_s=300)
+            res["wall"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised in phase 13
+            res["error"] = e
+
+    def one():
+        try:
+            t0 = time.perf_counter()
+            res["a"] = spawn_ranks(mesh_one_rank, 1, backend="nccl", timeout_s=300)[0]
+            res["a_s"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised in phase 13
+            res["error a"] = e
+
+    h["threads"] = [threading.Thread(target=groups), threading.Thread(target=one)]
+    for th in h["threads"]:
+        th.start()
+    h["refused"] = {mesh: (need, popen("--mesh", mesh, "--steps", "3"))
+                    for mesh, need in (("16x16", 256), ("prod", 256), ("prod2", 512))}
+    return h
+
+
+def mesh_smoke_join(h: dict) -> None:
+    """Wait for ``mesh_smoke_start``'s runs; their results go into ``h``."""
+    for th in h["threads"]:
+        th.join()
+    cli = h["cli"]
+    out, err = cli.communicate(timeout=600)
+    h["cli"] = (cli.returncode, out, err, time.perf_counter() - h["t0"])
+    refused = {}
+    for mesh, (need, r) in h["refused"].items():
+        _, err = r.communicate(timeout=120)
+        refused[mesh] = (need, r.returncode, err)
+    h["refused"] = refused
+    print(f"  phase 13's smoke meshes, beside phases 9 (c) to 10, done "
+          f"{time.perf_counter() - h['t0']:.1f} s after their start")
+
+
+def mesh_phase(kernels, card: str, gen, held: dict, step1: dict, smoke: dict) -> dict:
     """Phase 13: (a) a 1x1 NCCL mesh against the one-device Trainer, bitwise;
     (b) olmo-1b at its published widths on a 1x4 mesh of 4 gloo ranks of
     cuda:0 (Orthant, bf16 compute), its first step held against phase 12
@@ -2642,11 +2999,11 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
     (d) elastic resume; (e) the kernels at the shapes this phase launched
     them at that earlier phases did not hold; (f) the CLI.  ``held``: the
     shapes earlier phases held; ``step1``: phase 12 (b)'s first Orthant
-    step (``step_matrices``), or empty to take it here."""
+    step (``step_matrices``), or empty to take it here; ``smoke``:
+    ``mesh_smoke_start``'s handle, joined: (a), (c), (d) and (f) ran beside
+    phases 9 (c) to 10."""
     import gc
-    import re
     import shutil
-    import threading
 
     import numpy as np
     import torch
@@ -2669,60 +3026,54 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
             out["launches"][k] += launches[k]
             out["shapes"][k] |= shapes[k]
 
-    # (c) and (d) in a thread and the CLI's 2x2 run in a subprocess, beside
-    # (a) and the one-device runs
-    shutil.rmtree(MESH_CKPT, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    res = {}
-    t_cli = time.perf_counter()
-    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                            "olmo-1b", "--smoke", "--mesh", "2x2", "--steps", "3"],
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-
-    def groups():
-        try:
-            t0 = time.perf_counter()
-            res["smoke"] = spawn_ranks(mesh_smoke_ranks, 4, str(MESH_CKPT), timeout_s=600)
-            res["resume"] = spawn_ranks(mesh_resume_rank, 2, str(MESH_CKPT), timeout_s=300)
-            res["wall"] = time.perf_counter() - t0
-        except BaseException as e:  # re-raised below, in the phase's thread
-            res["error"] = e
-
-    th = threading.Thread(target=groups)
-    th.start()
-    try:
-        # (a) a 1x1 NCCL mesh, bitwise the one-device Trainer
-        t0 = time.perf_counter()
-        a = spawn_ranks(mesh_one_rank, 1, backend="nccl", timeout_s=300)[0]
-        out["wall_s"]["a"] = time.perf_counter() - t0
-        tally(a["launches"], a["shapes"])
-        check(a["losses"] == a["want"] and not a["differ"]
-              and min(a["launches"]["panel_factor"], a["launches"]["apply_factors"]) > 0,
-              f"(a) olmo-1b smoke, 3 Orthant steps on a 1x1 NCCL mesh: losses {a['losses']} "
-              f"vs {a['want']} one-device; leaves with other bits {a['differ']} of "
-              f"{a['leaves']}; B3/B4 launched {a['launches']['panel_factor']}/"
-              f"{a['launches']['apply_factors']} ({out['wall_s']['a']:.1f} s)")
-        # the one-device steps (c) holds its meshes to
-        t0 = time.perf_counter()
-        one = {}
-        for arch in MESH_FAMILIES:
-            for opt in ("adamw", "orthant"):
-                cfg = _mesh_cfg(arch)
-                tr = Trainer(cfg, optimizer=opt, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
-                             lr=MESH_LR)
-                tr.data = UniformBatches(cfg.vocab, MESH_SEQ, MESH_BATCH)
-                p0 = flat_global(tr.params)
-                losses = tr.run(1, log_fn=print)
-                one[(arch, opt)] = (p0, losses, flat_global({"params": tr.params,
-                                                             "opt": tr.opt_state}))
-        _zero_counts(kernels)  # the references' launches are not the mesh path's
-        out["wall_s"]["one-device references"] = time.perf_counter() - t0
-    finally:
-        th.join()
-        cli_out, cli_err = cli.communicate(timeout=600)
-        cli_s = time.perf_counter() - t_cli
-    if "error" in res:
-        raise res["error"]
+    res = smoke["res"]
+    for e in ("error", "error a"):
+        if e in res:
+            raise res[e]
+    full_cfg = get_config("olmo-1b")
+    # (a) a 1x1 NCCL mesh, bitwise the one-device Trainer
+    a = res["a"]
+    out["wall_s"]["a"] = res["a_s"]
+    tally(a["launches"], a["shapes"])
+    check(a["losses"] == a["want"] and not a["differ"]
+          and min(a["launches"]["panel_factor"], a["launches"]["apply_factors"]) > 0,
+          f"(a) olmo-1b smoke, 3 Orthant steps on a 1x1 NCCL mesh: losses {a['losses']} "
+          f"vs {a['want']} one-device; leaves with other bits {a['differ']} of "
+          f"{a['leaves']}; B3/B4 launched {a['launches']['panel_factor']}/"
+          f"{a['launches']['apply_factors']} ({out['wall_s']['a']:.1f} s, beside phases 9-10)")
+    # the one-device steps (c) holds its meshes to
+    t0 = time.perf_counter()
+    one = {}
+    for arch in MESH_FAMILIES:
+        for opt in ("adamw", "orthant"):
+            cfg = _mesh_cfg(arch)
+            tr = Trainer(cfg, optimizer=opt, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                         lr=MESH_LR)
+            tr.data = UniformBatches(cfg.vocab, MESH_SEQ, MESH_BATCH)
+            p0 = flat_global(tr.params)
+            losses = tr.run(1, log_fn=print)
+            one[(arch, opt)] = (p0, losses, flat_global({"params": tr.params,
+                                                         "opt": tr.opt_state}))
+    out["wall_s"]["one-device references"] = time.perf_counter() - t0
+    # (b)'s one-device steps
+    if not step1:  # phase 12 (b) did not run: take its first Orthant step here
+        tr = Trainer(full_cfg, optimizer="orthant", seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH)
+        step1["p0"] = step_matrices(tr.params)
+        step1["loss"] = tr.run(1, log_fn=print)[0]
+        step1.update(p1=step_matrices(tr.params),
+                     momentum=step_matrices(tr.opt_state.momentum))
+        del tr
+    t0 = time.perf_counter()
+    tr = Trainer(full_cfg.scaled(compute_dtype="float32"), optimizer="orthant",
+                 seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    f32_loss = tr.run(1, log_fn=print)[0]
+    f32 = {"p1": step_matrices(tr.params), "momentum": step_matrices(tr.opt_state.momentum)}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"]["one-device f32 step"] = time.perf_counter() - t0
+    _zero_counts(kernels)  # the references' launches are not the mesh path's
 
     # (c) a family each on 2x2 and 4x1
     ranks = res["smoke"]
@@ -2791,40 +3142,19 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
     out["wall_s"]["c+d"] = res["wall"]
 
     # (f) the CLI: a 2x2 mesh runs; meshes one host cannot form exit naming their ranks
-    text = cli_out.strip()
+    rc, text, err, cli_s = smoke["cli"]
+    text = text.strip()
     lines = text.splitlines()
-    check(cli.returncode == 0 and bool(lines) and lines[0].startswith(
+    check(rc == 0 and bool(lines) and lines[0].startswith(
         "mesh 2x2 ('data', 'model'): 4 ranks, gloo") and "done: 3 steps" in text,
-          f"(f) launch.train --smoke --mesh 2x2 --steps 3 exits {cli.returncode} in "
-          f"{cli_s:.1f} s (beside (a), (c) and (d)): {lines[:1]} ... {lines[-2:]}"
-          + ("" if cli.returncode == 0 else f": {cli_err.strip()[-400:]}"))
-    refused = {mesh: (need, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b", "--mesh", mesh,
-         "--steps", "3"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
-        for mesh, need in (("16x16", 256), ("prod", 256), ("prod2", 512))}
-    for mesh, (need, r) in refused.items():
-        _, err = r.communicate(timeout=120)
-        check(r.returncode != 0 and f"needs {need} ranks" in err,
-              f"(f) launch.train --mesh {mesh} exits {r.returncode}: {err.strip()[-160:]}")
+          f"(f) launch.train --smoke --mesh 2x2 --steps 3 exits {rc} in {cli_s:.1f} s "
+          f"(beside (a), (c) and (d)): {lines[:1]} ... {lines[-2:]}"
+          + ("" if rc == 0 else f": {err.strip()[-400:]}"))
+    for mesh, (need, rc, err) in smoke["refused"].items():
+        check(rc != 0 and f"needs {need} ranks" in err,
+              f"(f) launch.train --mesh {mesh} exits {rc}: {err.strip()[-160:]}")
 
     # (b) olmo-1b at its published widths on a 1x4 mesh of 4 gloo ranks
-    cfg = get_config("olmo-1b")
-    if not step1:  # phase 12 (b) did not run: take its first Orthant step here
-        tr = Trainer(cfg, optimizer="orthant", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-        step1["p0"] = step_matrices(tr.params)
-        step1["loss"] = tr.run(1, log_fn=print)[0]
-        step1.update(p1=step_matrices(tr.params),
-                     momentum=step_matrices(tr.opt_state.momentum))
-        del tr
-    t0 = time.perf_counter()
-    tr = Trainer(cfg.scaled(compute_dtype="float32"), optimizer="orthant",
-                 seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    f32_loss = tr.run(1, log_fn=print)[0]
-    f32 = {"p1": step_matrices(tr.params), "momentum": step_matrices(tr.opt_state.momentum)}
-    del tr
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["wall_s"]["one-device f32 step"] = time.perf_counter() - t0
     _zero_counts(kernels)
     t0 = time.perf_counter()
     full = spawn_ranks(mesh_full_rank, 4, timeout_s=900)
@@ -2889,7 +3219,8 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
               f"other ranks' work between them too); B3 {b3}, B4 {b4} a rank; card memory in "
               f"use {used / 2**30:.2f} GiB ({card})")
         check(min(b3) > 0 and min(b4) > 0, f"(b) step {i + 1}: every rank launched B3 and B4")
-    steady = [s["wall_s"] for s in rec["steps"][1:]]
+    # the steps after the first, or the first alone (its wall holds the warm-up)
+    steady = [s["wall_s"] for s in rec["steps"][1:]] or [rec["steps"][0]["wall_s"]]
     rec["s_step"] = sum(steady) / len(steady)
     rec["tok_s"] = tokens / rec["s_step"]
     rec["peak_gib"] = [r["peak_bytes"] / 2**30 for r in full]
@@ -2900,7 +3231,8 @@ def mesh_phase(kernels, card: str, gen, held: dict, step1: dict) -> dict:
     out["full"] = rec
     print(f"  (b) rank 0's blocks: parameters {rec['local_bytes']['params']} bytes, optimizer "
           f"state {rec['local_bytes']['opt']} bytes (phase 15 (c) lays them out by shape)")
-    print(f"  (b) olmo-1b on 1x4: {rec['s_step']:.2f} s/step over steps 2-{MESH_FULL_STEPS}, "
+    over = f"steps 2-{MESH_FULL_STEPS}" if MESH_FULL_STEPS > 1 else "step 1, warm-up included"
+    print(f"  (b) olmo-1b on 1x4: {rec['s_step']:.2f} s/step over {over}, "
           f"{rec['tok_s']:.1f} tok/s; peak allocated a rank "
           f"{', '.join(f'{x:.2f}' for x in rec['peak_gib'])} GiB, the card's memory in use "
           f"{rec['card_peak_gib']:.2f} GiB at most; {out['wall_s']['b']:.1f} s wall ({card})")
@@ -3123,19 +3455,210 @@ def mixed_phase(kernels, card: str, reqs, f32_req_s: float, M, dense_ms: dict,
     return out
 
 
+def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
+    """Phase 14 (e)-(g), f64 sums on the main path (B1 and B2's wide
+    instances): (e) ``ggr_qr_blocked`` of phase 5's 4096^2 matrix under the
+    tree schedule at ``Precision(t, "float64", t)`` for t = f32, bf16 and
+    f16, within the reference's error budgets of the tile dtype; (f) the
+    mix's appends and kalman steps stored in bf16 / f16, served by
+    ``QRServer(precision=Precision(t, "float64", t))``, each kind's results
+    within SERVE_EPS eps(t) (relative Frobenius) of the same requests
+    served in f64; (g) the fused schedule (``"auto"`` on the card) and B3 /
+    B4 alone at a wide pair raise ``NotImplementedError`` naming both
+    dtypes; then every (shape, pair) (e)-(f) launched, held against the
+    plain version on fresh inputs (``kernel_check.wide_accurate``).  The
+    counts are set to 0 just before each run of (e)-(f) and read just after
+    it; every launch must be at the run's (tile, float64) pair."""
+    import torch
+
+    from repro_torch.core import ggr_qr_blocked
+    from repro_torch.kernels import Precision, ggr_apply, ggr_panel
+    from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all
+    from repro_torch.testing import (budget_is_meaningful, dtype_eps, error_budget,
+                                     forward_error, gram_residual, orthogonality_loss)
+
+    t_phase = time.perf_counter()
+    need = ("batched_geqrt", "batched_update")
+    out = {"wall_s": {}, "req_s": {}, "serve_rel": {}, "qr": {}, "qr_ms": {},
+           "launches": {d: {k: 0 for k in kernels} for d in WIDE},
+           "shapes": {d: {k: set() for k in kernels} for d in WIDE}}
+
+    def counted(dname: str, what: str, fn):
+        _zero_counts(kernels)
+        res = fn()
+        torch.cuda.synchronize()
+        launches, shapes = _counts(kernels)
+        for k in kernels:
+            out["launches"][dname][k] += launches[k]
+            out["shapes"][dname][k] |= shapes[k]
+        pairs = {(str(sh[2]).removeprefix("torch."), sh[3])
+                 for recs in shapes.values() for sh in recs}
+        check(pairs <= {(dname, "float64")},
+              f"{what}: every launch at ({dname}, float64): {sorted(pairs)}", quiet=True)
+        return res, launches
+
+    # (e) the tree QR at each wide pair, held by every metric of the
+    # reference's factorization_errors whose budget is meaningful at the
+    # matrix's condition (the gram residual always), computed only there
+    t0 = time.perf_counter()
+    m, n = M.shape
+    M64 = M.double()
+    A64 = M64.cpu().numpy()
+    cond = float(torch.linalg.cond(M64))
+    metrics = {"gram_residual": lambda R: gram_residual(A64, R),
+               "orthogonality_loss": lambda R: orthogonality_loss(A64, R),
+               "forward_error": lambda R: forward_error(R, R_ref)}
+    if any(budget_is_meaningful(d, "forward_error", m, n, cond) for d in WIDE):
+        R_ref = torch.linalg.qr(M64, mode="r").R.cpu().numpy()
+    for dname in WIDE:
+        prec = Precision(dname, "float64", dname)
+        R, launches = counted(dname, f"(e) tree qr at ({dname}, float64)",
+                              lambda: ggr_qr_blocked(M, schedule="tree", precision=prec))
+        R64 = R.double().cpu().numpy()
+        held = {k: (f(R64), error_budget(dname, k, m, n, cond)) for k, f in metrics.items()
+                if k == "gram_residual" or budget_is_meaningful(dname, k, m, n, cond)}
+        out["qr"][dname] = {k: v for k, (v, _) in held.items()}
+        check(R.dtype == getattr(torch, dname) and all(launches[k] > 0 for k in need)
+              and all(v < b for v, b in held.values()),
+              f"(e) ggr_qr_blocked {m}x{n} f32 input, tree, ({dname}, float64): R at "
+              f"{R.dtype}, launches {launches}; held (value < budget at cond {cond:.3e}): "
+              + ", ".join(f"{k} {v:.3e} < {b:.3e}" for k, (v, b) in held.items())
+              + "; not meaningful there, so not computed: "
+              + ", ".join(k for k in metrics if k not in held))
+        ms = cuda_ms(lambda: ggr_qr_blocked(M, schedule="tree", precision=prec), reps=2)
+        out["qr_ms"][dname] = ms
+        print(f"  (e) tree qr {m}x{n} ({dname}, float64): {ms:.2f} ms (phase 5 f32 tree "
+              f"{dense_ms['tree qr']:.2f} ms; {card})")
+    out["wall_s"]["e"] = time.perf_counter() - t0
+
+    # (f) the bf16 / f16 stored appends and kalman steps served with f64 sums,
+    # beside the same requests served in f64
+    t0 = time.perf_counter()
+    kinds = ("append", "kalman")
+
+    def serve(sreqs, precision=None):
+        srv = QRServer(device="cuda", max_batch=SERVE_MAX_BATCH, precision=precision)
+        tickets = _submit_all(srv, sreqs)
+        t1 = time.perf_counter()
+        served = srv.flush()
+        srv.drain()
+        return [_as_tuple(srv.result(t)) for t in tickets], served / (time.perf_counter() - t1)
+
+    for dname in MIXED:
+        dtype = getattr(torch, dname)
+        sreqs = [r for r in stored_mix(reqs, dtype) if r[0] in kinds]
+        ref, _ = serve(stored_mix(sreqs, torch.float64))  # the same values, in f64
+        prec = Precision(dname, "float64", dname)
+        serve(sreqs, prec)  # warm-up flush
+        (got, req_s), launches = counted(dname, f"(f) ({dname}, float64) flush",
+                                         lambda: serve(sreqs, prec))
+        out["req_s"][dname] = req_s
+        eps = dtype_eps(dname)
+        rels, groups = {}, {}
+        for r, a, b in zip(sreqs, got, ref):
+            groups.setdefault((r[0], len(a)), []).append((a, b))
+        for (kind, n_out), pairs in sorted(groups.items()):
+            for i in range(n_out):
+                X = torch.stack([a[i] for a, _ in pairs]).double()
+                Y = torch.stack([b[i] for _, b in pairs]).double()
+                key = f"{kind} {n_out}:{i}"
+                rels[key] = float(torch.linalg.norm(X - Y) / torch.linalg.norm(Y))
+                ok_dtype = all(a[i].dtype == dtype for a, _ in pairs)
+                check(ok_dtype and rels[key] <= SERVE_EPS * eps,
+                      f"(f) {dname} {kind} ({len(pairs)} requests, output {i} of {n_out}) "
+                      f"served at ({dname}, float64): at {dname}, within "
+                      f"{rels[key] / eps:.3f} eps of the f64-served results "
+                      f"(relative Frobenius, <= {SERVE_EPS:g} eps)")
+        out["serve_rel"][dname] = rels
+        check(launches["batched_update"] > 0,
+              f"(f) ({dname}, float64) flush of {len(sreqs)} appends / kalman steps: "
+              f"{req_s:.1f} req/s ({card}), launches {launches}")
+    out["wall_s"]["f"] = time.perf_counter() - t0
+
+    # (g) B3 / B4 take no wide pair: the fused schedule at one raises
+    t0 = time.perf_counter()
+    prec = Precision("float32", "float64", "float32")
+    pan = torch.zeros((1, 64, 8), device="cuda")
+    refusals = {"fused qr": lambda: ggr_qr_blocked(M[:256, :256], schedule="fused",
+                                                   precision=prec),
+                "auto qr": lambda: ggr_qr_blocked(M[:256, :256], precision=prec),
+                "panel_factor": lambda: ggr_panel.panel_factor(pan, precision=prec),
+                "apply_factors": lambda: ggr_apply.apply_factors(pan, pan, pan,
+                                                                 precision=prec)}
+    for what, call in refusals.items():
+        _zero_counts(kernels)
+        try:
+            call()
+            msg = "no error"
+        except NotImplementedError as e:
+            msg = str(e)
+        launched = sum(_counts(kernels)[0].values())
+        check("float32 tiles with float64 accumulation" in msg and launched == 0,
+              f"(g) {what} at (float32, float64) raises NotImplementedError naming both "
+              f"dtypes, no launch: {msg[:100]!r}, {launched} launches")
+    out["wall_s"]["g"] = time.perf_counter() - t0
+
+    # every (shape, pair) of (e)-(f) against the plain version on fresh inputs
+    t0 = time.perf_counter()
+    out["recheck_worst"] = {d: recheck_shapes(out["shapes"][d], gen) for d in WIDE}
+    n_shapes = sum(len(v) for d in WIDE for v in out["shapes"][d].values())
+    print(f"  (e)-(f) {n_shapes} (shape, pair) launches rechecked "
+          f"({time.perf_counter() - t0:.1f} s); worst errors {out['recheck_worst']}")
+    out["wall_s"]["recheck"] = time.perf_counter() - t0
+    for dname in WIDE:
+        check(all(out["launches"][dname][k] > 0 for k in need),
+              f"phase 14 (e)-(f) launched B1 and B2 at ({dname}, float64): "
+              f"{out['launches'][dname]}")
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 14 (e)-(g) wall {out['wall_s']['phase']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
+    return out
+
+
 # ------------------------------------------------------------ phase 15
-# the dry run of olmo-1b's train_4k cell on a fake 16x16 mesh of 256 ranks,
-# on the card's host: its outputs, each subprocess's time limit, the phase's
-# budget (printed beside its wall)
+# the dry run's cells on a fake 16x16 mesh of 256 ranks, on the card's host:
+# their outputs, each subprocess's time limit, the phase's budget (printed
+# beside its wall)
 DRYRUN_DIR = ROOT / "build" / "dryrun"
-DRYRUN_TIMEOUT, DRYRUN_BUDGET = 150.0, 60.0
-# (a) AdamW with the depth probe, (b) Orthant without it
-DRYRUN_CELLS = {"adamw": ([], "olmo-1b__train_4k__pod1.json"),
-                "orthant": (["--optimizer", "orthant", "--no-probe"],
-                            "olmo-1b__train_4k__pod1.orthant.json")}
+CLI_DIR = ROOT / "build" / "smoke_cli"  # run_staggered's output files
+DRYRUN_TIMEOUT, DRYRUN_BUDGET = 300.0, 60.0
+# part -> (arch, shape, flags): (a) AdamW with the depth probe, (b) Orthant
+# without it
+DRYRUN_CELLS = {
+    "a": ("olmo-1b", "train_4k", []),
+    "b": ("olmo-1b", "train_4k", ["--optimizer", "orthant", "--no-probe"]),
+    # (d) sequence parallelism (ROADMAP C5: failed under torch 2.11 before)
+    "d": ("olmo-1b", "train_4k", ["--seq-parallel", "--no-probe"]),
+    # (e) the long_500k cells whose caches split their sequence (C6)
+    "e zamba2": ("zamba2-1.2b", "long_500k", ["--no-probe"]),
+    "e mixtral": ("mixtral-8x22b", "long_500k", ["--no-probe"]),
+}
 
 
-def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
+def start_dryruns() -> tuple:
+    """Phase 15's subprocesses (``DRYRUN_CELLS``), started ahead of the
+    phase at nice MESH_NICE: they take the host's cores phases 11 to 14
+    leave idle.
+    Returns ({part: (result path, stderr path, process)}, the start time)."""
+    import shutil
+
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    nice = ["nice", "-n", str(MESH_NICE)] if shutil.which("nice") else []
+    procs = {}
+    for name, (arch, shape, extra) in DRYRUN_CELLS.items():
+        path = DRYRUN_DIR / f"{name.replace(' ', '_')}.json"
+        path.unlink(missing_ok=True)
+        err = path.with_suffix(".err")
+        with open(err, "w") as f:
+            procs[name] = (path, err, subprocess.Popen(
+                [*nice, sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, *extra, "--out", str(path)],
+                stdout=subprocess.DEVNULL, stderr=f, text=True, env=env))
+    return procs, time.perf_counter()
+
+
+def dryrun_phase(kernels, card: str, mesh_full: dict, started: tuple) -> dict:
     """Phase 15: (a) ``python -m repro_torch.launch.dryrun --arch olmo-1b
     --shape train_4k`` (16x16 fake ranks, AdamW, the depth probe): the
     reference's keys, 256 chips, a dominant term, local FLOPs and collective
@@ -3144,8 +3667,13 @@ def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
     launches and FLOPs a rank and the momenta's all-gather bytes beside
     AdamW's; (c) ``launch.specs``' parameter and Orthant-state trees of
     olmo-1b on a fake 1x4 mesh in this process: rank 0's bytes exactly those
-    of phase 13 (b)'s rank 0 (``mesh_full``).  (a) and (b) run as two
-    subprocesses beside (c); no kernel is launched."""
+    of phase 13 (b)'s rank 0 (``mesh_full``); (d) the (a) cell with
+    ``--seq-parallel``: fewer all-reduce bytes than (a), reduce-scatter and
+    all-gather present, the useful-FLOPs ratio within the band; (e) the
+    long_500k cells of zamba2-1.2b and mixtral-8x22b, whose decode caches
+    split their sequence.  (a), (b), (d) and (e) run as subprocesses, each
+    with its own time limit from its start (``start_dryruns``, at phase
+    11's start); no kernel is launched."""
     import torch
 
     from repro_torch.configs import get_config, get_shape
@@ -3155,16 +3683,7 @@ def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
     from repro_torch.testing.dryrun_check import missing_keys, useful_band
 
     t_phase = time.perf_counter()
-    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    procs = {}
-    for name, (extra, fname) in DRYRUN_CELLS.items():
-        path = DRYRUN_DIR / fname
-        path.unlink(missing_ok=True)
-        procs[name] = (path, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
-             "--shape", "train_4k", *extra, "--out", str(path)],
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, env=env))
+    procs, t_start = started
     out = {"wall_s": {}}
 
     # (c) meanwhile: phase 13 (b)'s blocks laid out by shape on a fake 1x4 mesh
@@ -3188,22 +3707,23 @@ def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
           f"kernel launched ({out['wall_s']['c']:.1f} s)")
 
     res = {}
-    for name, (path, proc) in procs.items():
-        left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_phase))
+    for name, (path, errpath, proc) in procs.items():  # each within its own time limit
+        left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_start))
         try:
-            _, err = proc.communicate(timeout=left)
+            proc.wait(timeout=left)
         except subprocess.TimeoutExpired:
             proc.kill()
-            _, err = proc.communicate()
+            proc.wait()
+        err = errpath.read_text()
         ok = proc.returncode == 0 and path.exists()
-        part = "a" if name == "adamw" else "b"
-        args = " ".join(["--arch olmo-1b --shape train_4k", *DRYRUN_CELLS[name][0]])
-        check(ok, f"({part}) launch.dryrun {args} exits 0 (rc {proc.returncode})"
+        arch, shape, extra = DRYRUN_CELLS[name]
+        args = " ".join([f"--arch {arch} --shape {shape}", *extra])
+        check(ok, f"({name}) launch.dryrun {args} exits 0 (rc {proc.returncode})"
                   + ("" if ok else f": {err[-2000:]}"))
         res[name] = json.loads(path.read_text()) if ok else None
-    out["wall_s"]["a+b"] = time.perf_counter() - t_phase
+    out["wall_s"]["subprocesses"] = time.perf_counter() - t_start
 
-    a = res["adamw"]
+    a = res["a"]
     if a is not None:
         pd, roof = a["per_device"], a["roofline_seconds_corrected"]
         lo, hi = useful_band(cfg, get_shape("train_4k"))
@@ -3223,7 +3743,7 @@ def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
               f"{a['compile_seconds']:.2f} s on this host; card {card}")
         out["adamw"] = {"per_device": pd, "roofline_corrected": roof, "useful": ratio,
                         "band": [lo, hi], "seconds": a["compile_seconds"]}
-    b = res["orthant"]
+    b = res["b"]
     if b is not None:
         ks = b["per_device"].get("kernels", {})
         b3, b4 = ks.get("panel_factor", {}), ks.get("apply_factors", {})
@@ -3241,10 +3761,88 @@ def dryrun_phase(kernels, card: str, mesh_full: dict) -> dict:
         out["orthant"] = {"kernels": ks, "per_device": b["per_device"],
                           "momenta_all_gather_bytes": gathered, "card_launches": on_card,
                           "seconds": b["compile_seconds"]}
+    d = res["d"]
+    if d is not None:
+        lo, hi = useful_band(cfg, get_shape("train_4k"))
+        ratio, coll = d["useful_flops_ratio"], d["per_device"]["collectives"]
+        plain = a["per_device"]["collectives"] if a else None
+        check(plain is not None and coll["all-reduce"] < plain["all-reduce"]
+              and coll["reduce-scatter"] > 0 and coll["all-gather"] > 0 and lo <= ratio <= hi,
+              f"(d) olmo-1b train_4k on 16x16 with --seq-parallel under torch "
+              f"{torch.__version__}: all-reduce {coll['all-reduce']} bytes (< (a)'s "
+              f"{plain and plain['all-reduce']}), reduce-scatter {coll['reduce-scatter']}, "
+              f"all-gather {coll['all-gather']} bytes a device; useful FLOPs ratio "
+              f"{ratio:.4f} in [{lo:.4f}, {hi:.4f}]; the step took "
+              f"{d['compile_seconds']:.2f} s on this host")
+        out["seq_parallel"] = {"collectives": coll, "useful": ratio,
+                               "seconds": d["compile_seconds"]}
+    for name in ("e zamba2", "e mixtral"):
+        e = res[name]
+        if e is not None:
+            pd = e["per_device"]
+            check(e["chips"] == 256 and pd["hlo_flops"] > 0 and pd["collective_bytes"] > 0,
+                  f"({name}) {e['arch']} long_500k on 16x16 (batch 1: the cache's sequence "
+                  f"over the data axes): {pd['hlo_flops']:.4e} FLOPs, {pd['hlo_bytes']:.4e} "
+                  f"bytes, collectives {json.dumps(pd['collectives'])} a device; the step "
+                  f"took {e['compile_seconds']:.2f} s on this host")
+            out[name] = {"per_device": pd, "seconds": e["compile_seconds"]}
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
-    print(f"  phase 15 wall {out['wall_s']['phase']:.1f} s (budget {DRYRUN_BUDGET:.0f} s; "
+    print(f"  phase 15 wall {out['wall_s']['phase']:.1f} s, its subprocesses "
+          f"{out['wall_s']['subprocesses']:.1f} s from their start in phase 11 "
+          f"(budget {DRYRUN_BUDGET:.0f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
     return out
+
+
+# past this many seconds the run stops itself (``watchdog``): every thread's
+# stack on stderr, every process it started killed, exit 3, inside the
+# 1200 s the run has
+WATCHDOG_S = 1170.0
+
+
+def _descendants(pid: int) -> list:
+    """Every process under ``pid`` (read from /proc), children first."""
+    parent = {}
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                stat = (d / "stat").read_text()
+            except OSError:
+                continue
+            parent[int(d.name)] = int(stat.rsplit(")", 1)[1].split()[1])
+    out, todo = [], [pid]
+    while todo:
+        cur = todo.pop()
+        kids = [p for p, pp in parent.items() if pp == cur]
+        out += kids
+        todo += kids
+    return out
+
+
+def watchdog() -> None:
+    """Stop the run ``WATCHDOG_S`` seconds after its start: the phase it is
+    in and every thread's stack go to stderr, every process it started is
+    killed, and it exits 3 without printing the last line."""
+    import faulthandler
+    import signal
+    import threading
+
+    def stop():
+        print(f"chip_smoke.py: still running {time.perf_counter() - _T0:.0f} s after its "
+              f"start, in phase {_PHASE[0]!r}: stopping (every thread's stack follows)",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for pid in _descendants(os.getpid()):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        sys.stderr.flush()
+        os._exit(3)
+
+    timer = threading.Timer(WATCHDOG_S - (time.perf_counter() - _T0), stop)
+    timer.daemon = True
+    timer.start()
 
 
 def main() -> int:
@@ -3253,6 +3851,7 @@ def main() -> int:
               "not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    watchdog()
     import torch
 
     # ------------------------------------------------------------ phase 1
@@ -3282,9 +3881,17 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 2
     phase("2. build")
+    import threading
+
+    from repro_torch.testing.kernel_check import build_narrow
+
     t0 = time.perf_counter()
+    # phase 3's probe of the casts from double, built beside the kernels
+    narrow = threading.Thread(target=build_narrow)
+    narrow.start()
     logs = _cuda.build()
-    print(f"  built {sorted(logs)} into {_cuda.build_dir()} in "
+    narrow.join()
+    print(f"  built {sorted(logs)} and the casts' probe into {_cuda.build_dir()} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"  --- {name}.cu ptxas:")
@@ -3296,17 +3903,31 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [KernelCase(name, shape, param, getattr(torch, dname), gen, *data)
              for name, shape, param, dname, *data in PHASE3]
-    worst = {(name, d): 0.0 for name in kernels for d in ("uniform", *MIXED)}
+    worst = {(c.name, c.pair): 0.0 for c in cases}
     timed = {}
     for case in cases:
-        key = (case.name, case.dname if case.mixed else "uniform")
-        worst[key] = max(worst[key], case.compare())
+        worst[(case.name, case.pair)] = max(worst[(case.name, case.pair)], case.compare())
         case.zero_batch()
-        timed[(case.name, case.shape, case.dname, case.data)] = t = case.times()
-        was = TABLE_MS.get((case.name, case.shape, case.dname, case.data))
+        timed[(case.name, case.shape, case.pair, case.data)] = t = case.times()
+        was = (TABLE_MS.get((case.name, case.shape, case.dname, case.data))
+               if case.pair == "uniform" else None)
         if was is not None:
             print(f"    PERF.md §6 table: {was:.4f} ms; this run {t['ms']:.4f} ms "
                   f"({t['ms'] / was:.2f}x)")
+    # the wide instances' stores: ggr_common.cuh's narrow from double, alone
+    from repro_torch.kernels.backend import to_tile
+    from repro_torch.testing.kernel_check import narrow_on_card, tie_values
+
+    ties = tie_values().cuda()
+    for dname in WIDE:
+        got, want = narrow_on_card(ties, dname), to_tile(ties, dname)
+        itype = torch.int16 if got.element_size() == 2 else torch.int32
+        once = int((to_tile(ties, dname).view(itype)
+                    != ties.to(getattr(torch, dname)).view(itype)).sum())
+        check(torch.equal(got.view(itype), want.view(itype)),
+              f"narrow<{dname}>(double) on the card, {ties.numel()} tie values: bitwise "
+              f"the plain versions' to_tile ({once} of them where one rounding and "
+              "torch's cast differ)")
 
     # ------------------------------------------------------------ phase 4
     phase("4. serving")
@@ -3458,57 +4079,72 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 6
     phase("6. instrumented path and sketch least squares")
-    inst = instrumented_phase(server, reqs, kernels, card)
+    early = {}  # the CLI runs phase 6 starts for phases 6-8
+    inst = instrumented_phase(server, reqs, kernels, card, early)
     for name in kernels:
         recorded[name] |= inst["shapes"][name]
 
     # ------------------------------------------------------------ phase 7
     phase("7. resilient serving")
-    resil = resilient_phase(reqs, kernels, card)
+    resil = resilient_phase(reqs, kernels, card, early["7"])
     for name in kernels:
         recorded[name] |= resil["shapes"][name]
 
     # ------------------------------------------------------------ phase 8
     phase("8. sharded serving")
-    shard = sharded_phase(reqs, kernels, card)
+    shard = sharded_phase(reqs, kernels, card, early["8"])
     for name in kernels:
         recorded[name] |= shard["shapes"][name]
 
     # ------------------------------------------------------------ phase 9
     phase("9. distributed QR and the Orthant optimizer")
-    dist_out = distributed_phase(kernels, card, gen)
+    # phase 13's smoke meshes and phase 12's CLI runs, from phase 9 (c) to phase 10's end
+    smoke, train_cli = {}, {}
+    dist_out = distributed_phase(kernels, card, gen, timed=lambda: (
+        smoke.update(mesh_smoke_start()), train_cli.update(train_cli_start())))
     for name in kernels:
         recorded[name] |= dist_out["shapes"][name]
 
     # ------------------------------------------------------------ phase 10
     phase("10. kernels vs plain versions at every main-path shape")
+    t0 = time.perf_counter()
+    plain_held = {k: recorded[k] & dist_out["plain_held"][k] for k in kernels}
     n_shapes = sum(len(s) for s in recorded.values())
-    recheck_worst = recheck_shapes(recorded, gen)
-    print(f"  {n_shapes} (shape, dtype) launches rechecked; worst errors "
-          f"{recheck_worst}")
+    n_held = sum(len(s) for s in plain_held.values())
+    recheck_worst = recheck_shapes({k: recorded[k] - plain_held[k] for k in kernels}, gen)
+    recheck_worst = {k: max(v, dist_out["plain_worst"][k]) for k, v in recheck_worst.items()}
+    print(f"  {n_shapes} (shape, dtype) launches: {n_held} held on phase 9 (c)'s plain "
+          f"driver's own steps, the other {n_shapes - n_held} rechecked now "
+          f"({time.perf_counter() - t0:.1f} s); worst errors {recheck_worst}")
+    mesh_smoke_join(smoke)
+    train_cli["thread"].join()
+    print(f"  phase 12's CLI runs, beside phases 9 (c) to 10, done "
+          f"{time.perf_counter() - train_cli['t0']:.1f} s after their start")
 
     # ------------------------------------------------------------ phase 11
     phase("11. LM serving")
+    dryruns = start_dryruns()  # phase 15's subprocesses, on the host's cores from here on
     lm = lm_phase(kernels, card)
 
     # ------------------------------------------------------------ phase 12
     phase("12. LM training")
     step1 = {}
-    train = train_phase(kernels, card, gen, recorded, step1)
+    train = train_phase(kernels, card, gen, recorded, step1, train_cli)
 
     # ------------------------------------------------------------ phase 13
     phase("13. LM training on a mesh")
     mesh = mesh_phase(kernels, card, gen,
-                      {k: recorded[k] | train["shapes"][k] for k in kernels}, step1)
+                      {k: recorded[k] | train["shapes"][k] for k in kernels}, step1, smoke)
     del step1
 
     # ------------------------------------------------------------ phase 14
     phase("14. mixed precision on the main path")
     mixed = mixed_phase(kernels, card, reqs, req_s, M, dense_ms, gen)
+    wide = wide_phase(kernels, card, reqs, M, dense_ms, gen)
 
     # ------------------------------------------------------------ phase 15
     phase("15. the dry run on the card's host")
-    dry = dryrun_phase(kernels, card, mesh.get("full"))
+    dry = dryrun_phase(kernels, card, mesh.get("full"), dryruns)
 
     # ------------------------------------------------------------ phase 16
     phase("16. summary")
@@ -3526,7 +4162,7 @@ def main() -> int:
                               "src/repro/kernels/ggr_apply.py:28")}
     rows_out = []
     for name in kernels:
-        t = timed[(*headline[name], "random")]
+        t = timed[(*headline[name][:2], "uniform", "random")]
         rows_out.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -3544,20 +4180,37 @@ def main() -> int:
     for dname in MIXED:  # the bf16 / f16 instances at the same shapes
         for name in kernels:
             shape = headline[name][1]
-            t = timed[(name, shape, dname, "random")]
+            t = timed[(name, shape, f"{dname}/float32", "random")]
             rows_out.append({
                 "name": f"{name}_{_cuda.suffix(getattr(torch, dname), 'float32')}",
                 "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": mixed["launches"][dname][name],
-                "max_abs_err": max(worst[(name, dname)],
+                "max_abs_err": max(worst[(name, f"{dname}/float32")],
                                    mixed["recheck_worst"][dname].get(name, 0.0)),
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": list(shape), "dtype": dname, "accum_dtype": "float32",
                 "library_dtype": "float32",
             })
-    for (name, shape, dname, data), t in timed.items():
-        print(f"  {name} {shape} {dname} {data}: " + ", ".join(
+    source = {"batched_update": "ggr_update", "batched_geqrt": "ggr_panel"}
+    for dname in WIDE:  # B1 / B2's f64-summed instances at the same shapes
+        for name in source:
+            shape = headline[name][1]
+            pair = f"{dname}/float64"
+            t = timed[(name, shape, pair, "random")]
+            rows_out.append({
+                "name": f"{name}_{_cuda.suffix(getattr(torch, dname), 'float64', source[name])}",
+                "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+                "launches": wide["launches"][dname][name],
+                "max_abs_err": max(worst[(name, pair)],
+                                   wide["recheck_worst"][dname].get(name, 0.0)),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": list(shape), "dtype": dname, "accum_dtype": "float64",
+                "library_dtype": "float64",
+            })
+    for (name, shape, pair, data), t in timed.items():
+        print(f"  {name} {shape} {pair} {data}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in t.items()))
     print(f"  serving: {req_s:.1f} req/s; dense ms: " + ", ".join(
@@ -3565,11 +4218,14 @@ def main() -> int:
     print(f"  phase 6: {json.dumps({k: v for k, v in inst.items() if k != 'shapes'})}")
     print(f"  phase 7: {json.dumps({k: v for k, v in resil.items() if k != 'shapes'})}")
     print(f"  phase 8: {json.dumps({k: v for k, v in shard.items() if k != 'shapes'})}")
-    print(f"  phase 9: {json.dumps({k: v for k, v in dist_out.items() if k != 'shapes'})}")
+    print("  phase 9: " + json.dumps({k: v for k, v in dist_out.items()
+                                      if k not in ("shapes", "plain_held")}))
     print(f"  phase 11: {json.dumps(lm)}")
     print(f"  phase 12: {json.dumps({k: v for k, v in train.items() if k != 'shapes'})}")
     print(f"  phase 13: {json.dumps({k: v for k, v in mesh.items() if k != 'shapes'})}")
     print(f"  phase 14: {json.dumps({k: v for k, v in mixed.items() if k != 'shapes'})}")
+    print(f"  phase 14 (e)-(g): "
+          f"{json.dumps({k: v for k, v in wide.items() if k != 'shapes'})}")
     print(f"  phase 15: {json.dumps(dry)}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -64,7 +64,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels.backend import (Precision, count_resolution, dtype_name,
-                                         resolve_precision)
+                                         resolve_precision, to_tile)
 from repro_torch.kernels.backend import forced_schedule as backend_forced_schedule
 from repro_torch.kernels.ggr_apply import apply_factors
 from repro_torch.kernels.ggr_panel import batched_geqrt, panel_factor
@@ -205,7 +205,7 @@ def _gemm(lhs: torch.Tensor, rhs: torch.Tensor, accum_dtype) -> torch.Tensor:
     if accum_dtype is None:
         return torch.bmm(lhs, rhs)
     ad = getattr(torch, accum_dtype)
-    return torch.bmm(lhs.to(ad), rhs.to(ad)).to(lhs.dtype)
+    return to_tile(torch.bmm(lhs.to(ad), rhs.to(ad)), lhs.dtype)
 
 
 def _span(name: str):
@@ -371,7 +371,7 @@ def ggr_triangularize_blocked(X: torch.Tensor, n_pivots: int | None = None,
     accum_dtype = None
     if precision is not None:
         prec = resolve_precision(precision)
-        X = X.to(prec.compute)
+        X = to_tile(X, prec.compute)
         accum_dtype = prec.accum_dtype
     batched = X.ndim == 3
     Xb = X if batched else X[None]

@@ -19,7 +19,8 @@ import torch
 from repro_torch.obs import _state as _obs_state
 
 __all__ = ["degraded_mode", "forced_schedule", "Precision", "resolve_precision",
-           "DEFAULT_PRECISION", "count_resolution", "dtype_name", "torch_dtype"]
+           "DEFAULT_PRECISION", "count_resolution", "dtype_name", "torch_dtype",
+           "to_tile"]
 
 # Programmatic degraded-mode overrides (see ``degraded_mode``).
 _DEGRADED: dict = {}
@@ -94,6 +95,24 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return getattr(torch, dtype_name(dtype))
+
+
+def to_tile(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` as ``dtype``, rounded once to nearest even, as XLA's convert
+    rounds.  ``Tensor.to`` takes a float64 tensor to float16 through float32
+    and so rounds twice (1 + 2^-11 + 2^-40 becomes 1, not 1 + 2^-10); here
+    the float32 step rounds to odd instead (truncate toward zero, then set
+    the last mantissa bit of an inexact value), which float32's 13 extra
+    bits make exact.  Runs on x's device.  Every other pair is ``x.to(dtype)``
+    (float64 to bfloat16 goes through float32 in torch and in XLA alike)."""
+    dtype = torch_dtype(dtype)
+    if x.dtype != torch.float64 or dtype != torch.float16:
+        return x.to(dtype)
+    y = x.to(torch.float32)
+    y = torch.where(y.to(torch.float64).abs() > x.abs(),
+                    torch.nextafter(y, torch.zeros_like(y)), y)
+    odd = (y.view(torch.int32) | 1).view(torch.float32)
+    return torch.where(y.to(torch.float64) != x, odd, y).to(dtype)
 
 
 class Precision(NamedTuple):

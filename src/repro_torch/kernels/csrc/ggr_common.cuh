@@ -16,12 +16,14 @@
 //
 // Two types per kernel: the storage type S (what device memory holds, the
 // tile dtype of the JAX kernels) and the compute type T (their accumulation
-// dtype).  The instances are (float, float), (double, double) and the mixed
-// (__nv_bfloat16, float), (__half, float).  A mixed kernel keeps its state in
-// T but rounds every value it writes back to the state through S at the step
-// that writes it (round_to), as the JAX kernels' .astype(cd) does, so the
-// state always holds values S can represent; where S == T each helper is the
-// identity and compiles to nothing.
+// dtype).  Every kernel has the instances (float, float), (double, double)
+// and the mixed (__nv_bfloat16, float), (__half, float); the row-append and
+// tile GEQRT kernels (ggr_update.cu, ggr_panel.cu) also have the wide ones,
+// (float, double), (__nv_bfloat16, double) and (__half, double).  A mixed
+// kernel keeps its state in T but rounds every value it writes back to the
+// state through S at the step that writes it (round_to), as the JAX kernels'
+// .astype(cd) does, so the state always holds values S can represent; where
+// S == T each helper is the identity and compiles to nothing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,21 +39,36 @@ template <typename T, typename S>
 __device__ __forceinline__ T widen(S x) {
   if constexpr (std::is_same_v<S, T>) {
     return x;
+  } else if constexpr (std::is_same_v<S, float>) {
+    static_assert(std::is_same_v<T, double>, "f32 tiles compute in double");
+    return (double)x;
   } else if constexpr (std::is_same_v<S, __nv_bfloat16>) {
-    static_assert(std::is_same_v<T, float>, "bf16 tiles compute in float");
-    return __bfloat162float(x);
+    static_assert(std::is_same_v<T, float> || std::is_same_v<T, double>,
+                  "bf16 tiles compute in float or double");
+    return T(__bfloat162float(x));
   } else {
-    static_assert(std::is_same_v<S, __half> && std::is_same_v<T, float>,
-                  "f16 tiles compute in float");
-    return __half2float(x);
+    static_assert(std::is_same_v<S, __half> &&
+                      (std::is_same_v<T, float> || std::is_same_v<T, double>),
+                  "f16 tiles compute in float or double");
+    return T(__half2float(x));
   }
 }
 
-// A T value stored as S, rounded to nearest even.
+// A T value stored as S, rounded to nearest even as XLA's convert (and the
+// plain versions, kernels/backend.py::to_tile) round it: double to float and
+// to half once; double to bf16 through float, twice, as torch and XLA both
+// do (a single __double2bfloat16 would differ on ties of the second step).
 template <typename S, typename T>
 __device__ __forceinline__ S narrow(T x) {
   if constexpr (std::is_same_v<S, T>) {
     return x;
+  } else if constexpr (std::is_same_v<T, double>) {
+    if constexpr (std::is_same_v<S, float>)
+      return __double2float_rn(x);
+    else if constexpr (std::is_same_v<S, __nv_bfloat16>)
+      return __float2bfloat16_rn(__double2float_rn(x));
+    else
+      return __double2half(x);
   } else if constexpr (std::is_same_v<S, __nv_bfloat16>) {
     return __float2bfloat16_rn(x);
   } else {

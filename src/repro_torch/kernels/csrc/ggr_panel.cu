@@ -55,7 +55,9 @@
 // column's sigma * t_c go through S at the step that writes them
 // (column_walk, narrow); v, sigma, the suffix norms and dots and k, l are
 // float.  0 and 1 are exact in both tile dtypes, so the tree's [0 | I]
-// tiles still come back bitwise as they were.
+// tiles still come back bitwise as they were.  The wide instances (f32 /
+// bf16 / f16 tiles, double sums: ggr_common.cuh) are the same code at T =
+// double, shared memory at 8 bytes a value.
 //
 // Per column step the block passes two barriers (column c in place; the
 // coefficients in place).  Dynamic shared memory (elements, tile_elems): a
@@ -176,6 +178,21 @@ int ggr_batched_geqrt_bf16_f32(const __nv_bfloat16* in, __nv_bfloat16* out, int 
 int ggr_batched_geqrt_f16_f32(const __half* in, __half* out, int B, int t, int w,
                               int n_piv, int G, int ws, int device, void* stream) {
   return launch<__half, float>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_f32_f64(const float* in, float* out, int B, int t, int w,
+                              int n_piv, int G, int ws, int device, void* stream) {
+  return launch<float, double>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_bf16_f64(const __nv_bfloat16* in, __nv_bfloat16* out, int B, int t,
+                               int w, int n_piv, int G, int ws, int device, void* stream) {
+  return launch<__nv_bfloat16, double>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_f16_f64(const __half* in, __half* out, int B, int t, int w,
+                              int n_piv, int G, int ws, int device, void* stream) {
+  return launch<__half, double>(in, out, B, t, w, n_piv, G, ws, device, stream);
 }
 
 const char* ggr_panel_error_string(int code) {

@@ -81,7 +81,12 @@
 // instead: each thread issues its (at most two) loads where the float
 // instance issues its cp.async, before the coefficient chain, and widens
 // them into the other pivot buffer after the sweep (the launch refuses a
-// layout that would give a thread more than two).
+// layout that would give a thread more than two).  The wide instances
+// (f32 / bf16 / f16 tiles, double sums: ggr_common.cuh) are the same code at
+// T = double: shared memory holds doubles (8 bytes a value, so fewer
+// problems share a block), the next pivot row goes through registers as in
+// a mixed instance, and every write to the state rounds through S once
+// (bf16 through float, as XLA rounds).
 //
 // Every shared access stays inside its problem's region: records 0..n-1 only
 // (coefficients of row i+1 are written only where i+1 < n), pivot-row and
@@ -262,6 +267,25 @@ int ggr_batched_update_f16_f32(const __half* in, __half* out, int B, int m, int 
                                int n_piv, int G, int PB, int ws, int nbuf, int device,
                                void* stream) {
   return launch<__half, float>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
+}
+
+int ggr_batched_update_f32_f64(const float* in, float* out, int B, int m, int w,
+                               int n_piv, int G, int PB, int ws, int nbuf, int device,
+                               void* stream) {
+  return launch<float, double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
+}
+
+int ggr_batched_update_bf16_f64(const __nv_bfloat16* in, __nv_bfloat16* out, int B,
+                                int m, int w, int n_piv, int G, int PB, int ws,
+                                int nbuf, int device, void* stream) {
+  return launch<__nv_bfloat16, double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device,
+                                       stream);
+}
+
+int ggr_batched_update_f16_f64(const __half* in, __half* out, int B, int m, int w,
+                               int n_piv, int G, int PB, int ws, int nbuf, int device,
+                               void* stream) {
+  return launch<__half, double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
 }
 
 const char* ggr_update_error_string(int code) {

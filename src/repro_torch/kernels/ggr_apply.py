@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .backend import count_resolution, resolve_precision
+from .backend import count_resolution, resolve_precision, to_tile
 from .ggr_panel import _EPS, _accum_dt, _kernel_dtype_check, _launched, _revcumsum
 
 __all__ = ["apply_factors", "apply_factors_plain"]
@@ -58,9 +58,9 @@ def apply_factors_plain(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
 
         t_piv = t[:, 0]
         do_any = t_piv > _EPS
-        pivot_new = (P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None]).to(cd)
+        pivot_new = to_tile(P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None], cd)
         det2 = k[:, :-1, None] * S[:, :-1] - l[:, :-1, None] * A[:, :-1].to(ad)
-        det2 = torch.where(valid[:, :-1, None], det2.to(cd), A[:, 1:])
+        det2 = torch.where(valid[:, :-1, None], to_tile(det2, cd), A[:, 1:])
         out = torch.cat([pivot_new[:, None], det2], 1)
         C[:, p:] = torch.where(do_any[:, None, None], out, A)
     return C
@@ -172,7 +172,7 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     accum = None
     if precision is not None:
         prec = resolve_precision(precision)
-        V, T, C = V.to(prec.compute), T.to(prec.compute), C.to(prec.compute)
+        V, T, C = (to_tile(M, prec.compute) for M in (V, T, C))
         accum = prec.accum_dtype
     batched = C.ndim == 3
     if not batched:

@@ -28,7 +28,7 @@ import functools
 import torch
 
 from . import _cuda
-from .backend import count_resolution, dtype_name, resolve_precision
+from .backend import count_resolution, dtype_name, resolve_precision, to_tile
 
 __all__ = ["batched_geqrt", "batched_geqrt_plain", "panel_factor",
            "panel_factor_plain"]
@@ -62,13 +62,20 @@ def _check_stack(x: torch.Tensor, n_pivots: int, block_b: int, what: str):
         raise ValueError(f"{what} needs a contiguous batch")
 
 
+# each wrapper's CUDA source
+_SOURCE = {"batched_update": "ggr_update", "batched_geqrt": "ggr_panel",
+           "panel_factor": "ggr_panel_factor", "apply_factors": "ggr_apply"}
+
+
 def _kernel_dtype_check(x: torch.Tensor, accum_dtype: str | None, what: str):
-    """The CUDA kernels' (tile, accumulation) pairs: float32 / float64 tiles
-    at their own width, bfloat16 / float16 tiles with float32 accumulation
-    (the two named mixed policies).  Any other pair raises
-    ``NotImplementedError`` naming both dtypes."""
+    """The (tile, accumulation) pairs of ``what``'s CUDA kernel: float32 /
+    float64 tiles at their own width, bfloat16 / float16 tiles with float32
+    accumulation (the two named mixed policies), and for ``batched_update``
+    / ``batched_geqrt`` float32 / bfloat16 / float16 tiles with float64
+    accumulation.  Any other pair raises ``NotImplementedError`` naming
+    both dtypes."""
     try:
-        _cuda.suffix(x.dtype, accum_dtype)
+        _cuda.suffix(x.dtype, accum_dtype, _SOURCE[what])
     except NotImplementedError as e:
         raise NotImplementedError(f"{what}: {e}") from None
 
@@ -118,18 +125,18 @@ def panel_factor_plain(panel: torch.Tensor, pivot0: int = 0,
 
         t_piv = ts[:, 0]
         do_any = t_piv > _EPS
-        pivot_new = (P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None]).to(cd)
+        pivot_new = to_tile(P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None], cd)
         det2 = k[:, :-1, None] * S[:, :-1] - l[:, :-1, None] * A[:, :-1].to(ad)
-        det2 = torch.where(valid[:, :-1, None], det2.to(cd), A[:, 1:])
+        det2 = torch.where(valid[:, :-1, None], to_tile(det2, cd), A[:, 1:])
         out = torch.cat([pivot_new[:, None], det2], 1)
         # annihilated column written exactly: sigma·t at the pivot, 0 below
-        out[:, 0, c] = sigma[:, 0].to(cd) * ts[:, 0].to(cd)
+        out[:, 0, c] = to_tile(sigma[:, 0], cd) * to_tile(ts[:, 0], cd)
         out[:, 1:, c] = 0
         X[:, p:] = torch.where(do_any[:, None, None], out, A)
 
-        V[:, p:, c] = vs.to(cd)
-        T[:, :p, c] = ts[:, :1].to(cd)  # the suffix sum runs over v's zeros
-        T[:, p:, c] = ts.to(cd)
+        V[:, p:, c] = to_tile(vs, cd)
+        T[:, :p, c] = to_tile(ts[:, :1], cd)  # the suffix sum runs over v's zeros
+        T[:, p:, c] = to_tile(ts, cd)
     return X, V, T
 
 
@@ -160,15 +167,15 @@ def batched_geqrt_plain(tiles: torch.Tensor, n_pivots: int,
 
         t_piv = ts[:, c]
         do_any = t_piv > _EPS
-        pivot_new = (P[:, c] / torch.where(do_any, t_piv, 1.0)[:, None]).to(cd)
+        pivot_new = to_tile(P[:, c] / torch.where(do_any, t_piv, 1.0)[:, None], cd)
 
         det2 = k[:, :-1, None] * S[:, :-1] - l[:, :-1, None] * X[:, :-1].to(ad)
-        det2 = torch.where(valid[:, :-1, None], det2.to(cd), X[:, 1:])
+        det2 = torch.where(valid[:, :-1, None], to_tile(det2, cd), X[:, 1:])
         out = torch.cat([X[:, :c], pivot_new[:, None], det2[:, c:]], 1)
         out = torch.where(do_any[:, None, None], out, X)
 
         # annihilated column written exactly: sigma·t at the pivot, 0 below
-        newcol = torch.cat([out[:, :c, c], (sigma[:, 0] * t_piv).to(cd)[:, None],
+        newcol = torch.cat([out[:, :c, c], to_tile(sigma[:, 0] * t_piv, cd)[:, None],
                             torch.zeros_like(out[:, c + 1:, c])], 1)
         out[:, :, c] = torch.where(do_any[:, None], newcol, out[:, :, c])
         X = out
@@ -244,14 +251,15 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
     for parity with the JAX signature) sets no tiling; it must be positive.  ``precision`` selects tile compute dtype + in-kernel
     accumulation dtype (``None`` = tiles at their own dtype, same-width
     accumulation); on CUDA tensors the kernel takes the uniform f32 / f64
-    policies and bf16 / f16 tiles with f32 accumulation.  The launch count
-    is ``batched_geqrt.launches``.
+    policies, bf16 / f16 tiles with f32 accumulation and f32 / bf16 / f16
+    tiles with f64 accumulation.  The launch count is
+    ``batched_geqrt.launches``.
     """
     _check_stack(tiles, n_pivots, block_b, "batched_geqrt")
     accum = None
     if precision is not None:
         prec = resolve_precision(precision)
-        tiles = tiles.to(prec.compute)
+        tiles = to_tile(tiles, prec.compute)
         accum = prec.accum_dtype
     count_resolution(tiles)
     if tiles.device.type == "cpu":
@@ -415,7 +423,7 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
     accum = None
     if precision is not None:
         prec = resolve_precision(precision)
-        panel = panel.to(prec.compute)
+        panel = to_tile(panel, prec.compute)
         accum = prec.accum_dtype
     batched = panel.ndim == 3
     x = panel if batched else panel[None]

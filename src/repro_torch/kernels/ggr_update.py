@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .backend import count_resolution, dtype_name, resolve_precision
+from .backend import count_resolution, dtype_name, resolve_precision, to_tile
 from .ggr_panel import (_EPS, _accum_dt, _check_stack, _kernel_dtype_check, _launched,
                         _revcumsum)
 
@@ -110,13 +110,13 @@ def batched_update_plain(stacked: torch.Tensor, n_pivots: int,
 
         t_piv = t[:, 0]  # pivot is row 0 of the active block
         do_any = t_piv > _EPS
-        pivot_new = (P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None]).to(cd)
+        pivot_new = to_tile(P[:, 0] / torch.where(do_any, t_piv, 1.0)[:, None], cd)
 
         det2 = k[:, :-1, None] * S[:, :-1] - l[:, :-1, None] * A[:, :-1].to(ad)
-        det2 = torch.where(valid[:, :-1, None], det2.to(cd), A[:, 1:])
+        det2 = torch.where(valid[:, :-1, None], to_tile(det2, cd), A[:, 1:])
         A_new = torch.cat([pivot_new[:, None], det2], 1)
         # annihilated column written exactly: sigma·t at the pivot, 0 below
-        A_new[:, 0, c] = (sigma[:, 0] * t_piv).to(cd)
+        A_new[:, 0, c] = to_tile(sigma[:, 0] * t_piv, cd)
         A_new[:, 1:, c] = 0
         A_new = torch.where(do_any[:, None, None], A_new, A)
         Xt[:, c] = A_new[:, 0]
@@ -210,8 +210,9 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
     parity with the JAX signature) sets no tiling; it must be positive.
     ``precision`` selects tile compute + in-kernel accumulation dtypes
     (``None`` = the batch at its own dtype with same-width accumulation); on
-    CUDA tensors the kernel takes the uniform f32 / f64 policies and bf16 /
-    f16 tiles with f32 accumulation.  The launch count is
+    CUDA tensors the kernel takes the uniform f32 / f64 policies, bf16 / f16
+    tiles with f32 accumulation and f32 / bf16 / f16 tiles with f64
+    accumulation.  The launch count is
     ``batched_update.launches``.
     """
     _check_stack(stacked, n_pivots, block_b, "batched_update")
@@ -221,7 +222,7 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
     accum = None
     if precision is not None:
         prec = resolve_precision(precision)
-        stacked = stacked.to(prec.compute)
+        stacked = to_tile(stacked, prec.compute)
         accum = prec.accum_dtype
     if m == n_pivots:  # no appended rows — nothing to annihilate
         return stacked

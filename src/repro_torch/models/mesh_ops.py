@@ -296,16 +296,26 @@ def vocab_parallel_lookup(table, tokens):
 class _Reduce(torch.autograd.Function):
     """Partial sums reduced into ``place`` in the forward pass; in the
     backward the gradient as it comes (Megatron's "g" operator: the
-    gradient of a sum is each term's).  ``DTensor``'s own backward of the
+    gradient of a sum is each term's), placed as the partial sums were with
+    each ``Partial()`` replicated.  ``DTensor``'s own backward of the
     reduction leaves the gradient partial, and the row-parallel product's
-    backward then runs on partial sums with its weight gathered whole."""
+    backward then runs on partial sums with its weight gathered whole.
+    With sequence parallelism the gradient comes back split along the
+    sequence, and the product's backward flattens (batch, sequence) into
+    rows, which torch 2.11's ``DTensor`` refuses on a split sequence: it is
+    gathered here (the all-gather that is a reduce-scatter's backward)."""
 
     @staticmethod
     def forward(ctx, y, place):
+        from torch.distributed.tensor import Partial, Replicate
+
+        ctx.place = tuple(Replicate() if isinstance(p, Partial) else p for p in y.placements)
         return y.redistribute(y.device_mesh, place)
 
     @staticmethod
     def backward(ctx, g):
+        if tuple(g.placements) != ctx.place:
+            g = g.redistribute(g.device_mesh, ctx.place)
         return g, None
 
 
@@ -370,16 +380,31 @@ def seq_gathered(x):
 
 
 def cache_write(cache, new, index) -> None:
-    """``cache.index_copy_(1, index, new)`` for a ``DTensor`` cache whose
-    dimension 1 (the sequence) is whole: each rank writes its own block,
-    ``new`` placed as the cache is.  A cache split along the sequence (a
-    long context whose batch does not divide the data axes) raises
-    ``NotImplementedError``: the slot may lie on another rank."""
-    from torch.distributed.tensor import Shard
+    """``cache.index_copy_(1, index, new)`` for a ``DTensor`` cache (B, S,
+    ...) with ``index`` one slot: each rank writes its own block, ``new``
+    placed as the cache is.  A cache split along the sequence (a long
+    context whose batch does not divide the data axes) is written masked:
+    each rank takes the slot's place in its block, clamped into it, and
+    writes the new row there where the slot lies in the block and the old
+    row back where it does not, as the reference's dynamic-update-slice
+    writes one block of a sharded cache.  Tensor ops only, with no read of
+    ``index`` on the host, so it runs on meta tensors too."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    if any(p in (Shard(1), Shard(1 - cache.ndim)) for p in cache.placements):
-        raise NotImplementedError("a decode write into a cache split along its sequence "
-                                  "over the mesh")
-    if new.placements != cache.placements:
-        new = new.redistribute(cache.device_mesh, cache.placements)
-    cache.to_local().index_copy_(1, index, new.to_local())
+    seq = (Shard(1), Shard(1 - cache.ndim))
+    place = [Replicate() if p in seq else p for p in cache.placements]
+    if list(new.placements) != place:
+        new = new.redistribute(cache.device_mesh, place)
+    block, row = cache.to_local(), new.to_local()
+    if len(place) == len(cache.placements) and place == list(cache.placements):
+        block.index_copy_(1, index, row)
+        return
+    _, offset = compute_local_shape_and_global_offset(cache.shape, cache.device_mesh,
+                                                      cache.placements)
+    at = index - offset[1]
+    slot = at.clamp(0, max(block.shape[1] - 1, 0))
+    if block.shape[1] == 0:
+        return
+    inside = ((at >= 0) & (at < block.shape[1])).reshape(1, 1, *[1] * (block.ndim - 2))
+    block.index_copy_(1, slot, torch.where(inside, row, block.index_select(1, slot)))

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core.ggr import _eps_for, ggr_triangularize
 from repro_torch.kernels import batched_update, pad_batch, resolve_precision
+from repro_torch.kernels.backend import to_tile
 from repro_torch.parallel.sharding import shard_batch
 
 __all__ = [
@@ -100,7 +101,7 @@ def _update_stacked(stacked: torch.Tensor, n: int, backend: str, block_b: int,
     """
     if backend == "reference":
         if precision is not None:
-            stacked = stacked.to(precision.compute)
+            stacked = to_tile(stacked, precision.compute)
         return ggr_triangularize(stacked, n)
     if backend != "pallas":
         raise ValueError(f"unknown backend {backend!r}")

@@ -36,6 +36,19 @@ kernels part there by several times the rms.  ``per_step`` holds them in
 bulk: a fault confined to fewer than TRIM of a part's entries escapes it.  The bf16 / f16 cases run on ``condition_``-ed data, as the main
 path's states are: an upper-triangular state of Gaussian entries has a
 condition number near 2^n, and then R itself is roundoff.
+
+The wide pairs (f32 / bf16 / f16 tiles with f64 sums, B1 and B2 only) sum in
+f64 in another order than the plain version, and rounding each value to the
+tile dtype hides the difference almost always.  ``wide_held`` holds the
+WIDE_DRAWS draws of a shape together: the share of their entries bitwise
+equal to the plain version's (``equal_share``) at least WIDE_EQUAL, and
+every draw's max|err| / rms within ``wide_bound`` (``wide_accurate``).  The
+control, the same inputs through the (tile, float32) instance (a kernel
+that quietly sums in f32), must fail it.  A value rounded to the other
+side of a tie flips the later column steps of its problem, so the share is
+a statistic of many problems: a draw of a few problems may hold a whole
+flipped one.  ``narrow_on_card`` runs ``ggr_common.cuh``'s casts from
+double alone.
 """
 from __future__ import annotations
 
@@ -231,3 +244,139 @@ def per_step(outs, plains, exacts) -> tuple:
     ratios = error_ratios(outs, plains, exacts)
     lo, hi = ROUNDING
     return all(lo <= r <= hi for r in ratios), ratios
+
+
+# ---------------------------------------------------------------- wide pairs
+# B1 and B2 have f64-summed instances of f32 / bf16 / f16 tiles
+WIDE_DRAWS = 16
+# the least share of the entries of a shape's draws bitwise equal to the
+# plain version's, by tile dtype: between the sound kernels' least reading
+# (f32 0.99960, bf16 0.9999998, f16 0.99950) and the (tile, float32)
+# control's most (0.70357, 0.99889, 0.99116) at chip_smoke.py phase 3's
+# shapes (PERF.md §6, PR 29)
+WIDE_EQUAL = {"float32": 0.998, "bfloat16": 0.9995, "float16": 0.997}
+
+
+def equal_share(outs, refs) -> float:
+    """The share of the entries of ``outs`` whose bits equal those of
+    ``refs`` (NaN equal to NaN), over all outputs together."""
+    same = total = 0
+    for o, r in zip(outs, refs):
+        same += int(((o == r) | (o.isnan() & r.isnan())).sum())
+        total += o.numel()
+    return same / total if total else 1.0
+
+
+def wide_bound(name: str, m: int, w: int, tile) -> float:
+    """The bound on a wide case's max|err| / rms: f32 tiles hold each
+    output to the f32 ``rel_bound``; at a bf16 / f16 tile one value rounded
+    to the other side of a tie already differs by 2^-8 / 2^-11 of itself,
+    and the rows it flips are not determined at the tile dtype, so the
+    determined parts are held to the tile dtype's bound, as a mixed case's."""
+    return rel_bound(name, m, w, "float32" if dtype_name(tile) == "float32" else tile)
+
+
+def wide_reading(name: str, param, tile, outs, refs) -> tuple:
+    """(equal_share of every entry, the worst rel_err of the parts
+    ``wide_bound`` holds) of a wide case's outputs against the plain
+    version's at the same pair."""
+    held = ((outs, refs) if dtype_name(tile) == "float32" else
+            (determined(name, param, outs), determined(name, param, refs)))
+    return equal_share(outs, refs), max((rel_err(o, r) for o, r in zip(*held)), default=0.0)
+
+
+def wide_accurate(name: str, m: int, w: int, tile, readings) -> bool:
+    """Every reading's max|err| / rms within ``wide_bound``."""
+    return max(r for _, r in readings) <= wide_bound(name, m, w, tile)
+
+
+def wide_held(name: str, m: int, w: int, tile, readings) -> bool:
+    """Whether the draws of a shape pass the wide rule: ``readings`` one
+    ``wide_reading`` a draw (draws of one shape, so of as many entries
+    each); their mean share at least WIDE_EQUAL[tile] and ``wide_accurate``."""
+    shares = [sh for sh, _ in readings]
+    return (sum(shares) / len(shares) >= WIDE_EQUAL[dtype_name(tile)]
+            and wide_accurate(name, m, w, tile, readings))
+
+
+_NARROW_SRC = r"""
+#include "ggr_common.cuh"
+
+template <typename S>
+__global__ void narrow_all(const double* x, S* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = ggr::narrow<S>(x[i]);
+}
+
+template <typename S>
+static int run(const double* x, S* y, int n, void* stream) {
+  narrow_all<S><<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int narrow_f32(const double* x, float* y, int n, void* s) { return run(x, y, n, s); }
+extern "C" int narrow_bf16(const double* x, __nv_bfloat16* y, int n, void* s) {
+  return run(x, y, n, s);
+}
+extern "C" int narrow_f16(const double* x, __half* y, int n, void* s) { return run(x, y, n, s); }
+"""
+
+
+def build_narrow():
+    """The shared library of ``narrow_on_card``'s kernel, built with nvcc
+    into the kernels' build directory (once: the name carries a hash of the
+    source, the header and the flags); its path."""
+    import hashlib
+    import os
+    import subprocess
+
+    from repro_torch.kernels import _cuda
+
+    h = hashlib.sha256(_NARROW_SRC.encode() + " ".join(_cuda._FLAGS).encode())
+    h.update((_cuda._CSRC / "ggr_common.cuh").read_bytes())
+    lib = _cuda.build_dir() / f"libnarrow-{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        _cuda.build_dir().mkdir(parents=True, exist_ok=True)
+        src = lib.with_name(f"narrow-{os.getpid()}.cu")
+        src.write_text(_NARROW_SRC)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        subprocess.run([_cuda._nvcc(), *_cuda._FLAGS, "-I", str(_cuda._CSRC), "-o", str(tmp),
+                        str(src)], check=True, capture_output=True, text=True)
+        os.replace(tmp, lib)
+        src.unlink()
+    return lib
+
+
+def narrow_on_card(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Each value of the float64 CUDA tensor ``x`` cast to ``dtype``
+    (float32, bfloat16 or float16) by ``ggr_common.cuh``'s ``narrow``, the
+    cast every wide kernel stores its values with (``build_narrow``)."""
+    import ctypes
+
+    lib = build_narrow()
+    dtype = getattr(torch, dtype_name(dtype))
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[dtype]
+    fn = getattr(ctypes.CDLL(str(lib)), f"narrow_{suffix}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    x = x.contiguous()
+    y = torch.empty(x.shape, dtype=dtype, device=x.device)
+    err = fn(x.data_ptr(), y.data_ptr(), x.numel(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"narrow_{suffix} launch failed: CUDA error {err}")
+    return y
+
+
+def tie_values() -> torch.Tensor:
+    """f64 values near the ties of each narrowing cast, both signs: a
+    double just above an f16 tie (1 + 2^-11 + 2^-40: 1 + 2^-10 once
+    rounded, 1 through float32), just above a bf16 tie (1 + 2^-8 + 2^-40:
+    1 through float32 as torch and XLA round it, 1 + 2^-7 once), an f32 tie
+    and the values either side of it, f16 subnormals and overflow."""
+    v = [1 + 2.0 ** -11 + 2.0 ** -40, 1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11,
+         1 + 2.0 ** -8 + 2.0 ** -40, 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8,
+         1 + 2.0 ** -24, 1 + 2.0 ** -24 + 2.0 ** -50, 1 + 2.0 ** -24 - 2.0 ** -50,
+         2.0 ** -25 + 2.0 ** -70, 3 * 2.0 ** -26, 65519.99, 65520.0, 0.0, 1e-320]
+    t = torch.tensor(v, dtype=torch.float64)
+    return torch.cat([t, -t])

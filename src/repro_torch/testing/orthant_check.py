@@ -61,29 +61,55 @@ def olmo_leaves(tree: dict) -> dict:
             **{f"layers/mlp/{k}": v for k, v in layers["mlp"].items()}}
 
 
+def _also_kernel(hold, fn, call, plain_out) -> None:
+    """Run ``call`` (kernel wrapper ``fn`` on a plain step's inputs) and hand
+    ``hold`` each (shape, param, dtype, accum) it launched at with both
+    results."""
+    saved, fn.shapes = fn.shapes, set()
+    try:
+        out = call()
+    finally:
+        keys, fn.shapes = fn.shapes, saved | fn.shapes
+    for key in sorted(keys, key=str):
+        hold(fn.__name__, key, out, plain_out)
+
+
 @contextlib.contextmanager
-def plain_driver():
+def plain_driver(hold=None):
     """The blocked driver's fused steps through the kernels' plain versions,
     on the tensors' own device: the whole-driver counterpart of holding a
-    kernel against its plain version.  Launches nothing."""
+    kernel against its plain version.  Launches nothing, unless ``hold`` is
+    given: then each step also runs the kernel on the same inputs and
+    ``hold(kernel name, (shape, param, dtype, accum) launched, kernel
+    result, plain result)`` is called for each launch (a CPU tensor
+    launches nothing)."""
     from repro_torch.core import blocked
     from repro_torch.kernels import ggr_apply, ggr_panel
 
-    def apply(V, T, C, pivot0=0, block_w=256, precision=None, out=None):
+    def panel_step(panel, pivot0=0, precision=None):
+        res = ggr_panel.panel_factor_plain(panel, pivot0)
+        if hold is not None:
+            _also_kernel(hold, ggr_panel.panel_factor,
+                         lambda: ggr_panel.panel_factor(panel, pivot0), res)
+        return res
+
+    def apply_step(V, T, C, pivot0=0, block_w=256, precision=None, out=None):
         res = ggr_apply.apply_factors_plain(V, T, C, pivot0)
+        if hold is not None:  # before ``out``, which may be C, is written
+            _also_kernel(hold, ggr_apply.apply_factors,
+                         lambda: ggr_apply.apply_factors(V, T, C, pivot0), res)
         return res if out is None else out.copy_(res)
 
     saved = blocked.panel_factor, blocked.apply_factors
-    blocked.panel_factor = lambda panel, pivot0=0, precision=None: \
-        ggr_panel.panel_factor_plain(panel, pivot0)
-    blocked.apply_factors = apply
+    blocked.panel_factor = panel_step
+    blocked.apply_factors = apply_step
     try:
         yield
     finally:
         blocked.panel_factor, blocked.apply_factors = saved
 
 
-def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
+def direction_readings(M: torch.Tensor, faults: bool = False, hold=None) -> dict:
     """Readings of the Orthant directions of a (B, a, b) f32 stack: under
     each name a pair of (B,) tensors, (max|QᵀQ - I|, max|Q - Q_lib·D|), of
     the tall orientation's Q.  Q_lib is ``torch.linalg.qr``'s Q of the same
@@ -96,11 +122,12 @@ def direction_readings(M: torch.Tensor, faults: bool = False) -> dict:
     With ``faults``, two faulty directions too — "flipped": the kernels'
     with its last column's sign flipped (the square sign case); "half": the
     formula with the R of the matrix rounded to float16 (a tile stored at
-    half precision)."""
-    return momentum_readings(M, faults)["directions"]
+    half precision).  ``hold``: ``plain_driver``'s."""
+    return momentum_readings(M, faults, hold=hold)["directions"]
 
 
-def momentum_readings(M: torch.Tensor, faults: bool = False, plain: bool = True) -> dict:
+def momentum_readings(M: torch.Tensor, faults: bool = False, plain: bool = True,
+                      hold=None) -> dict:
     """``direction_readings`` under "directions"; under "gram" each R's
     backward error, ||RᵀR - MᵀM||_F / ||M||_F² of the scaled tall matrix
     ((B,) under "kernels", "plain" and "cusolver"); under "columns" the
@@ -119,7 +146,8 @@ def momentum_readings(M: torch.Tensor, faults: bool = False, plain: bool = True)
     flipped) and "half" (from the R of the matrix rounded to float16), and
     "half" under "gram".  ``plain=False`` leaves out the plain versions'
     readings of a non-square matrix (the plain driver's R is slow at
-    olmo-1b's widths, and only a square matrix's last sign needs it)."""
+    olmo-1b's widths, and only a square matrix's last sign needs it).
+    ``hold``: ``plain_driver``'s, for the plain versions' R."""
     from repro_torch.core.blocked import ggr_triangularize_blocked
     from repro_torch.optim import orthant
 
@@ -158,7 +186,7 @@ def momentum_readings(M: torch.Tensor, faults: bool = False, plain: bool = True)
     out = {"kernels": read(Q, R), "cusolver": read(formula(R_lib, mf), R_lib)}
     grams = {"kernels": gram(R), "cusolver": gram(R_lib)}
     if plain or mf.shape[-2] == n:
-        with plain_driver():
+        with plain_driver(hold):
             R_plain = r_factor(mf)
         out["plain"] = read(formula(R_plain, mf), R_plain)
         grams["plain"] = gram(R_plain)

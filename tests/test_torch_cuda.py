@@ -440,11 +440,105 @@ def test_mixed_kernel_rounds_its_state_at_every_step(card, name, shape, param, d
     assert not fooled, once_ratios
 
 
+# the wide pairs' cases, chip_smoke.py's: B1 at the serving append, kalman
+# and tree-coupling shapes, B2 at tree level 0 and on the tree's own tiles
+# (the share the rule holds is a statistic of many problems)
+WIDE_CASES = [("batched_update", (8192, 40, 33), 32, "random"),
+              ("batched_update", (8192, 104, 65), 64, "random"),
+              ("batched_update", (64, 128, 192), 64, "random"),
+              ("batched_geqrt", (128, 64, 128), 64, "random"),
+              ("batched_geqrt", (64, 64, 128), 64, "tree")]
+
+
+def _wide_inputs(card, name, shape, param, data, tile, seed):
+    """Gaussian inputs of ``shape`` as chip_smoke.py's wide cases take them:
+    B1's top rows upper triangular, the tree's [pan | I] / [0 | I] tiles,
+    bf16 / f16 tiles conditioned (kc.condition_)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    B, m, w = shape
+    if data == "tree":
+        pan = torch.randn((B, m, m), generator=g, device=card, dtype=tile)
+        if tile in MIXED:
+            kc.condition_(pan, name, param)
+        pan[B // 2:] = 0
+        return torch.cat([pan, torch.eye(m, device=card, dtype=tile).expand(B, m, m)], 2)
+    x = torch.randn(shape, generator=g, device=card, dtype=tile)
+    if name == "batched_update":
+        x[:, :param, :param] = torch.triu(x[:, :param, :param])
+    return kc.condition_(x, name, param) if tile in MIXED else x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [torch.float32, *MIXED])
+@pytest.mark.parametrize("name,shape,param,data", WIDE_CASES)
+def test_wide_kernel_passes_the_wide_rule(card, name, shape, param, data, tile):
+    """f64 sums (B1, B2): over kc.WIDE_DRAWS draws, the share of entries
+    bitwise equal to the plain version at (tile, float64) at least
+    kc.WIDE_EQUAL and max|err| / rms within kc.wide_bound (kc.wide_held);
+    the (tile, float32) instance on the same inputs, a kernel that sums in
+    f32, fails the rule."""
+    fn = {"batched_update": batched_update, "batched_geqrt": batched_geqrt}[name]
+    plain = {"batched_update": ggr_update.batched_update_plain,
+             "batched_geqrt": ggr_panel.batched_geqrt_plain}[name]
+    dn = str(tile).removeprefix("torch.")
+    wide, ctrl = Precision(dn, "float64", dn), Precision(dn, "float32", dn)
+    _, m, w = shape
+    reads, ctrls = [], []
+    for seed in range(kc.WIDE_DRAWS):
+        x = _wide_inputs(card, name, shape, param, data, tile, seed)
+        n0 = fn.launches
+        out, ref = fn(x, param, precision=wide), plain(x, param, "float64")
+        assert fn.launches == n0 + 1 and (shape, param, tile, "float64") in fn.shapes
+        assert out.dtype == tile
+        reads.append(kc.wide_reading(name, param, tile, (out,), (ref,)))
+        ctrls.append(kc.wide_reading(name, param, tile, (fn(x, param, precision=ctrl),),
+                                     (ref,)))
+    assert kc.wide_held(name, m, w, tile, reads), reads
+    assert not kc.wide_held(name, m, w, tile, ctrls), ctrls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_narrow_from_double_rounds_as_the_plain_versions(card, dtype):
+    """ggr_common.cuh's narrow from double, the wide kernels' every store,
+    on tie values: bitwise the plain versions' ``to_tile`` (float16 once
+    rounded, bfloat16 through float32 as torch and XLA round it)."""
+    from repro_torch.kernels.backend import to_tile
+
+    ties = kc.tie_values().to(card)
+    got, want = kc.narrow_on_card(ties, dtype), to_tile(ties, dtype)
+    itype = torch.int16 if dtype != torch.float32 else torch.int32
+    assert torch.equal(got.view(itype), want.view(itype))
+    if dtype == torch.float16:  # one rounding, where torch's cast rounds twice
+        assert not torch.equal(got.view(itype), ties.to(dtype).view(itype))
+
+
+@pytest.mark.gpu
+def test_seq_parallel_dry_run_step_under_this_torch(card):
+    """One olmo-1b train step at smoke width with sequence parallelism on a
+    fake 2x2 mesh (``lower_cell``) runs under this installation's torch
+    (under torch 2.11 the row-parallel products' backward refused to
+    flatten a sequence-split gradient), with reduce-scatter and all-gather
+    recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = get_config("olmo-1b", smoke=True)
+    *_, rec = dryrun.lower_cell("olmo-1b", ShapeConfig("smoke_train", 32, 16, "train"),
+                                False, seq_parallel=True, cfg_override=cfg,
+                                mesh_shape=((2, 2), ("data", "model")))
+    assert rec.collectives["reduce-scatter"] > 0 and rec.collectives["all-gather"] > 0
+    assert rec.flops > 0
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(card):
-    """bf16 / f16 tiles run with f32 accumulation (the named policies); the
-    pairs with wider accumulation, and tiles summed at their own bf16 / f16
-    width, raise NotImplementedError naming both dtypes."""
+    """bf16 / f16 tiles run with f32 accumulation (the named policies) in
+    every kernel, and f32 / bf16 / f16 tiles with f64 accumulation in B1 and
+    B2 (zeros in, zeros out at the tile dtype); B3 and B4 at those wide
+    pairs, and tiles summed at their own bf16 / f16 width, raise
+    NotImplementedError naming both dtypes."""
     X = torch.zeros((2, 12, 9), device=card)
     wide = [Precision(t, "float64", t) for t in ("float32", "bfloat16", "float16")]
     for fn in (batched_update, batched_geqrt):
@@ -452,9 +546,8 @@ def test_kernels_refuse_what_they_do_not_take(card):
             out = fn(X, 8, precision=pol)
             assert out.dtype == tile and _bits_zero(out)
         for prec in wide:
-            with pytest.raises(NotImplementedError,
-                               match=f"{prec.compute_dtype} tiles with float64"):
-                fn(X, 8, precision=prec)
+            out = fn(X, 8, precision=prec)
+            assert out.dtype == prec.compute and _bits_zero(out)
         with pytest.raises(NotImplementedError, match="float16 tiles with float16"):
             fn(X.half(), 8)
     big = torch.zeros((1, 240, 256), device=card, dtype=torch.float64)

@@ -524,6 +524,40 @@ def test_plain_driver_restores_the_kernels():
     assert (blocked.panel_factor, blocked.apply_factors) == saved
 
 
+def test_plain_driver_hands_each_kernel_launch_to_hold(monkeypatch):
+    """With ``hold``, each plain step also runs the kernel wrapper on the
+    same inputs, and ``hold`` gets every (shape, param, dtype, accum) the
+    wrapper launched at with both results; the wrappers keep the launches
+    they recorded before.  On the host nothing launches, so the wrappers are
+    stood in for by ones that record a launch and run the plain version."""
+    from repro_torch.kernels import ggr_apply, ggr_panel
+    from repro_torch.testing.orthant_check import direction_readings
+
+    def recording(fn, key):
+        def wrapper(*args, **kwargs):
+            wrapper.shapes.add(key(*args))
+            return fn(*args, **kwargs)
+        wrapper.__name__, wrapper.shapes = fn.__name__, {"earlier"}
+        return wrapper
+
+    panel = recording(ggr_panel.panel_factor, lambda x, p0: (tuple(x.shape), p0))
+    apply = recording(ggr_apply.apply_factors,
+                      lambda V, T, C, p0: (tuple(C.shape), (V.shape[-1], p0)))
+    monkeypatch.setattr(ggr_panel, "panel_factor", panel)
+    monkeypatch.setattr(ggr_apply, "apply_factors", apply)
+    got = []
+    M = torch.as_tensor(np.random.default_rng(6).standard_normal((2, 150, 70))
+                        .astype(np.float32))
+    direction_readings(M, hold=lambda name, key, k, p: got.append((name, key, k, p)))
+    names = [name for name, *_ in got]
+    assert names.count("panel_factor") == 2 and names.count("apply_factors") == 1
+    for name, key, k, p in got:
+        assert key in (panel if name == "panel_factor" else apply).shapes
+        k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert "earlier" in panel.shapes and "earlier" in apply.shapes
+
+
 def test_optimizer_trees_must_match():
     from repro_torch.optim import adamw
 

@@ -221,27 +221,38 @@ def test_kalman_fleet_bf16_nis_consistent():
 
 # ------------------------------------------------- the CUDA kernels' pairs
 
-@pytest.mark.parametrize("tile,accum,suffix", [
-    (torch.bfloat16, "float32", "bf16_f32"), (torch.float16, torch.float32, "f16_f32"),
-    (torch.float32, None, "f32"), (torch.float32, "float32", "f32"),
-    (torch.float64, "float64", "f64")])
-def test_cuda_suffix_of_each_pair(tile, accum, suffix):
-    assert _cuda.suffix(tile, accum) == suffix
+@pytest.mark.parametrize("tile,accum,suffix,source", [
+    (torch.bfloat16, "float32", "bf16_f32", None),
+    (torch.float16, torch.float32, "f16_f32", None),
+    (torch.float32, None, "f32", None), (torch.float32, "float32", "f32", None),
+    (torch.float64, "float64", "f64", None),
+    (torch.float32, "float64", "f32_f64", "ggr_update"),
+    (torch.bfloat16, torch.float64, "bf16_f64", "ggr_update"),
+    (torch.float16, "float64", "f16_f64", "ggr_panel")])
+def test_cuda_suffix_of_each_pair(tile, accum, suffix, source):
+    """Every kernel's pairs (source None); the wide pairs (f64 sums) in B1's
+    and B2's sources only."""
+    assert _cuda.suffix(tile, accum, source) == suffix
 
 
 @pytest.mark.parametrize("tile,accum", [
     (torch.float32, "float64"), (torch.bfloat16, "float64"), (torch.float16, "float64"),
     (torch.bfloat16, None), (torch.float16, "float16"), (torch.float64, "float32")])
 def test_pairs_without_a_kernel_raise_naming_both_dtypes(tile, accum):
-    """The wider-accumulation pairs, and low-precision tiles summed at their
-    own width, have no CUDA kernel: the binding and the wrappers' check
-    raise NotImplementedError naming both dtypes."""
+    """Low-precision tiles summed at their own width, and f64 tiles with f32
+    sums, have no CUDA kernel; the wide pairs (f64 sums) have none in B3
+    and B4 (B1 and B2 take them): the binding and the wrappers' check raise
+    NotImplementedError naming both dtypes."""
     acc = str(accum or tile).removeprefix("torch.")
     what = f"{str(tile).removeprefix('torch.')} tiles with {acc} accumulation"
     with pytest.raises(NotImplementedError, match=what):
         _cuda.suffix(tile, accum)
-    with pytest.raises(NotImplementedError, match=f"batched_update: no CUDA kernel for {what}"):
-        ggr_panel._kernel_dtype_check(torch.zeros(2, dtype=tile), accum, "batched_update")
+    wrappers = ["panel_factor", "apply_factors"]
+    if accum != "float64":
+        wrappers += ["batched_update", "batched_geqrt"]
+    for fn in wrappers:
+        with pytest.raises(NotImplementedError, match=f"{fn}: no CUDA kernel for {what}"):
+            ggr_panel._kernel_dtype_check(torch.zeros(2, dtype=tile), accum, fn)
 
 
 class _OnTheCard(torch.Tensor):
@@ -263,7 +274,7 @@ def launches(monkeypatch):
     empty = torch.empty
 
     def launch(source, prefix, tensors, *dims, accum=None):
-        _cuda.suffix(tensors[0].dtype, accum)  # the pair has a C entry point
+        _cuda.suffix(tensors[0].dtype, accum, source)  # the pair has a C entry point
         calls.append((prefix, [t.dtype for t in tensors], dims, accum))
 
     def query(source, prefix, x, smem, accum=None):
@@ -324,6 +335,43 @@ def test_a_mixed_tile_is_launched_with_the_layout_of_an_f32_tile(tile, launches)
     (prefix, dtypes, dims, accum), = launches
     assert (prefix, dtypes, accum) == ("ggr_apply_factors", [tile] * 4 + [torch.float32],
                                        "float32")
+
+
+@pytest.mark.parametrize("tile", [torch.float32, torch.bfloat16, torch.float16])
+def test_a_wide_pair_is_launched_with_the_layout_of_an_f64_tile(tile, launches):
+    """f64 sums: B1 and B2 lay a tile out as an f64 tile (shared memory at 8
+    bytes a value) and launch the (tile, float64) instance; a tile that
+    fits at 4 bytes but not at 8 raises the ValueError naming the bytes, with
+    no launch; B3 and B4 raise NotImplementedError naming both dtypes."""
+    def on_card(*shape):
+        return torch.Tensor._make_subclass(_OnTheCard, torch.zeros(shape, dtype=tile))
+
+    m, w, n_piv = 600, 9, 8
+    assert ggr_update._update_layout(m, w, n_piv, 8) != ggr_update._update_layout(
+        m, w, n_piv, 4)
+    ggr_update._batched_update_cuda(on_card(2, m, w), n_piv, "float64")
+    prefix, dtypes, dims, accum = launches.pop()
+    assert (prefix, dtypes, accum) == ("ggr_batched_update", [tile, tile], "float64")
+    assert dims[4:] == ggr_update._update_layout(m, w, n_piv, 8)
+
+    t, w = 64, 128
+    ggr_panel._batched_geqrt_cuda(on_card(2, t, w), t, "float64")
+    prefix, dtypes, dims, accum = launches.pop()
+    assert (prefix, dtypes, accum) == ("ggr_batched_geqrt", [tile, tile], "float64")
+    assert dims[4:] == ggr_panel._geqrt_layout(t, w, 8)
+    t, w = 100, 300
+    assert ggr_panel._geqrt_layout(t, w, 4) and not ggr_panel._geqrt_layout(t, w, 8)
+    with pytest.raises(ValueError, match=f"needs {ggr_panel._geqrt_smem(t, w, 8)} bytes"):
+        ggr_panel._batched_geqrt_cuda(on_card(2, t, w), t, "float64")
+    assert not launches
+
+    what = f"{str(tile).removeprefix('torch.')} tiles with float64 accumulation"
+    with pytest.raises(NotImplementedError, match=f"panel_factor: no CUDA kernel for {what}"):
+        ggr_panel._panel_factor_cuda(on_card(1, 64, 8), 0, "float64")
+    V = on_card(1, 64, 8)
+    with pytest.raises(NotImplementedError, match=f"apply_factors: no CUDA kernel for {what}"):
+        ggr_apply._apply_factors_cuda(V, V, on_card(1, 64, 16), 0, "float64", None)
+    assert not launches
 
 
 def test_a_mixed_panel_in_device_memory_keeps_its_slabs_in_the_scratch():
