@@ -30,14 +30,17 @@ Drives the port's main path on the card and checks it, phase by phase:
    f64) within ``kernel_check.ROUNDING`` of the plain version's, where the
    f32 plain version rounded once, run through the same comparison as a
    control, must fail; the library call timed in f32 on the same inputs.
-   batched_update and batched_geqrt also run with f32, bf16 and f16 tiles
-   and f64 sums (``WIDE_SHAPES``), each held on WIDE_DRAWS draws by the
+   Each kernel also runs with f32, bf16 and f16 tiles and f64 sums at the
+   same shapes (``WIDE_SHAPES``), each held on WIDE_DRAWS draws by the
    wide rule (``kernel_check.wide_held``: the share of entries bitwise
    equal to the plain version at the same pair, max|err| / rms within
    ``kernel_check.wide_bound``), where the (tile, float32) instance on the
-   same inputs, the control, must fail; ``ggr_common.cuh``'s casts from
-   double run alone on tie values (``kernel_check.narrow_on_card``) against
-   the plain versions' (``to_tile``); the library call is the f64 QR;
+   same inputs, the control, must fail, and timed beside the f64 instance
+   at its shape (B3 / B4 run at f64 at those shapes too); ``ggr_common.cuh``'s
+   casts from double run alone on tie values (``kernel_check.narrow_on_card``)
+   against the plain versions' (``to_tile``); the library call is the f64
+   QR (for B4 ``torch.ormqr`` with f64 ``torch.geqrf`` factors); the walls
+   of the uniform, mixed and wide cases are printed;
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
@@ -217,13 +220,17 @@ Drives the port's main path on the card and checks it, phase by phase:
    held against the plain version, its rounding at every step included;
    every launch of (a)-(c) at the run's
    pair, and the phase's wall printed; (e) the same 4096^2 QR under
-   ``"tree"`` at ``Precision(t, "float64", t)`` for t = f32, bf16, f16
-   within the reference's budgets of t; (f) the bf16 / f16 stored appends
-   and kalman steps served with f64 sums, each kind within 8 eps(t) of the
-   same requests served in f64; (g) the fused schedule, ``"auto"``, B3 and
-   B4 at (float32, float64) raise ``NotImplementedError`` naming both
-   dtypes with no launch; every (shape, pair) of (e)-(f) held against the
-   plain version (``kernel_check.wide_accurate``);
+   ``"tree"``, ``"fused"`` and ``"auto"`` at ``Precision(t, "float64", t)``
+   for t = f32, bf16, f16 within the reference's budgets of t, R at t,
+   each schedule launching its own two kernels at (t, float64) and no
+   other, ``"auto"`` bitwise the fused run, walls beside phase 5's f32
+   ones; (f) the bf16 / f16 stored appends and kalman steps served with
+   f64 sums, each kind within 8 eps(t) of the same requests served in f64;
+   (g) the fused schedule, ``"auto"``, B3 and B4 at (bfloat16, bfloat16)
+   and (float16, float16), the pairs no kernel takes, raise
+   ``NotImplementedError`` naming both dtypes with no launch; every (shape,
+   pair) of (e)-(f) held against the plain version
+   (``kernel_check.wide_accurate``), each pair's wall printed;
 15. the dry run on the card's host (``repro_torch.launch.dryrun``; no CUDA
    work; its subprocesses start at phase 11's start, at nice MESH_NICE,
    and run on the host's cores beside phases 11 to 14) — (a) ``python -m
@@ -247,8 +254,8 @@ Drives the port's main path on the card and checks it, phase by phase:
    budget.  A run still going WATCHDOG_S s after its start stops itself
    (``watchdog``), naming its phase;
 16. a JSON line of per-kernel numbers (a row for each kernel's f32 / f64
-   instance, one for each of its bf16 / f16 instances, and for B1 / B2 one
-   for each f64-summed instance), then the last line ``{"ok": true,
+   instance, one for each of its bf16 / f16 instances and one for each of
+   its f64-summed instances), then the last line ``{"ok": true,
    "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
@@ -390,14 +397,23 @@ PHASE3 += [(name, shape, param, dname, *data) for dname in MIXED
 # a wide case's plain version takes up to WIDE_PLAIN_ELEMS elements of its
 # draws' problems in one call (KernelCase.compare_wide)
 WIDE_PLAIN_ELEMS = 2 ** 25
-# phase 3's wide cases (f32 / bf16 / f16 tiles, f64 sums: B1 and B2 only) at
-# the mixed cases' B1 / B2 shapes: the tree schedule at each pair (phase 14
-# (e)) and the bf16 / f16 stored mix served with f64 sums (phase 14 (f))
+# phase 3's wide cases (f32 / bf16 / f16 tiles, f64 sums, every kernel) at
+# the mixed cases' shapes: both schedules at each pair (phase 14 (e)) and the
+# bf16 / f16 stored mix served with f64 sums (phase 14 (f)); each is timed
+# beside the f64 instance at its shape, so the shapes the f64 cases above
+# lack run at f64 too
 WIDE = ("float32", "bfloat16", "float16")
 WIDE_SHAPES = [(name, shape, param, *(data or ["random"])) for name, shape, param, *data
-               in MIXED_SHAPES if name in ("batched_update", "batched_geqrt")]
+               in MIXED_SHAPES]
+FUSED = ("panel_factor", "apply_factors")  # B3 / B4, the fused schedule's kernels
+# B1 / B2's wide cases first, then B3 / B4's: each case draws its inputs from
+# phase 3's one generator in this order
 PHASE3 += [(name, shape, param, dname, data, "float64") for dname in WIDE
-           for name, shape, param, data in WIDE_SHAPES]
+           for name, shape, param, data in WIDE_SHAPES if name not in FUSED]
+PHASE3 += [(name, shape, param, dname, data, "float64") for dname in WIDE
+           for name, shape, param, data in WIDE_SHAPES if name in FUSED]
+PHASE3 += [(name, shape, param, "float64") for name, shape, param, _ in WIDE_SHAPES
+           if name in FUSED and (name, shape, param, "float64") not in PHASE3]
 SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chunk
 FAILURES: list[str] = []
 # phase 6's sketch least squares: the tall system, its spectrum and the oracle
@@ -499,11 +515,12 @@ class KernelCase:
     runs the kernel and the plain version at (tile, f32) on
     ``kernel_check.condition_``-ed data, and its library call on the same
     inputs in f32 (no library QR takes those tiles).  A wide case (``accum``
-    float64 for f32 / bf16 / f16 tiles: B1, B2) runs both at (tile, f64),
+    float64 for f32 / bf16 / f16 tiles, any kernel) runs both at (tile, f64),
     bf16 / f16 tiles on conditioned data, is held by the wide rule
-    (``kernel_check.wide_held``) and its library call runs in f64 on the
-    same inputs; its bound takes the bytes at the tile width and the
-    operations at the f64 rate."""
+    (``kernel_check.wide_held``) with the (tile, float32) instance on the
+    same inputs as its control (``control``), and its library call runs in
+    f64 on the same inputs; its bound takes the bytes at the tile width and
+    the operations at the f64 rate."""
 
     def __init__(self, name, shape, param, dtype, gen, data="random", accum=None):
         import torch
@@ -524,8 +541,9 @@ class KernelCase:
         # the kernel wrappers' policy: None (the tile dtype throughout), the
         # named mixed policy of the tile dtype, whose sums are f32, or the
         # tile with f64 sums
-        prec = (self.dname if self.mixed else Precision(self.dname, "float64", self.dname)
-                if self.wide else None)
+        self.prec = prec = (self.dname if self.mixed else
+                            Precision(self.dname, "float64", self.dname) if self.wide
+                            else None)
         ad = self.accum if (self.mixed or self.wide) else None
         # the control of a wide case: the same inputs through the (tile,
         # float32) instance, a kernel that sums in f32
@@ -567,9 +585,10 @@ class KernelCase:
             self.note = f", layout (G, ws) {ggr_panel._geqrt_layout(m, w, csize)}"
         elif name == "panel_factor":
             pivot0 = param
-            if self.mixed:
+            if cond:
                 kc.condition_(x, name, pivot0)
             self.fn = lambda z: ggr_panel.panel_factor(z, pivot0, precision=prec)
+            self.control = lambda: ggr_panel.panel_factor(x, pivot0, precision=ctrl)
             plain = lambda z, a=ad: ggr_panel.panel_factor_plain(z, pivot0, a)  # noqa: E731
             # Householder QR of the same panel (Q and R)
             self.library = lambda: torch.linalg.qr(self.lib_x)
@@ -578,28 +597,33 @@ class KernelCase:
         else:  # apply_factors
             b, pivot0 = param
             pans = torch.randn((B, m, b), generator=gen, device="cuda", dtype=dtype)
-            if self.mixed:
+            if cond:
                 kc.condition_(pans, name, param)
             # the panel's factors through B3 (held on its own), not its plain
             # version, which costs as much as B4's at a tall shape
             _, V, T = ggr_panel.panel_factor(pans, pivot0, precision=prec)
+            self.factors = (V, T)
             self.fn = lambda z: ggr_apply.apply_factors(V, T, z, pivot0, precision=prec)
-            plain = lambda z, a=ad: ggr_apply.apply_factors_plain(  # noqa: E731
-                V.to(z.dtype), T.to(z.dtype), z, pivot0, a)
+            self.control = lambda: ggr_apply.apply_factors(V, T, x, pivot0, precision=ctrl)
+            # VT: another case's factors, stacked (KernelCase.compare_wide)
+            plain = lambda z, a=ad, VT=(V, T): ggr_apply.apply_factors_plain(  # noqa: E731
+                *(f.to(z.dtype) for f in VT), z, pivot0, a)
             # the same work in Householder's basis: Q^T C from geqrf's factors,
             # taken at the first call (a recheck times nothing)
             qr = []
 
             def library():
                 if not qr:
-                    qr.extend(torch.geqrf(pans.float() if self.mixed else pans))
+                    qr.extend(torch.geqrf(self.lib_of(pans)))
                 return torch.ormqr(*qr, self.lib_x, left=True, transpose=True)
 
             self.library = library
             self.flops = apply_flops(shape, b, pivot0)
             self.nbytes = (2.0 * m * w + 2.0 * m * b) * B * size  # C in/out, V, T
         self.x = x
-        self.lib_x = x.float() if self.mixed else x.double() if self.wide else x
+        # the library call's inputs: f32 for a mixed case, f64 for a wide one
+        self.lib_of = lambda z: z.float() if self.mixed else z.double() if self.wide else z
+        self.lib_x = self.lib_of(x)
         self.kernel = lambda: self.fn(x)
         self.plain_of = plain  # the plain version of any inputs z of the case's kind
         self.plain = lambda: plain(x)
@@ -711,16 +735,20 @@ class KernelCase:
         draws = 1 if quiet else kc.WIDE_DRAWS
         B, m, w = self.shape
         group = max(1, WIDE_PLAIN_ELEMS // (B * m * w))  # draws a plain call takes
-        err, ok, reads, ctrl = 0.0, True, [], []
+        err, ok, reads, ctrl, apart = 0.0, True, [], [], []
         for i in range(draws):
             if i % group == 0:  # the next group of draws, their plain version at once
                 batch = [self if j == 0 else KernelCase(
                     self.name, self.shape, self.param, self.dtype,
                     torch.Generator(device="cuda").manual_seed(j), self.data, self.accum)
                     for j in range(i, min(i + group, draws))]
-                refs_of = self.plain_of(torch.cat([c.x for c in batch])).split(B)
+                # B4's plain version takes the draws' factors stacked too
+                factors = ({"VT": [torch.cat(f) for f in zip(*(c.factors for c in batch))]}
+                           if self.name == "apply_factors" else {})
+                refs_of = list(zip(*(o.split(B) for o in _as_outputs(
+                    self.plain_of(torch.cat([c.x for c in batch]), **factors)))))
             case = batch[i % group]
-            outs, refs = _as_outputs(case.kernel()), (refs_of[i % group],)
+            outs, refs = _as_outputs(case.kernel()), refs_of[i % group]
             ok = ok and all(o.dtype == r.dtype == self.dtype and bool(o.isfinite().all())
                             for o, r in zip(outs, refs))
             err = max(err, max(float((o.double() - r.double()).abs().max()) for o, r in
@@ -729,6 +757,8 @@ class KernelCase:
             if not quiet:
                 ctrl.append(kc.wide_reading(self.name, self.param, self.dname,
                                             _as_outputs(case.control()), refs))
+                if self.name == "apply_factors":
+                    apart.append(unequal_where(outs[0], refs[0]))
             if case.fixed is not None:
                 check(torch.equal(outs[0][case.fixed], case.x[case.fixed]),
                       f"{case.label()}: the [0 | I] tiles come back bitwise as they were",
@@ -756,6 +786,17 @@ class KernelCase:
                      f"{max(cs):.7f}), max|err| / rms worst {max(cr):.2e} "
                      f"({'passes' if fooled else 'fails'})")
         check(ok, f"{self.label()}: max_abs_err {err:.3e}, {note}", quiet)
+        if apart:
+            rows, cols, mags, gaps = (torch.cat(v) for v in zip(*apart))
+            if rows.numel():
+                def qs(v):  # quantiles 0, 0.5, 1 (of every k-th value past 2^24)
+                    v = v[::-(-v.numel() // 2 ** 24)]
+                    return _fmt(torch.quantile(v, v.new_tensor([0.0, 0.5, 1.0])).tolist())
+
+                print(f"    where B4 differs from its plain version, {rows.numel()} entries "
+                      f"over {draws} draws: row / m at quantiles 0, 0.5, 1 {qs(rows)}; "
+                      f"{int(cols.sum())} of {draws * w} columns; |plain| / rms {qs(mags)}; "
+                      f"|kernel - plain| / |plain| {qs(gaps)}")
         return err
 
     def against_f64(self, outs, refs) -> tuple:
@@ -820,16 +861,15 @@ class KernelCase:
         if self.name == "apply_factors":  # a zero panel's factors over zeros
             b, pivot0 = self.param
             VT = torch.zeros((8, self.shape[1], b), device="cuda", dtype=self.dtype)
-            out = ggr_apply.apply_factors(VT, VT, z, pivot0,
-                                          precision=self.dname if self.mixed else None)
+            out = ggr_apply.apply_factors(VT, VT, z, pivot0, precision=self.prec)
         else:
             out = self.fn(z)
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
         itype = {2: torch.int16, 4: torch.int32, 8: torch.int64}[z.element_size()]
         check(all(bool((o.view(itype) == 0).all()) for o in outs),
-              f"{self.name} all-zero batch {tuple(z.shape)} {self.dname} "
-              "comes back bitwise zero")
+              f"{self.name} all-zero batch {tuple(z.shape)} {self.dname}"
+              f"{'' if self.pair == 'uniform' else '/' + self.accum} comes back bitwise zero")
 
     def times(self) -> dict:
         ms = cuda_ms(self.kernel, reps=20, warmup=2)
@@ -843,6 +883,19 @@ class KernelCase:
               f"{self.note}", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
+
+
+def unequal_where(out, ref) -> tuple:
+    """Where a (B, m, w) output's bits differ from the plain version's:
+    (each unequal entry's row over m, a 0/1 per column that holds one, its
+    |plain| over rms(plain), its |out - plain| over |plain|), in f64."""
+    from repro_torch.testing import kernel_check as kc
+
+    diff = (out != ref) & ~(out.isnan() & ref.isnan())
+    o, r = out[diff].double(), ref[diff].double()
+    rows = diff.nonzero()[:, 1].double() / out.shape[1]
+    return (rows, diff.any(1).flatten().double(), r.abs() / (kc.rms_of(ref) or 1.0),
+            (o - r).abs() / r.abs().clamp_min(1e-300))
 
 
 def profile_top(fn, label: str, rows: int = 8, host_ops: bool = True) -> None:
@@ -3456,19 +3509,22 @@ def mixed_phase(kernels, card: str, reqs, f32_req_s: float, M, dense_ms: dict,
 
 
 def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
-    """Phase 14 (e)-(g), f64 sums on the main path (B1 and B2's wide
-    instances): (e) ``ggr_qr_blocked`` of phase 5's 4096^2 matrix under the
-    tree schedule at ``Precision(t, "float64", t)`` for t = f32, bf16 and
-    f16, within the reference's error budgets of the tile dtype; (f) the
-    mix's appends and kalman steps stored in bf16 / f16, served by
-    ``QRServer(precision=Precision(t, "float64", t))``, each kind's results
-    within SERVE_EPS eps(t) (relative Frobenius) of the same requests
-    served in f64; (g) the fused schedule (``"auto"`` on the card) and B3 /
-    B4 alone at a wide pair raise ``NotImplementedError`` naming both
-    dtypes; then every (shape, pair) (e)-(f) launched, held against the
-    plain version on fresh inputs (``kernel_check.wide_accurate``).  The
-    counts are set to 0 just before each run of (e)-(f) and read just after
-    it; every launch must be at the run's (tile, float64) pair."""
+    """Phase 14 (e)-(g), f64 sums on the main path (every kernel's wide
+    instances): (e) ``ggr_qr_blocked`` of phase 5's 4096^2 matrix under
+    the tree schedule, the fused schedule and ``"auto"`` (fused on the card)
+    at ``Precision(t, "float64", t)`` for t = f32, bf16 and f16, within the
+    reference's error budgets of the tile dtype, ``"auto"`` bitwise the
+    fused run; (f) the mix's appends and kalman steps stored in bf16 / f16,
+    served by ``QRServer(precision=Precision(t, "float64", t))``, each
+    kind's results within SERVE_EPS eps(t) (relative Frobenius) of the same
+    requests served in f64; (g) the pairs no kernel takes, bf16 / f16 tiles
+    summed at their own width: the fused schedule, ``"auto"``, B3 and B4
+    raise ``NotImplementedError`` naming both dtypes, with no launch; then
+    every (shape, pair) (e)-(f) launched, held against the plain version on
+    fresh inputs (``kernel_check.wide_accurate``).  The counts are set to 0
+    just before each run of (e)-(f) and read just after it; every launch
+    must be at the run's (tile, float64) pair, and a schedule launches its
+    own two kernels and no other."""
     import torch
 
     from repro_torch.core import ggr_qr_blocked
@@ -3478,7 +3534,7 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
                                      forward_error, gram_residual, orthogonality_loss)
 
     t_phase = time.perf_counter()
-    need = ("batched_geqrt", "batched_update")
+    needs = {"tree": ("batched_geqrt", "batched_update"), "fused": FUSED, "auto": FUSED}
     out = {"wall_s": {}, "req_s": {}, "serve_rel": {}, "qr": {}, "qr_ms": {},
            "launches": {d: {k: 0 for k in kernels} for d in WIDE},
            "shapes": {d: {k: set() for k in kernels} for d in WIDE}}
@@ -3497,9 +3553,9 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
               f"{what}: every launch at ({dname}, float64): {sorted(pairs)}", quiet=True)
         return res, launches
 
-    # (e) the tree QR at each wide pair, held by every metric of the
-    # reference's factorization_errors whose budget is meaningful at the
-    # matrix's condition (the gram residual always), computed only there
+    # (e) the QR at each wide pair under each schedule, held by every metric
+    # of the reference's factorization_errors whose budget is meaningful at
+    # the matrix's condition (the gram residual always), computed only there
     t0 = time.perf_counter()
     m, n = M.shape
     M64 = M.double()
@@ -3512,23 +3568,35 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
         R_ref = torch.linalg.qr(M64, mode="r").R.cpu().numpy()
     for dname in WIDE:
         prec = Precision(dname, "float64", dname)
-        R, launches = counted(dname, f"(e) tree qr at ({dname}, float64)",
-                              lambda: ggr_qr_blocked(M, schedule="tree", precision=prec))
-        R64 = R.double().cpu().numpy()
-        held = {k: (f(R64), error_budget(dname, k, m, n, cond)) for k, f in metrics.items()
-                if k == "gram_residual" or budget_is_meaningful(dname, k, m, n, cond)}
-        out["qr"][dname] = {k: v for k, (v, _) in held.items()}
-        check(R.dtype == getattr(torch, dname) and all(launches[k] > 0 for k in need)
-              and all(v < b for v, b in held.values()),
-              f"(e) ggr_qr_blocked {m}x{n} f32 input, tree, ({dname}, float64): R at "
-              f"{R.dtype}, launches {launches}; held (value < budget at cond {cond:.3e}): "
-              + ", ".join(f"{k} {v:.3e} < {b:.3e}" for k, (v, b) in held.items())
-              + "; not meaningful there, so not computed: "
-              + ", ".join(k for k in metrics if k not in held))
-        ms = cuda_ms(lambda: ggr_qr_blocked(M, schedule="tree", precision=prec), reps=2)
-        out["qr_ms"][dname] = ms
-        print(f"  (e) tree qr {m}x{n} ({dname}, float64): {ms:.2f} ms (phase 5 f32 tree "
-              f"{dense_ms['tree qr']:.2f} ms; {card})")
+        runs = {}
+        for sched, need in needs.items():
+            t1 = time.perf_counter()
+            R, launches = counted(dname, f"(e) {sched} qr at ({dname}, float64)",
+                                  lambda: ggr_qr_blocked(M, schedule=sched, precision=prec))
+            runs[sched] = R
+            R64 = R.double().cpu().numpy()
+            held = {k: (f(R64), error_budget(dname, k, m, n, cond))
+                    for k, f in metrics.items()
+                    if k == "gram_residual" or budget_is_meaningful(dname, k, m, n, cond)}
+            out["qr"][f"{dname} {sched}"] = {k: v for k, (v, _) in held.items()}
+            same = sched != "auto" or torch.equal(R, runs["fused"])  # auto is fused here
+            check(R.dtype == getattr(torch, dname)
+                  and all(launches[k] > 0 for k in need)
+                  and all(launches[k] == 0 for k in kernels if k not in need)
+                  and all(v < b for v, b in held.values()) and same,
+                  f"(e) ggr_qr_blocked {m}x{n} f32 input, {sched}, ({dname}, float64): R "
+                  f"at {R.dtype}, launches {launches}; held (value < budget at cond "
+                  f"{cond:.3e}): "
+                  + ", ".join(f"{k} {v:.3e} < {b:.3e}" for k, (v, b) in held.items())
+                  + "; not meaningful there, so not computed: "
+                  + (", ".join(k for k in metrics if k not in held) or "none")
+                  + ("; bitwise the fused run" if sched == "auto" and same else ""))
+            ms = cuda_ms(lambda: ggr_qr_blocked(M, schedule=sched, precision=prec), reps=2)
+            out["qr_ms"][f"{dname} {sched}"] = ms
+            print(f"  (e) {sched} qr {m}x{n} ({dname}, float64): {ms:.2f} ms (phase 5 f32 "
+                  f"{sched} {dense_ms[f'{sched} qr']:.2f} ms; {card}); run, check and "
+                  f"timing {time.perf_counter() - t1:.1f} s")
+        del runs
     out["wall_s"]["e"] = time.perf_counter() - t0
 
     # (f) the bf16 / f16 stored appends and kalman steps served with f64 sums,
@@ -3575,39 +3643,46 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
               f"{req_s:.1f} req/s ({card}), launches {launches}")
     out["wall_s"]["f"] = time.perf_counter() - t0
 
-    # (g) B3 / B4 take no wide pair: the fused schedule at one raises
+    # (g) the pairs no kernel takes: bf16 / f16 tiles summed at their own width
     t0 = time.perf_counter()
-    prec = Precision("float32", "float64", "float32")
-    pan = torch.zeros((1, 64, 8), device="cuda")
-    refusals = {"fused qr": lambda: ggr_qr_blocked(M[:256, :256], schedule="fused",
-                                                   precision=prec),
-                "auto qr": lambda: ggr_qr_blocked(M[:256, :256], precision=prec),
-                "panel_factor": lambda: ggr_panel.panel_factor(pan, precision=prec),
-                "apply_factors": lambda: ggr_apply.apply_factors(pan, pan, pan,
-                                                                 precision=prec)}
-    for what, call in refusals.items():
-        _zero_counts(kernels)
-        try:
-            call()
-            msg = "no error"
-        except NotImplementedError as e:
-            msg = str(e)
-        launched = sum(_counts(kernels)[0].values())
-        check("float32 tiles with float64 accumulation" in msg and launched == 0,
-              f"(g) {what} at (float32, float64) raises NotImplementedError naming both "
-              f"dtypes, no launch: {msg[:100]!r}, {launched} launches")
+    for dname in MIXED:
+        prec = Precision(dname, dname, dname)
+        pan = torch.zeros((1, 64, 8), device="cuda", dtype=getattr(torch, dname))
+        refusals = {"fused qr": lambda: ggr_qr_blocked(M[:256, :256], schedule="fused",
+                                                       precision=prec),
+                    "auto qr": lambda: ggr_qr_blocked(M[:256, :256], precision=prec),
+                    "panel_factor": lambda: ggr_panel.panel_factor(pan, precision=prec),
+                    "apply_factors": lambda: ggr_apply.apply_factors(pan, pan, pan,
+                                                                     precision=prec)}
+        for what, call in refusals.items():
+            _zero_counts(kernels)
+            try:
+                call()
+                msg = "no error"
+            except NotImplementedError as e:
+                msg = str(e)
+            launched = sum(_counts(kernels)[0].values())
+            check(f"{dname} tiles with {dname} accumulation" in msg and launched == 0,
+                  f"(g) {what} at ({dname}, {dname}) raises NotImplementedError naming "
+                  f"both dtypes, no launch: {msg[:100]!r}, {launched} launches")
     out["wall_s"]["g"] = time.perf_counter() - t0
 
     # every (shape, pair) of (e)-(f) against the plain version on fresh inputs
     t0 = time.perf_counter()
-    out["recheck_worst"] = {d: recheck_shapes(out["shapes"][d], gen) for d in WIDE}
+    out["recheck_worst"] = {}
+    for dname in WIDE:
+        t1 = time.perf_counter()
+        out["recheck_worst"][dname] = recheck_shapes(out["shapes"][dname], gen)
+        print(f"  ({dname}, float64): " + ", ".join(
+            f"{len(v)} {k}" for k, v in out["shapes"][dname].items())
+            + f" (shape, pair) launches rechecked in {time.perf_counter() - t1:.1f} s")
     n_shapes = sum(len(v) for d in WIDE for v in out["shapes"][d].values())
     print(f"  (e)-(f) {n_shapes} (shape, pair) launches rechecked "
           f"({time.perf_counter() - t0:.1f} s); worst errors {out['recheck_worst']}")
     out["wall_s"]["recheck"] = time.perf_counter() - t0
     for dname in WIDE:
-        check(all(out["launches"][dname][k] > 0 for k in need),
-              f"phase 14 (e)-(f) launched B1 and B2 at ({dname}, float64): "
+        check(all(v > 0 for v in out["launches"][dname].values()),
+              f"phase 14 (e)-(f) launched every kernel at ({dname}, float64): "
               f"{out['launches'][dname]}")
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(f"  phase 14 (e)-(g) wall {out['wall_s']['phase']:.1f} s (" + ", ".join(
@@ -3894,7 +3969,7 @@ def main() -> int:
     print(f"  built {sorted(logs)} and the casts' probe into {_cuda.build_dir()} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        print(f"  --- {name}.cu ptxas:")
+        print(f"  --- {name}.cu ({_cuda.BUILD_S.get(name, 0.0):.1f} s) ptxas:")
         for line in log.strip().splitlines():
             print(f"    {line}")
 
@@ -3904,16 +3979,23 @@ def main() -> int:
     cases = [KernelCase(name, shape, param, getattr(torch, dname), gen, *data)
              for name, shape, param, dname, *data in PHASE3]
     worst = {(c.name, c.pair): 0.0 for c in cases}
-    timed = {}
+    timed, walls = {}, {}
     for case in cases:
+        t0 = time.perf_counter()
         worst[(case.name, case.pair)] = max(worst[(case.name, case.pair)], case.compare())
         case.zero_batch()
-        timed[(case.name, case.shape, case.pair, case.data)] = t = case.times()
+        # keyed by both dtypes: an f32 and an f64 case may share a shape
+        timed[(case.name, case.shape, case.dname, case.accum, case.data)] = t = case.times()
         was = (TABLE_MS.get((case.name, case.shape, case.dname, case.data))
                if case.pair == "uniform" else None)
         if was is not None:
             print(f"    PERF.md §6 table: {was:.4f} ms; this run {t['ms']:.4f} ms "
                   f"({t['ms'] / was:.2f}x)")
+        kind = ("wide" if case.wide else "mixed" if case.mixed else "uniform",
+                "B3/B4" if case.name in FUSED else "B1/B2")
+        walls[kind] = walls.get(kind, 0.0) + time.perf_counter() - t0
+    print("  phase 3 walls (checks and timings): " + ", ".join(
+        f"{k} {b} {v:.1f} s" for (k, b), v in walls.items()))
     # the wide instances' stores: ggr_common.cuh's narrow from double, alone
     from repro_torch.kernels.backend import to_tile
     from repro_torch.testing.kernel_check import narrow_on_card, tie_values
@@ -4162,7 +4244,7 @@ def main() -> int:
                               "src/repro/kernels/ggr_apply.py:28")}
     rows_out = []
     for name in kernels:
-        t = timed[(*headline[name][:2], "uniform", "random")]
+        t = timed[(*headline[name], "float32", "random")]
         rows_out.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -4180,7 +4262,7 @@ def main() -> int:
     for dname in MIXED:  # the bf16 / f16 instances at the same shapes
         for name in kernels:
             shape = headline[name][1]
-            t = timed[(name, shape, f"{dname}/float32", "random")]
+            t = timed[(name, shape, dname, "float32", "random")]
             rows_out.append({
                 "name": f"{name}_{_cuda.suffix(getattr(torch, dname), 'float32')}",
                 "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
@@ -4192,14 +4274,13 @@ def main() -> int:
                 "shape": list(shape), "dtype": dname, "accum_dtype": "float32",
                 "library_dtype": "float32",
             })
-    source = {"batched_update": "ggr_update", "batched_geqrt": "ggr_panel"}
-    for dname in WIDE:  # B1 / B2's f64-summed instances at the same shapes
-        for name in source:
+    for dname in WIDE:  # the f64-summed instances at the same shapes
+        for name in kernels:
             shape = headline[name][1]
             pair = f"{dname}/float64"
-            t = timed[(name, shape, pair, "random")]
+            t = timed[(name, shape, dname, "float64", "random")]
             rows_out.append({
-                "name": f"{name}_{_cuda.suffix(getattr(torch, dname), 'float64', source[name])}",
+                "name": f"{name}_{_cuda.suffix(getattr(torch, dname), 'float64')}",
                 "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": wide["launches"][dname][name],
                 "max_abs_err": max(worst[(name, pair)],
@@ -4209,8 +4290,8 @@ def main() -> int:
                 "shape": list(shape), "dtype": dname, "accum_dtype": "float64",
                 "library_dtype": "float64",
             })
-    for (name, shape, pair, data), t in timed.items():
-        print(f"  {name} {shape} {pair} {data}: " + ", ".join(
+    for (name, shape, dname, accum, data), t in timed.items():
+        print(f"  {name} {shape} {dname}/{accum} {data}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in t.items()))
     print(f"  serving: {req_s:.1f} req/s; dense ms: " + ", ".join(

@@ -18,11 +18,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-__all__ = ["MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
+__all__ = ["BUILD_S", "MAX_SMEM_BYTES", "MAX_THREADS", "PTXAS_LOG", "build", "build_dir",
            "launch", "query", "suffix"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -36,18 +38,17 @@ MAX_SMEM_BYTES = 232448
 MAX_THREADS = 1024
 
 PTXAS_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas report of its build
-# (tile dtype, accumulation dtype) -> the C functions' suffix: the uniform
-# instances and the two named mixed policies (bf16 / f16 tiles, f32 sums),
-# which every kernel has
+BUILD_S: dict[str, float] = {}  # source name -> seconds its nvcc ran (all start together)
+# (tile dtype, accumulation dtype) -> the C functions' suffix, the same in
+# every source: the uniform instances, the two named mixed policies (bf16 /
+# f16 tiles, f32 sums) and the wide pairs (f32 / bf16 / f16 tiles, f64 sums)
 _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.float64, torch.float64): "f64",
            (torch.bfloat16, torch.float32): "bf16_f32",
-           (torch.float16, torch.float32): "f16_f32"}
-# the wide pairs (f32 / bf16 / f16 tiles, f64 sums), and the sources that have them
-_WIDE = {(torch.float32, torch.float64): "f32_f64",
-         (torch.bfloat16, torch.float64): "bf16_f64",
-         (torch.float16, torch.float64): "f16_f64"}
-_WIDE_SOURCES = ("ggr_update", "ggr_panel")
+           (torch.float16, torch.float32): "f16_f32",
+           (torch.float32, torch.float64): "f32_f64",
+           (torch.bfloat16, torch.float64): "bf16_f64",
+           (torch.float16, torch.float64): "f16_f64"}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _INT_MAX = 2**31 - 1
 
@@ -78,12 +79,13 @@ def build(names=_SOURCES) -> dict[str, str]:
     """Compile every named source not built yet, one ``nvcc`` each, in parallel.
 
     Returns ``{name: ptxas report}``; a source that was already built reports
-    ``"(cached build)"``.  Raises ``RuntimeError`` with the compiler's output
-    when any build fails.
+    ``"(cached build)"``.  Each build's seconds go into ``BUILD_S``.  Raises
+    ``RuntimeError`` with the compiler's output when any build fails.
     """
     build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         path = _lib_path(name)
         if path.exists():
@@ -95,10 +97,17 @@ def build(names=_SOURCES) -> dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
+
+    def wait(name):
+        out = procs[name][0].communicate()[0]
+        BUILD_S[name] = time.perf_counter() - t0
+        return out
+
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        outs = dict(zip(procs, pool.map(wait, procs)))
     failed = []
     for name, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        PTXAS_LOG[name] = out
+        out = PTXAS_LOG[name] = outs[name]
         if proc.returncode == 0:
             os.replace(tmp, path)
         else:
@@ -119,35 +128,32 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def suffix(tile, accum=None, source=None) -> str:
-    """The suffix of the C function of ``source`` (None: the pairs every
-    source has) for ``tile`` dtype tiles accumulating at ``accum`` (a torch
-    dtype or its name; None: the tile dtype itself): ``"f32"``, ``"f64"``,
-    ``"bf16_f32"``, ``"f16_f32"``, and in ``ggr_update`` / ``ggr_panel``
-    ``"f32_f64"``, ``"bf16_f64"``, ``"f16_f64"``.  Raises
-    ``NotImplementedError`` naming both dtypes for any other pair."""
+def suffix(tile, accum=None) -> str:
+    """The suffix of the C functions for ``tile`` dtype tiles accumulating
+    at ``accum`` (a torch dtype or its name; None: the tile dtype itself):
+    ``"f32"``, ``"f64"``, ``"bf16_f32"``, ``"f16_f32"``, ``"f32_f64"``,
+    ``"bf16_f64"``, ``"f16_f64"``.  Raises ``NotImplementedError`` naming
+    both dtypes for any other pair."""
     acc = tile if accum is None else (
         getattr(torch, accum) if isinstance(accum, str) else accum)
-    pairs = {**_SUFFIX, **_WIDE} if source in _WIDE_SOURCES else _SUFFIX
     try:
-        return pairs[(tile, acc)]
+        return _SUFFIX[(tile, acc)]
     except KeyError:
         t, a = (str(d).removeprefix("torch.") for d in (tile, acc))
-        wide = (" and float32 / bfloat16 / float16 tiles with float64 accumulation"
-                if source in _WIDE_SOURCES else "")
         raise NotImplementedError(
             f"no CUDA kernel for {t} tiles with {a} accumulation "
-            "(the kernel takes float32 / float64 tiles at their own width, "
-            f"bfloat16 / float16 tiles with float32 accumulation{wide}; the "
-            "plain versions run every pair on CPU tensors)") from None
+            "(the kernels take float32 / float64 tiles at their own width, "
+            "bfloat16 / float16 tiles with float32 accumulation and float32 / "
+            "bfloat16 / float16 tiles with float64 accumulation; the plain "
+            "versions run every pair on CPU tensors)") from None
 
 
 def launch(source: str, fn_prefix: str, tensors, *dims: int, accum=None) -> None:
     """Launch ``<fn_prefix>_<suffix>`` of ``source`` on the current stream.
 
     The C function takes one pointer per tensor of ``tensors`` (CUDA tensors
-    whose first holds the tiles: its dtype, ``accum`` and ``source`` pick
-    the suffix, see ``suffix``), then the integer arguments ``dims``, the
+    whose first holds the tiles: its dtype and ``accum`` pick the suffix,
+    see ``suffix``), then the integer arguments ``dims``, the
     device index and the stream.  Raises ``ValueError`` for an integer that does not fit a C
     ``int`` and ``RuntimeError`` when the C function reports a CUDA error (a
     refused launch never runs, and a later synchronize would not report it).
@@ -155,7 +161,7 @@ def launch(source: str, fn_prefix: str, tensors, *dims: int, accum=None) -> None
     if any(not -_INT_MAX <= d <= _INT_MAX for d in dims):
         raise ValueError(f"{fn_prefix}: an argument of {dims} exceeds a C int")
     x = tensors[0]
-    sfx = suffix(x.dtype, accum, source)
+    sfx = suffix(x.dtype, accum)
     lib = _lib(source)
     fn = getattr(lib, f"{fn_prefix}_{sfx}")
     fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(dims)
@@ -181,7 +187,7 @@ def query(source: str, fn_prefix: str, x: torch.Tensor, *dims: int,
     dtype of ``x`` at ``accum`` (see ``suffix``) and x's device: a host-side
     query that returns a count >= 0, or -(CUDA error), which raises
     ``RuntimeError``."""
-    sfx = suffix(x.dtype, accum, source)
+    sfx = suffix(x.dtype, accum)
     lib = _lib(source)
     fn = getattr(lib, f"{fn_prefix}_{sfx}")
     fn.argtypes = [ctypes.c_int] * (len(dims) + 1)

@@ -61,15 +61,20 @@
 // memory (cp.async, double buffered), shared by all its columns: two
 // __syncthreads per 32 ticks.  Each tick's pairs are loaded one tick ahead.
 //
-// Mixed precision: the bf16 / f16 instances (storage S for V, T, C and the
-// output; compute float) keep the float instance's pipeline, with the
-// coefficients computed in float from the S-valued V and T and staged as
-// float pairs.  The JAX kernel stores C at the tile dtype after every
-// transform, so each stage rounds what it emits through S (round_to) before
-// stage c+1 takes it as its input: the DET2 rows and the pivot row Q alike,
-// at every transform.  Only the running scaled suffix dot Q stays float
-// across rows, as the suffix dot P does in the JAX kernel.  x is loaded as S
-// and the writer lane stores S.
+// Mixed precision: an instance whose storage S (V, T, C and the output)
+// differs from its compute T — bf16 / f16 tiles with float sums, and f32 /
+// bf16 / f16 tiles with double sums — keeps the uniform T instance's
+// pipeline, with the coefficients computed in T from the S-valued V and T
+// and staged as T pairs (float2, or double2 at 64 KiB of shared memory a
+// block at (32, 4), as the double instance).  The JAX kernel stores C at the
+// tile dtype after every transform, so each stage rounds what it emits
+// through S (round_to; from double, f32 and f16 round once, bf16 through
+// float, as kernels/backend.py::to_tile does) before stage c+1 takes it as
+// its input: the DET2 rows and the pivot row Q alike, at every transform.
+// Only the running scaled suffix dot Q stays in T across rows, as the suffix
+// dot P does in the JAX kernel.  x is loaded as S and widened exactly; the
+// writer lane narrows a value that is already an S value, so its store is
+// exact.
 #include <cuda_runtime.h>
 
 #include "ggr_common.cuh"
@@ -346,6 +351,37 @@ int ggr_apply_factors_f16_f32(const __half* V, const __half* Tn, const __half* C
   return launch<__half, float>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
                                nwarps, ntiles, c_bstride, c_rstride, o_bstride,
                                o_rstride, device, stream);
+}
+
+int ggr_apply_factors_f32_f64(const float* V, const float* Tn, const float* C,
+                              float* out, double* coef, int B, int m, int b, int w,
+                              int pivot0, int lanes, int per_lane, int nwarps,
+                              int ntiles, int c_bstride, int c_rstride, int o_bstride,
+                              int o_rstride, int device, void* stream) {
+  return launch<float, double>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
+                               nwarps, ntiles, c_bstride, c_rstride, o_bstride,
+                               o_rstride, device, stream);
+}
+
+int ggr_apply_factors_bf16_f64(const __nv_bfloat16* V, const __nv_bfloat16* Tn,
+                               const __nv_bfloat16* C, __nv_bfloat16* out, double* coef,
+                               int B, int m, int b, int w, int pivot0, int lanes,
+                               int per_lane, int nwarps, int ntiles, int c_bstride,
+                               int c_rstride, int o_bstride, int o_rstride, int device,
+                               void* stream) {
+  return launch<__nv_bfloat16, double>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes,
+                                       per_lane, nwarps, ntiles, c_bstride, c_rstride,
+                                       o_bstride, o_rstride, device, stream);
+}
+
+int ggr_apply_factors_f16_f64(const __half* V, const __half* Tn, const __half* C,
+                              __half* out, double* coef, int B, int m, int b, int w,
+                              int pivot0, int lanes, int per_lane, int nwarps,
+                              int ntiles, int c_bstride, int c_rstride, int o_bstride,
+                              int o_rstride, int device, void* stream) {
+  return launch<__half, double>(V, Tn, C, out, coef, B, m, b, w, pivot0, lanes, per_lane,
+                                nwarps, ntiles, c_bstride, c_rstride, o_bstride,
+                                o_rstride, device, stream);
 }
 
 const char* ggr_apply_error_string(int code) {

@@ -16,10 +16,10 @@
 //
 // Two types per kernel: the storage type S (what device memory holds, the
 // tile dtype of the JAX kernels) and the compute type T (their accumulation
-// dtype).  Every kernel has the instances (float, float), (double, double)
-// and the mixed (__nv_bfloat16, float), (__half, float); the row-append and
-// tile GEQRT kernels (ggr_update.cu, ggr_panel.cu) also have the wide ones,
-// (float, double), (__nv_bfloat16, double) and (__half, double).  A mixed
+// dtype).  Every kernel has the same seven instances: (float, float),
+// (double, double), the mixed (__nv_bfloat16, float), (__half, float) and
+// the wide (float, double), (__nv_bfloat16, double), (__half, double)
+// (kernels/_cuda.py::suffix names their C entry points).  A mixed
 // kernel keeps its state in T but rounds every value it writes back to the
 // state through S at the step that writes it (round_to), as the JAX kernels'
 // .astype(cd) does, so the state always holds values S can represent; where

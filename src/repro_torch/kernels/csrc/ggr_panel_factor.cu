@@ -72,19 +72,25 @@
 // pointer.  Per-column planes of v/sigma and t go to `work` as (b, m) rows
 // and are transposed into V and T through shared-memory tiles at the end.
 //
-// Mixed precision: the bf16 / f16 instances (storage S, compute float) keep
-// the float instance's design and layout: the slab, the vectors, the
-// exchange arrays and `work` hold float (ggr_panel.py sizes shared memory,
-// the capacity and `work` at the compute itemsize).  The state rounds as the
-// JAX kernel rounds it, at every column step: each row det2_walk writes
-// back (the DET2 rows and the pivot row P_p / t_p) goes through S as it is
-// stored, and the annihilated column is written as sigma * t_p with both
-// factors rounded to S first and the product rounded again (the JAX kernel
-// takes sigma and t at cd there).  The step's own DET2 takes the float v and
-// t; only the stored V and T planes are rounded, as the JAX kernel returns
-// v.astype(cd) and t.astype(cd).  A slab kept in device memory (resident ==
-// 0) cannot live in R, which holds S: a mixed instance keeps it in `work`,
-// m * b more values a panel.
+// Mixed precision: an instance whose storage S differs from its compute T
+// — bf16 / f16 tiles with float sums, and f32 / bf16 / f16 tiles with
+// double sums — keeps the uniform T instance's design and layout: the slab,
+// the vectors, the exchange arrays and `work` hold T (ggr_panel.py sizes
+// shared memory, the capacity and `work` at the compute itemsize, so a
+// wide panel takes the nblk and residency of an f64 panel of its shape).
+// The state rounds as the JAX kernel rounds it, at every column step: each
+// row det2_walk writes back (the DET2 rows and the pivot row P_p / t_p) goes
+// through S as it is stored (round_to: from double, f32 and f16 round once,
+// bf16 through float, as kernels/backend.py::to_tile does), and the
+// annihilated column is written as sigma * t_p with both factors rounded to
+// S first and the product rounded again (the JAX kernel takes sigma and t at
+// cd there; two S values multiply exactly in double, so at a wide pair the
+// product rounds once, as the plain version's to_tile(sigma) * to_tile(t)
+// at the tile dtype does).  The step's own DET2 takes the T-valued v and t;
+// only the stored V and T planes are rounded, narrowed from the T planes in
+// transpose_out, as the JAX kernel returns v.astype(cd) and t.astype(cd).  A
+// slab kept in device memory (resident == 0) cannot live in R, which holds
+// S: such an instance keeps it in `work`, m * b more values a panel.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -474,6 +480,28 @@ int ggr_panel_factor_f16_f32(const __half* in, __half* R, __half* V, __half* Tn,
                                cap, device, stream);
 }
 
+int ggr_panel_factor_f32_f64(const float* in, float* R, float* V, float* Tn,
+                             double* work, int B, int m, int b, int pivot0, int nblk,
+                             int resident, int ws, int cap, int device, void* stream) {
+  return launch<float, double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                               cap, device, stream);
+}
+
+int ggr_panel_factor_bf16_f64(const __nv_bfloat16* in, __nv_bfloat16* R, __nv_bfloat16* V,
+                              __nv_bfloat16* Tn, double* work, int B, int m, int b,
+                              int pivot0, int nblk, int resident, int ws, int cap,
+                              int device, void* stream) {
+  return launch<__nv_bfloat16, double>(in, R, V, Tn, work, B, m, b, pivot0, nblk,
+                                       resident, ws, cap, device, stream);
+}
+
+int ggr_panel_factor_f16_f64(const __half* in, __half* R, __half* V, __half* Tn,
+                             double* work, int B, int m, int b, int pivot0, int nblk,
+                             int resident, int ws, int cap, int device, void* stream) {
+  return launch<__half, double>(in, R, V, Tn, work, B, m, b, pivot0, nblk, resident, ws,
+                                cap, device, stream);
+}
+
 int ggr_panel_factor_capacity_f32(int smem, int device) {
   return capacity<float, float>(smem, device);
 }
@@ -488,6 +516,18 @@ int ggr_panel_factor_capacity_bf16_f32(int smem, int device) {
 
 int ggr_panel_factor_capacity_f16_f32(int smem, int device) {
   return capacity<__half, float>(smem, device);
+}
+
+int ggr_panel_factor_capacity_f32_f64(int smem, int device) {
+  return capacity<float, double>(smem, device);
+}
+
+int ggr_panel_factor_capacity_bf16_f64(int smem, int device) {
+  return capacity<__nv_bfloat16, double>(smem, device);
+}
+
+int ggr_panel_factor_capacity_f16_f64(int smem, int device) {
+  return capacity<__half, double>(smem, device);
 }
 
 const char* ggr_panel_factor_error_string(int code) {

@@ -104,7 +104,7 @@ def _apply_factors_cuda(V, T, C, pivot0, accum_dtype, out):
         ntiles = -(-(m - p0 + 2 * bg - 1) // _TICKS)
         warps = B * -(-w // (32 // lanes))
         nwarps = min(_MAX_WARPS, -(-warps // _WAVE))
-        # the (a, c) pairs: float values from the tile-dtype V and T
+        # the (a, c) pairs at the accumulation dtype, from the tile-dtype V and T
         coef = torch.empty((B, ntiles * _TICKS, lanes * per_lane, 2),
                            dtype=_accum_dt(C, accum_dtype), device=C.device)
         _cuda.launch("ggr_apply", "ggr_apply_factors", [Vg, Tg, src, dst, coef],
@@ -153,8 +153,8 @@ def apply_factors(V: torch.Tensor, T: torch.Tensor, C: torch.Tensor,
     (optional, C's shape) receives the result and may be C itself — a
     strided view of a larger frame is updated in place.  ``precision``
     selects compute + accumulation dtypes; on CUDA tensors the kernel takes
-    the uniform f32 / f64 policies and bf16 / f16 tiles with f32
-    accumulation.  The launch count is
+    the uniform f32 / f64 policies, bf16 / f16 tiles with f32 accumulation
+    and f32 / bf16 / f16 tiles with f64 accumulation.  The launch count is
     ``apply_factors.launches``; more than 128 transforms take one launch per
     128.  A meta tensor computes nothing: the result's shape comes back and
     the launches are tallied for the dry run (``_apply_factors_meta``).

@@ -62,20 +62,15 @@ def _check_stack(x: torch.Tensor, n_pivots: int, block_b: int, what: str):
         raise ValueError(f"{what} needs a contiguous batch")
 
 
-# each wrapper's CUDA source
-_SOURCE = {"batched_update": "ggr_update", "batched_geqrt": "ggr_panel",
-           "panel_factor": "ggr_panel_factor", "apply_factors": "ggr_apply"}
-
-
 def _kernel_dtype_check(x: torch.Tensor, accum_dtype: str | None, what: str):
-    """The (tile, accumulation) pairs of ``what``'s CUDA kernel: float32 /
-    float64 tiles at their own width, bfloat16 / float16 tiles with float32
-    accumulation (the two named mixed policies), and for ``batched_update``
-    / ``batched_geqrt`` float32 / bfloat16 / float16 tiles with float64
-    accumulation.  Any other pair raises ``NotImplementedError`` naming
-    both dtypes."""
+    """The (tile, accumulation) pairs of ``what``'s CUDA kernel, the same in
+    every kernel: float32 / float64 tiles at their own width, bfloat16 /
+    float16 tiles with float32 accumulation (the two named mixed policies)
+    and float32 / bfloat16 / float16 tiles with float64 accumulation.  Any
+    other pair (bfloat16 / float16 tiles summed at their own width) raises
+    ``NotImplementedError`` naming both dtypes."""
     try:
-        _cuda.suffix(x.dtype, accum_dtype, _SOURCE[what])
+        _cuda.suffix(x.dtype, accum_dtype)
     except NotImplementedError as e:
         raise NotImplementedError(f"{what}: {e}") from None
 
@@ -407,8 +402,9 @@ def panel_factor(panel: torch.Tensor, pivot0: int = 0, precision=None):
 
     ``precision`` selects the panel's compute dtype and the in-kernel
     accumulation dtype (``None`` = the panel's own dtype throughout); on CUDA
-    tensors the kernel takes the uniform f32 / f64 policies and bf16 / f16
-    panels with f32 accumulation.  The CUDA kernel
+    tensors the kernel takes the uniform f32 / f64 policies, bf16 / f16
+    panels with f32 accumulation and f32 / bf16 / f16 panels with f64
+    accumulation (laid out as an f64 panel of the same shape).  The CUDA kernel
     splits each panel by rows over co-resident blocks (``_panel_blocks``); a
     large batch may take several launches, and a call counts once in
     ``panel_factor.launches``.  A meta tensor computes nothing: the outputs'

@@ -37,9 +37,10 @@ bulk: a fault confined to fewer than TRIM of a part's entries escapes it.  The b
 path's states are: an upper-triangular state of Gaussian entries has a
 condition number near 2^n, and then R itself is roundoff.
 
-The wide pairs (f32 / bf16 / f16 tiles with f64 sums, B1 and B2 only) sum in
-f64 in another order than the plain version, and rounding each value to the
-tile dtype hides the difference almost always.  ``wide_held`` holds the
+The wide pairs (f32 / bf16 / f16 tiles with f64 sums, in all four kernels)
+sum in f64 in another order than the plain version (B4 also by another
+formula, the rotation form of ``csrc/ggr_apply.cu``), and rounding each
+value to the tile dtype hides the difference almost always.  ``wide_held`` holds the
 WIDE_DRAWS draws of a shape together: the share of their entries bitwise
 equal to the plain version's (``equal_share``) at least WIDE_EQUAL, and
 every draw's max|err| / rms within ``wide_bound`` (``wide_accurate``).  The
@@ -247,7 +248,7 @@ def per_step(outs, plains, exacts) -> tuple:
 
 
 # ---------------------------------------------------------------- wide pairs
-# B1 and B2 have f64-summed instances of f32 / bf16 / f16 tiles
+# every kernel has f64-summed instances of f32 / bf16 / f16 tiles
 WIDE_DRAWS = 16
 # the least share of the entries of a shape's draws bitwise equal to the
 # plain version's, by tile dtype: between the sound kernels' least reading

@@ -441,19 +441,26 @@ def test_mixed_kernel_rounds_its_state_at_every_step(card, name, shape, param, d
 
 
 # the wide pairs' cases, chip_smoke.py's: B1 at the serving append, kalman
-# and tree-coupling shapes, B2 at tree level 0 and on the tree's own tiles
-# (the share the rule holds is a statistic of many problems)
+# and tree-coupling shapes, B2 at tree level 0 and on the tree's own tiles,
+# B3 at the fused QR's and lstsq's panel frames, B4 at their trailing
+# columns (the share the rule holds is a statistic of many problems)
 WIDE_CASES = [("batched_update", (8192, 40, 33), 32, "random"),
               ("batched_update", (8192, 104, 65), 64, "random"),
               ("batched_update", (64, 128, 192), 64, "random"),
               ("batched_geqrt", (128, 64, 128), 64, "random"),
-              ("batched_geqrt", (64, 64, 128), 64, "tree")]
+              ("batched_geqrt", (64, 64, 128), 64, "tree"),
+              ("panel_factor", (1, 4096, 64), 0, "random"),
+              ("panel_factor", (1, 8192, 64), 0, "random"),
+              ("apply_factors", (1, 4096, 4032), (64, 0), "random"),
+              ("apply_factors", (1, 8192, 964), (64, 0), "random")]
 
 
 def _wide_inputs(card, name, shape, param, data, tile, seed):
     """Gaussian inputs of ``shape`` as chip_smoke.py's wide cases take them:
     B1's top rows upper triangular, the tree's [pan | I] / [0 | I] tiles,
-    bf16 / f16 tiles conditioned (kc.condition_)."""
+    bf16 / f16 tiles conditioned (kc.condition_); for B4, C and the
+    factors (V, T) of a Gaussian (B, m, b) panel at (tile, float64), else
+    the input and None."""
     g = torch.Generator(device=card).manual_seed(seed)
     B, m, w = shape
     if data == "tree":
@@ -461,40 +468,118 @@ def _wide_inputs(card, name, shape, param, data, tile, seed):
         if tile in MIXED:
             kc.condition_(pan, name, param)
         pan[B // 2:] = 0
-        return torch.cat([pan, torch.eye(m, device=card, dtype=tile).expand(B, m, m)], 2)
+        return torch.cat([pan, torch.eye(m, device=card, dtype=tile).expand(B, m, m)],
+                         2), None
     x = torch.randn(shape, generator=g, device=card, dtype=tile)
     if name == "batched_update":
         x[:, :param, :param] = torch.triu(x[:, :param, :param])
-    return kc.condition_(x, name, param) if tile in MIXED else x
+    if name == "apply_factors":
+        b, pivot0 = param
+        pan = torch.randn((B, m, b), generator=g, device=card, dtype=tile)
+        if tile in MIXED:
+            kc.condition_(pan, name, param)
+        _, V, T = ggr_panel.panel_factor_plain(pan, pivot0, "float64")
+        return x, (V, T)
+    return (kc.condition_(x, name, param) if tile in MIXED else x), None
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile", [torch.float32, *MIXED])
 @pytest.mark.parametrize("name,shape,param,data", WIDE_CASES)
 def test_wide_kernel_passes_the_wide_rule(card, name, shape, param, data, tile):
-    """f64 sums (B1, B2): over kc.WIDE_DRAWS draws, the share of entries
-    bitwise equal to the plain version at (tile, float64) at least
+    """f64 sums (every kernel): over kc.WIDE_DRAWS draws, the share of
+    entries bitwise equal to the plain version at (tile, float64) at least
     kc.WIDE_EQUAL and max|err| / rms within kc.wide_bound (kc.wide_held);
     the (tile, float32) instance on the same inputs, a kernel that sums in
     f32, fails the rule."""
-    fn = {"batched_update": batched_update, "batched_geqrt": batched_geqrt}[name]
+    fn = {"batched_update": batched_update, "batched_geqrt": batched_geqrt,
+          "panel_factor": ggr_panel.panel_factor,
+          "apply_factors": ggr_apply.apply_factors}[name]
     plain = {"batched_update": ggr_update.batched_update_plain,
-             "batched_geqrt": ggr_panel.batched_geqrt_plain}[name]
+             "batched_geqrt": ggr_panel.batched_geqrt_plain,
+             "panel_factor": ggr_panel.panel_factor_plain,
+             "apply_factors": ggr_apply.apply_factors_plain}[name]
     dn = str(tile).removeprefix("torch.")
     wide, ctrl = Precision(dn, "float64", dn), Precision(dn, "float32", dn)
     _, m, w = shape
+    # B4 takes its factors and its pivot0 (param[1]); the others take param
+    arg = param[1] if name == "apply_factors" else param
     reads, ctrls = [], []
     for seed in range(kc.WIDE_DRAWS):
-        x = _wide_inputs(card, name, shape, param, data, tile, seed)
+        x, factors = _wide_inputs(card, name, shape, param, data, tile, seed)
+        pre = factors or ()
         n0 = fn.launches
-        out, ref = fn(x, param, precision=wide), plain(x, param, "float64")
+        out, ref = fn(*pre, x, arg, precision=wide), plain(*pre, x, arg, "float64")
+        outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
         assert fn.launches == n0 + 1 and (shape, param, tile, "float64") in fn.shapes
-        assert out.dtype == tile
-        reads.append(kc.wide_reading(name, param, tile, (out,), (ref,)))
-        ctrls.append(kc.wide_reading(name, param, tile, (fn(x, param, precision=ctrl),),
-                                     (ref,)))
+        assert all(o.dtype == tile for o in outs)
+        reads.append(kc.wide_reading(name, param, tile, outs, refs))
+        c = fn(*pre, x, arg, precision=ctrl)
+        ctrls.append(kc.wide_reading(name, param, tile, c if isinstance(c, tuple) else (c,),
+                                     refs))
     assert kc.wide_held(name, m, w, tile, reads), reads
     assert not kc.wide_held(name, m, w, tile, ctrls), ctrls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [torch.float32, *MIXED])
+def test_wide_panel_with_its_slabs_in_device_memory(card, tile):
+    """B3 at (tile, float64) on a (1, 65536, 64) panel, too tall for its
+    f64 slabs to be co-resident on the card: the kernel keeps them in
+    ``work`` (the non-resident branch) and each draw's R, V and T are within
+    kc.wide_bound of the plain version at the same pair (kc.wide_accurate)."""
+    from functools import partial
+
+    shape = (1, 65536, 64)
+    dn = str(tile).removeprefix("torch.")
+    x = torch.zeros(shape, device=card, dtype=tile)
+    capacity = partial(ggr_panel._panel_capacity, x, accum_dtype="float64")
+    assert not ggr_panel._panel_blocks(65536, 64, 8, capacity)[1]
+    reads = []
+    for seed in range(2):
+        x, _ = _wide_inputs(card, "panel_factor", shape, 0, "random", tile, seed)
+        n0 = ggr_panel.panel_factor.launches
+        out = ggr_panel.panel_factor(x, 0, precision=Precision(dn, "float64", dn))
+        ref = ggr_panel.panel_factor_plain(x, 0, "float64")
+        assert ggr_panel.panel_factor.launches == n0 + 1
+        assert (shape, 0, tile, "float64") in ggr_panel.panel_factor.shapes
+        assert all(o.dtype == tile for o in out)
+        reads.append(kc.wide_reading("panel_factor", 0, tile, out, ref))
+    assert kc.wide_accurate("panel_factor", 65536, 64, tile, reads), reads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [torch.float32, *MIXED])
+def test_blocked_qr_wide_on_the_card_meets_the_budgets(card, tile):
+    """ggr_qr_blocked of a 256^2 matrix at (tile, float64) on the card: the
+    fused schedule launches B3 and B4 at the pair and no other kernel, R at
+    the tile dtype within the reference's budgets wherever meaningful (the
+    gram residual always), and ``"auto"`` is the same run bit for bit."""
+    from repro_torch.testing import budget_is_meaningful, error_budget, factorization_errors
+
+    dn = str(tile).removeprefix("torch.")
+    prec = Precision(dn, "float64", dn)
+    A = np.random.default_rng(8).standard_normal((256, 256)).astype(np.float32)
+    counters = (batched_update, batched_geqrt, ggr_panel.panel_factor,
+                ggr_apply.apply_factors)
+    n0 = [f.launches for f in counters]
+    for f in counters:
+        f.shapes.clear()
+    R = blocked.ggr_qr_blocked(torch.from_numpy(A).to(card), schedule="fused",
+                               precision=prec)
+    assert [f.launches - n > 0 for f, n in zip(counters, n0)] == [False, False, True, True]
+    assert {(s[2], s[3]) for f in counters for s in f.shapes} == {(tile, "float64")}
+    assert R.dtype == tile
+    A = A.astype(np.float64)
+    cond = float(np.linalg.cond(A))
+    errs = factorization_errors(A, R.double().cpu().numpy(), R_ref=np.linalg.qr(A)[1])
+    held = {k: v for k, v in errs.items()
+            if k == "gram_residual" or budget_is_meaningful(dn, k, 256, 256, cond)}
+    assert "gram_residual" in held
+    for k, v in held.items():
+        assert v < error_budget(dn, k, 256, 256, cond), (k, v)
+    auto = blocked.ggr_qr_blocked(torch.from_numpy(A).float().to(card), precision=prec)
+    assert torch.equal(R, auto)
 
 
 @pytest.mark.gpu
@@ -534,11 +619,10 @@ def test_seq_parallel_dry_run_step_under_this_torch(card):
 
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(card):
-    """bf16 / f16 tiles run with f32 accumulation (the named policies) in
-    every kernel, and f32 / bf16 / f16 tiles with f64 accumulation in B1 and
-    B2 (zeros in, zeros out at the tile dtype); B3 and B4 at those wide
-    pairs, and tiles summed at their own bf16 / f16 width, raise
-    NotImplementedError naming both dtypes."""
+    """bf16 / f16 tiles run with f32 accumulation (the named policies), and
+    f32 / bf16 / f16 tiles with f64 accumulation, in every kernel (zeros
+    in, zeros out at the tile dtype); tiles summed at their own bf16 / f16
+    width raise NotImplementedError naming both dtypes."""
     X = torch.zeros((2, 12, 9), device=card)
     wide = [Precision(t, "float64", t) for t in ("float32", "bfloat16", "float16")]
     for fn in (batched_update, batched_geqrt):
@@ -562,12 +646,10 @@ def test_kernels_refuse_what_they_do_not_take(card):
         out = ggr_apply.apply_factors(pan, pan, pan, precision=pol)
         assert out.dtype == tile and _bits_zero(out)
     for prec in wide:
-        with pytest.raises(NotImplementedError,
-                           match=f"{prec.compute_dtype} tiles with float64"):
-            ggr_panel.panel_factor(pan, precision=prec)
-        with pytest.raises(NotImplementedError,
-                           match=f"{prec.compute_dtype} tiles with float64"):
-            ggr_apply.apply_factors(pan, pan, pan, precision=prec)
+        assert all(o.dtype == prec.compute and _bits_zero(o)
+                   for o in ggr_panel.panel_factor(pan, precision=prec))
+        out = ggr_apply.apply_factors(pan, pan, pan, precision=prec)
+        assert out.dtype == prec.compute and _bits_zero(out)
     with pytest.raises(NotImplementedError, match="bfloat16 tiles with bfloat16"):
         ggr_panel.panel_factor(pan.to(torch.bfloat16))
     with pytest.raises(ValueError, match="must share a dtype"):

@@ -228,29 +228,38 @@ def test_kalman_fleet_bf16_nis_consistent():
     (torch.float64, "float64", "f64", None),
     (torch.float32, "float64", "f32_f64", "ggr_update"),
     (torch.bfloat16, torch.float64, "bf16_f64", "ggr_update"),
-    (torch.float16, "float64", "f16_f64", "ggr_panel")])
+    (torch.float16, "float64", "f16_f64", "ggr_panel"),
+    (torch.float32, "float64", "f32_f64", "ggr_panel_factor"),
+    (torch.bfloat16, torch.float64, "bf16_f64", "ggr_panel_factor"),
+    (torch.float16, "float64", "f16_f64", "ggr_panel_factor"),
+    (torch.float32, torch.float64, "f32_f64", "ggr_apply"),
+    (torch.bfloat16, "float64", "bf16_f64", "ggr_apply"),
+    (torch.float16, torch.float64, "f16_f64", "ggr_apply")])
 def test_cuda_suffix_of_each_pair(tile, accum, suffix, source):
-    """Every kernel's pairs (source None); the wide pairs (f64 sums) in B1's
-    and B2's sources only."""
-    assert _cuda.suffix(tile, accum, source) == suffix
+    """Every source has the same seven pairs, the wide ones (f64 sums)
+    included: the C functions' suffix, and the check of the wrapper of
+    ``source`` (None: every wrapper) admits the pair."""
+    assert _cuda.suffix(tile, accum) == suffix
+    wrappers = {"ggr_update": ["batched_update"], "ggr_panel": ["batched_geqrt"],
+                "ggr_panel_factor": ["panel_factor"], "ggr_apply": ["apply_factors"],
+                None: ["batched_update", "batched_geqrt", "panel_factor", "apply_factors"]}
+    for fn in wrappers[source]:
+        ggr_panel._kernel_dtype_check(torch.zeros(2, dtype=tile), accum, fn)
 
 
 @pytest.mark.parametrize("tile,accum", [
-    (torch.float32, "float64"), (torch.bfloat16, "float64"), (torch.float16, "float64"),
-    (torch.bfloat16, None), (torch.float16, "float16"), (torch.float64, "float32")])
+    pytest.param(torch.bfloat16, None, id="tile3-None"),
+    pytest.param(torch.float16, "float16", id="tile4-float16"),
+    pytest.param(torch.float64, "float32", id="tile5-float32")])
 def test_pairs_without_a_kernel_raise_naming_both_dtypes(tile, accum):
     """Low-precision tiles summed at their own width, and f64 tiles with f32
-    sums, have no CUDA kernel; the wide pairs (f64 sums) have none in B3
-    and B4 (B1 and B2 take them): the binding and the wrappers' check raise
+    sums, have no CUDA kernel: the binding and every wrapper's check raise
     NotImplementedError naming both dtypes."""
     acc = str(accum or tile).removeprefix("torch.")
     what = f"{str(tile).removeprefix('torch.')} tiles with {acc} accumulation"
     with pytest.raises(NotImplementedError, match=what):
         _cuda.suffix(tile, accum)
-    wrappers = ["panel_factor", "apply_factors"]
-    if accum != "float64":
-        wrappers += ["batched_update", "batched_geqrt"]
-    for fn in wrappers:
+    for fn in ("batched_update", "batched_geqrt", "panel_factor", "apply_factors"):
         with pytest.raises(NotImplementedError, match=f"{fn}: no CUDA kernel for {what}"):
             ggr_panel._kernel_dtype_check(torch.zeros(2, dtype=tile), accum, fn)
 
@@ -274,7 +283,7 @@ def launches(monkeypatch):
     empty = torch.empty
 
     def launch(source, prefix, tensors, *dims, accum=None):
-        _cuda.suffix(tensors[0].dtype, accum, source)  # the pair has a C entry point
+        _cuda.suffix(tensors[0].dtype, accum)  # the pair has a C entry point
         calls.append((prefix, [t.dtype for t in tensors], dims, accum))
 
     def query(source, prefix, x, smem, accum=None):
@@ -339,12 +348,14 @@ def test_a_mixed_tile_is_launched_with_the_layout_of_an_f32_tile(tile, launches)
 
 @pytest.mark.parametrize("tile", [torch.float32, torch.bfloat16, torch.float16])
 def test_a_wide_pair_is_launched_with_the_layout_of_an_f64_tile(tile, launches):
-    """f64 sums: B1 and B2 lay a tile out as an f64 tile (shared memory at 8
-    bytes a value) and launch the (tile, float64) instance; a tile that
-    fits at 4 bytes but not at 8 raises the ValueError naming the bytes, with
-    no launch; B3 and B4 raise NotImplementedError naming both dtypes."""
-    def on_card(*shape):
-        return torch.Tensor._make_subclass(_OnTheCard, torch.zeros(shape, dtype=tile))
+    """f64 sums: every kernel lays a tile out as an f64 tile (shared memory
+    and scratch at 8 bytes a value) and launches the (tile, float64)
+    instance: B1's and B2's layouts, B3's (blocks, resident) and scratch
+    those of an f64 panel of the same shape, its capacity queried at the
+    pair, B4's coefficients in f64; a B2 tile that fits at 4 bytes but not
+    at 8 raises the ValueError naming the bytes, with no launch."""
+    def on_card(*shape, dtype=tile):
+        return torch.Tensor._make_subclass(_OnTheCard, torch.zeros(shape, dtype=dtype))
 
     m, w, n_piv = 600, 9, 8
     assert ggr_update._update_layout(m, w, n_piv, 8) != ggr_update._update_layout(
@@ -365,13 +376,35 @@ def test_a_wide_pair_is_launched_with_the_layout_of_an_f64_tile(tile, launches):
         ggr_panel._batched_geqrt_cuda(on_card(2, t, w), t, "float64")
     assert not launches
 
-    what = f"{str(tile).removeprefix('torch.')} tiles with float64 accumulation"
-    with pytest.raises(NotImplementedError, match=f"panel_factor: no CUDA kernel for {what}"):
-        ggr_panel._panel_factor_cuda(on_card(1, 64, 8), 0, "float64")
-    V = on_card(1, 64, 8)
-    with pytest.raises(NotImplementedError, match=f"apply_factors: no CUDA kernel for {what}"):
-        ggr_apply._apply_factors_cuda(V, V, on_card(1, 64, 16), 0, "float64", None)
-    assert not launches
+    # a frame whose slabs fit in shared memory at 4 bytes a value, not at 8
+    m, b = 65536, 64
+
+    def capacity(smem):
+        return 132 * min(8, _cuda.MAX_SMEM_BYTES // max(smem, 1))
+
+    assert ggr_panel._panel_blocks(m, b, 4, capacity) != ggr_panel._panel_blocks(
+        m, b, 8, capacity)
+    ggr_panel._panel_factor_cuda(on_card(1, m, b, dtype=torch.float64), 0, None)
+    *_, (_, _, f64_dims, _) = launches
+    launches.clear()
+    ggr_panel._panel_factor_cuda(on_card(1, m, b), 0, "float64")
+    *queries, (prefix, dtypes, dims, accum) = launches
+    assert queries and all(q[1:] == ([tile], q[2], "float64") for q in queries)
+    assert (prefix, dtypes, accum) == ("ggr_panel_factor", [tile] * 4 + [torch.float64],
+                                       "float64")
+    nblk, resident = dims[4], bool(dims[5])
+    assert (nblk, resident) == ggr_panel._panel_blocks(m, b, 8, capacity)
+    assert dims[:6] == f64_dims[:6] and dims[7] == f64_dims[7]  # same blocks and capacity
+    # the scratch: an f64 panel's, and the slabs (R holds the tile dtype)
+    assert dims[6] == ggr_panel._work_elems(m, b, nblk, resident, True) == (
+        f64_dims[6] + (0 if resident else m * b))
+
+    launches.clear()
+    V = on_card(1, 300, 16)
+    ggr_apply._apply_factors_cuda(V, V, on_card(1, 300, 40), 0, "float64", None)
+    (prefix, dtypes, dims, accum), = launches
+    assert (prefix, dtypes, accum) == ("ggr_apply_factors", [tile] * 4 + [torch.float64],
+                                       "float64")
 
 
 def test_a_mixed_panel_in_device_memory_keeps_its_slabs_in_the_scratch():
