@@ -40,7 +40,10 @@ Drives the port's main path on the card and checks it, phase by phase:
    casts from double run alone on tie values (``kernel_check.narrow_on_card``)
    against the plain versions' (``to_tile``); the library call is the f64
    QR (for B4 ``torch.ormqr`` with f64 ``torch.geqrf`` factors); the walls
-   of the uniform, mixed and wide cases are printed;
+   of the uniform, mixed and wide cases are printed.  B1 and B2 also run
+   with bf16 / f16 tiles summed at their own width at the same shapes,
+   held by the wide rule at ``kernel_check.NARROW_EQUAL`` with the same
+   control, and timed (the library call in f32);
 4. serving — ``QRServer(device="cuda")`` serves an 8192-request mix of all
    four kinds: a warm-up flush, then a timed one (req/s), cross-checked on a
    sample against the plain ``"reference"`` backend;
@@ -227,10 +230,24 @@ Drives the port's main path on the card and checks it, phase by phase:
    ones; (f) the bf16 / f16 stored appends and kalman steps served with
    f64 sums, each kind within 8 eps(t) of the same requests served in f64;
    (g) the fused schedule, ``"auto"``, B3 and B4 at (bfloat16, bfloat16)
-   and (float16, float16), the pairs no kernel takes, raise
+   and (float16, float16), the pairs B3 and B4 do not take, raise
    ``NotImplementedError`` naming both dtypes with no launch; every (shape,
    pair) of (e)-(f) held against the plain version
-   (``kernel_check.wide_accurate``), each pair's wall printed;
+   (``kernel_check.wide_accurate``), each pair's wall printed; (h) B1 and
+   B2 at ``Precision(t, t, t)``, t = bf16 and f16 (``narrow_phase``): (i)
+   the 4096^2 tree QR, R finite at t, its Gram residual at least
+   NARROW_GRAM x the mixed policy's of (c) at f16 (a reading at bf16,
+   where all-bf16 sums do not lose at that size) and on the reference
+   test's own 96 x 80 matrix at both, the QR of the leading 1024^2 block
+   within NARROW_BAND x the Gram residual of the same call on a CPU copy
+   (the plain versions, in a subprocess beside phases 3-4); (ii) the mix with
+   its append and kalman operands stored at t, served at (t, t) (req/s),
+   each kind's distance from (f)'s f64-served results on the append and
+   kalman requests among the first 512 within NARROW_BAND x the CPU
+   copy's; (iii) every (shape, pair) (i)-(ii) launched, held by the wide
+   rule at ``kernel_check.NARROW_EQUAL`` over WIDE_DRAWS draws, the (t,
+   float32) instance the control that must fail; every launch at (t, t),
+   none of B3 / B4;
 15. the dry run on the card's host (``repro_torch.launch.dryrun``; no CUDA
    work; its subprocesses start at phase 11's start, at nice MESH_NICE,
    and run on the host's cores beside phases 11 to 14) — (a) ``python -m
@@ -254,9 +271,9 @@ Drives the port's main path on the card and checks it, phase by phase:
    budget.  A run still going WATCHDOG_S s after its start stops itself
    (``watchdog``), naming its phase;
 16. a JSON line of per-kernel numbers (a row for each kernel's f32 / f64
-   instance, one for each of its bf16 / f16 instances and one for each of
-   its f64-summed instances), then the last line ``{"ok": true,
-   "device": {...}}``.
+   instance, one for each of its bf16 / f16 instances, one for each of its
+   f64-summed instances and one for each of B1's and B2's narrow
+   instances), then the last line ``{"ok": true, "device": {...}}``.
 
 A kernel's f32 reading over its bound against the f32 plain version is
 taken again against the plain version run in f64 on the same inputs
@@ -270,7 +287,7 @@ Launch counts are set to 0 just before the serving run, the dense run,
 phase 6, phase 7, phase 8, each call of phase 9 (in the ranks too), phase
 11, phase 12 (a), each training run of phase 12 (b)-(c), in the ranks
 of phase 13 before each mesh run (each step in (b)), and before each run
-of phase 14 (a)-(c) and (e)-(f), and read just after
+of phase 14 (a)-(c), (e)-(f) and (h) (i)-(ii), and read just after
 each; a route that does not launch its
 kernels fails the run.  Any failed check exits non-zero without printing the last
 line.  The script imports nothing of the JAX package.
@@ -414,6 +431,10 @@ PHASE3 += [(name, shape, param, dname, data, "float64") for dname in WIDE
            for name, shape, param, data in WIDE_SHAPES if name in FUSED]
 PHASE3 += [(name, shape, param, "float64") for name, shape, param, _ in WIDE_SHAPES
            if name in FUSED and (name, shape, param, "float64") not in PHASE3]
+# phase 3's narrow cases (B1 / B2 at bf16 / f16 tiles summed at their own
+# width) at the same shapes, held by the wide rule at NARROW_EQUAL
+PHASE3 += [(name, shape, param, dname, data, dname) for dname in MIXED
+           for name, shape, param, data in WIDE_SHAPES if name not in FUSED]
 SERVE_MAX_BATCH = 8192  # each request group of the 8192-request mix is one chunk
 FAILURES: list[str] = []
 # phase 6's sketch least squares: the tall system, its spectrum and the oracle
@@ -496,6 +517,18 @@ def tree_tiles(B: int, b: int, gen, dtype, conditioned: bool = False):
     return torch.cat([pan, eye], 2).contiguous()
 
 
+def ladder_adds(n: int, L: int, cols: int) -> int:
+    """The adds a narrow instance's ladders do in one column step of n
+    active rows beyond a serial suffix sum's n - 1 a column, in a ladder of
+    length L (past the rows only zeros are added, not counted), for
+    ``cols`` columns (the swept columns and the squares)."""
+    ladder, d = 0, 1
+    while d < min(n, L):
+        ladder += n - d
+        d *= 2
+    return cols * max(0, ladder - (n - 1))
+
+
 def bound(nbytes: float, dtype_name: str, flops: float):
     """(bound_ms, bound_by): the bytes the function must move (each input
     read once, each output written once) over HBM bandwidth, vs the
@@ -536,20 +569,23 @@ class KernelCase:
         self.dname = str(dtype).removeprefix("torch.")
         self.accum = accum or kc.ACCUM[self.dname]
         self.wide = self.accum == "float64" and self.dname != "float64"
+        # a bf16 / f16 tile summed at its own width (B1, B2)
+        self.narrow = self.accum == self.dname and self.dname in MIXED
         self.mixed = self.accum != self.dname and not self.wide
         cond = self.dname in MIXED  # a 2-byte tile: conditioned data
         # the kernel wrappers' policy: None (the tile dtype throughout), the
-        # named mixed policy of the tile dtype, whose sums are f32, or the
-        # tile with f64 sums
+        # named mixed policy of the tile dtype, whose sums are f32, the tile
+        # with f64 sums, or the tile summed at its own width
         self.prec = prec = (self.dname if self.mixed else
-                            Precision(self.dname, "float64", self.dname) if self.wide
-                            else None)
-        ad = self.accum if (self.mixed or self.wide) else None
+                            Precision(self.dname, self.accum, self.dname)
+                            if self.wide or self.narrow else None)
+        ad = self.accum if (self.mixed or self.wide or self.narrow) else None
         # the control of a wide case: the same inputs through the (tile,
         # float32) instance, a kernel that sums in f32
         ctrl = Precision(self.dname, "float32", self.dname)
         size = _itemsize(self.dname)
-        csize = _itemsize(self.accum)  # the layout holds the sums' dtype
+        # the layout holds the sums' dtype; a narrow instance's are floats
+        csize = 4 if self.narrow else _itemsize(self.accum)
         B, m, w = shape
         x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
         if name == "batched_update":
@@ -564,10 +600,12 @@ class KernelCase:
             # R of the stacked matrix (same top n_piv rows up to signs; at the
             # tree-coupling shape it also triangularizes the riding columns)
             self.library = lambda: torch.linalg.qr(self.lib_x, mode="r")
-            self.flops = update_flops(shape, n_piv)
+            self.flops = update_flops(shape, n_piv) + (
+                sum(ladder_adds(m - n_piv + 1, m - n_piv + 1, w - c)
+                    for c in range(n_piv)) * B if self.narrow else 0)
             self.nbytes = 2.0 * B * m * w * size
             self.note = (", layout (G, PB, ws, nbuf) "
-                         f"{ggr_update._update_layout(m, w, n_piv, csize)}")
+                         f"{ggr_update._update_layout(m, w, n_piv, csize, self.narrow)}")
         elif name == "batched_geqrt":
             n_piv = param
             if data == "tree":
@@ -580,9 +618,12 @@ class KernelCase:
             plain = lambda z, a=ad: ggr_panel.batched_geqrt_plain(z, n_piv, a)  # noqa: E731
             # Q and R of the tile's pivot columns: [R | Qt] up to signs
             self.library = lambda: torch.linalg.qr(self.lib_x[:, :, :n_piv])
-            self.flops = geqrt_flops(shape, n_piv)
+            self.flops = geqrt_flops(shape, n_piv) + (
+                sum(ladder_adds(m - c, m, w - c) for c in range(min(n_piv, m))) * B
+                if self.narrow else 0)
             self.nbytes = 2.0 * B * m * w * size
-            self.note = f", layout (G, ws) {ggr_panel._geqrt_layout(m, w, csize)}"
+            self.note = (f", layout (G, ws) "
+                         f"{ggr_panel._geqrt_layout(m, w, csize, self.narrow)}")
         elif name == "panel_factor":
             pivot0 = param
             if cond:
@@ -621,8 +662,10 @@ class KernelCase:
             self.flops = apply_flops(shape, b, pivot0)
             self.nbytes = (2.0 * m * w + 2.0 * m * b) * B * size  # C in/out, V, T
         self.x = x
-        # the library call's inputs: f32 for a mixed case, f64 for a wide one
-        self.lib_of = lambda z: z.float() if self.mixed else z.double() if self.wide else z
+        # the library call's inputs: f32 for a mixed or a narrow case, f64 for a
+        # wide one
+        self.lib_of = lambda z: (z.float() if self.mixed or self.narrow else
+                                 z.double() if self.wide else z)
         self.lib_x = self.lib_of(x)
         self.kernel = lambda: self.fn(x)
         self.plain_of = plain  # the plain version of any inputs z of the case's kind
@@ -631,18 +674,19 @@ class KernelCase:
         # a mixed case's f32 plain version rounded once, at the end, to the
         # tile dtype: what a kernel that kept the state in f32 would give
         self.once = lambda: tuple(o.to(dtype) for o in _as_outputs(plain(x.float(), None)))
-        self.rel_tol = (kc.wide_bound(name, m, w, self.dname) if self.wide
+        self.rel_tol = (kc.wide_bound(name, m, w, self.dname) if self.wide or self.narrow
                         else kc.rel_bound(name, m, w, self.dname))
 
     @property
     def pair(self) -> str:
-        """'uniform', or the tile dtype's name and the sums' for a mixed or
-        a wide case."""
-        return f"{self.dname}/{self.accum}" if self.mixed or self.wide else "uniform"
+        """'uniform', or the tile dtype's name and the sums' for a mixed, a
+        wide or a narrow case."""
+        return (f"{self.dname}/{self.accum}" if self.mixed or self.wide or self.narrow
+                else "uniform")
 
     def label(self) -> str:
         data = "" if self.data == "random" else f" {self.data} data"
-        acc = f"/{self.accum}" if self.mixed or self.wide else ""
+        acc = f"/{self.accum}" if self.mixed or self.wide or self.narrow else ""
         return f"{self.name} {self.shape} {self.dname}{acc} param={self.param}{data}"
 
     def compare(self, quiet: bool = False) -> float:
@@ -656,7 +700,7 @@ class KernelCase:
 
         from repro_torch.testing import kernel_check as kc
 
-        if self.wide:
+        if self.wide or self.narrow:
             return self.compare_wide(quiet)
         out, ref = self.kernel(), self.plain()
         outs, refs = _as_outputs(out), _as_outputs(ref)
@@ -765,9 +809,9 @@ class KernelCase:
                       quiet=True)
         # a recheck (one draw, maybe of a few problems) holds the accuracy;
         # the share is a statistic of many problems (phase 3's draws)
-        held = (kc.wide_accurate if quiet else kc.wide_held)(self.name, m, w, self.dname,
-                                                             reads)
-        fooled = bool(ctrl) and kc.wide_held(self.name, m, w, self.dname, ctrl)
+        held = (kc.wide_accurate(self.name, m, w, self.dname, reads) if quiet else
+                kc.wide_held(self.name, m, w, self.dname, reads, self.accum))
+        fooled = bool(ctrl) and kc.wide_held(self.name, m, w, self.dname, ctrl, self.accum)
         self.rel, self.old = max(r for _, r in reads), float("inf")
         self.readings = {"share": [sh for sh, _ in reads], "rel": [r for _, r in reads],
                          "control_share": [sh for sh, _ in ctrl],
@@ -775,7 +819,7 @@ class KernelCase:
         ok = ok and held and not fooled
         shares = self.readings["share"]
         parts = "each output" if self.dname == "float32" else "the determined parts"
-        limit = "a reading" if quiet else f">= {kc.WIDE_EQUAL[self.dname]:g}"
+        limit = "a reading" if quiet else f">= {kc.equal_limit(self.dname, self.accum):g}"
         note = (f"{draws} draw(s): share of entries bitwise equal to the plain version "
                 f"{statistics.fmean(shares):.7f} ({limit}; least draw {min(shares):.7f}), "
                 f"max|err| / rms of {parts} worst {self.rel:.2e} (<= {self.rel_tol:.1e})")
@@ -876,7 +920,7 @@ class KernelCase:
         plain_ms = cuda_ms(self.plain, reps=1)  # 14 ms to 1.4 s a call: one is enough
         library_ms = cuda_ms(self.library, reps=5)
         bound_ms, bound_by = bound(self.nbytes, self.accum, self.flops)
-        lib = (" (f32, the same inputs)" if self.mixed else
+        lib = (" (f32, the same inputs)" if self.mixed or self.narrow else
                " (f64, the same inputs)" if self.wide else "")
         print(f"  {self.label()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})"
@@ -980,15 +1024,17 @@ def wall_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def start_cli(name: str, argv: list) -> tuple:
-    """``python -m argv`` as a subprocess, its output into files under
-    build/smoke_cli; returns the handle ``wait_cli`` takes."""
+def start_cli(name: str, argv: list, module: bool = True) -> tuple:
+    """``python -m argv`` (``python argv`` unless ``module``) as a
+    subprocess, its output into files under build/smoke_cli; returns the
+    handle ``wait_cli`` takes."""
     import threading
 
     env = dict(os.environ, PYTHONPATH=str(SRC))
     CLI_DIR.mkdir(parents=True, exist_ok=True)
     with open(CLI_DIR / f"{name}.out", "w") as fo, open(CLI_DIR / f"{name}.err", "w") as fe:
-        proc = subprocess.Popen([sys.executable, "-m", *argv], stdout=fo, stderr=fe, env=env)
+        proc = subprocess.Popen([sys.executable, *(["-m"] if module else []), *argv],
+                                stdout=fo, stderr=fe, env=env)
     ended = []  # when it ended, seen by a thread that waits for it
 
     def watch():
@@ -3331,6 +3377,23 @@ def stored_mix(reqs, dtype):
             for r in reqs]
 
 
+def served_errors(reqs, got, ref) -> dict:
+    """'kind n_out:i' -> relative Frobenius distance of the results ``got``
+    from ``ref`` (each a list of result tuples, request by request)."""
+    import torch
+
+    groups, errs = {}, {}
+    for r, a, b in zip(reqs, got, ref):
+        groups.setdefault((r[0], len(a)), []).append((a, b))
+    for (kind, n_out), pairs in sorted(groups.items()):
+        for i in range(n_out):
+            X = torch.stack([a[i] for a, _ in pairs]).double()
+            Y = torch.stack([b[i] for _, b in pairs]).double()
+            errs[f"{kind} {n_out}:{i}"] = float(torch.linalg.norm(X - Y)
+                                                / torch.linalg.norm(Y))
+    return errs
+
+
 def mixed_phase(kernels, card: str, reqs, f32_req_s: float, M, dense_ms: dict,
                 gen) -> dict:
     """Phase 14, mixed precision on the main path: (a) the serving mix with
@@ -3517,9 +3580,9 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
     fused run; (f) the mix's appends and kalman steps stored in bf16 / f16,
     served by ``QRServer(precision=Precision(t, "float64", t))``, each
     kind's results within SERVE_EPS eps(t) (relative Frobenius) of the same
-    requests served in f64; (g) the pairs no kernel takes, bf16 / f16 tiles
-    summed at their own width: the fused schedule, ``"auto"``, B3 and B4
-    raise ``NotImplementedError`` naming both dtypes, with no launch; then
+    requests served in f64; (g) the pairs B3 and B4 do not take, bf16 / f16
+    tiles summed at their own width: the fused schedule, ``"auto"``, B3 and
+    B4 raise ``NotImplementedError`` naming both dtypes, with no launch; then
     every (shape, pair) (e)-(f) launched, held against the plain version on
     fresh inputs (``kernel_check.wide_accurate``).  The counts are set to 0
     just before each run of (e)-(f) and read just after it; every launch
@@ -3616,34 +3679,28 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
         dtype = getattr(torch, dname)
         sreqs = [r for r in stored_mix(reqs, dtype) if r[0] in kinds]
         ref, _ = serve(stored_mix(sreqs, torch.float64))  # the same values, in f64
+        out.setdefault("served64", {})[dname] = (sreqs, ref)  # for phase 14 (h)
         prec = Precision(dname, "float64", dname)
         serve(sreqs, prec)  # warm-up flush
         (got, req_s), launches = counted(dname, f"(f) ({dname}, float64) flush",
                                          lambda: serve(sreqs, prec))
         out["req_s"][dname] = req_s
         eps = dtype_eps(dname)
-        rels, groups = {}, {}
-        for r, a, b in zip(sreqs, got, ref):
-            groups.setdefault((r[0], len(a)), []).append((a, b))
-        for (kind, n_out), pairs in sorted(groups.items()):
-            for i in range(n_out):
-                X = torch.stack([a[i] for a, _ in pairs]).double()
-                Y = torch.stack([b[i] for _, b in pairs]).double()
-                key = f"{kind} {n_out}:{i}"
-                rels[key] = float(torch.linalg.norm(X - Y) / torch.linalg.norm(Y))
-                ok_dtype = all(a[i].dtype == dtype for a, _ in pairs)
-                check(ok_dtype and rels[key] <= SERVE_EPS * eps,
-                      f"(f) {dname} {kind} ({len(pairs)} requests, output {i} of {n_out}) "
-                      f"served at ({dname}, float64): at {dname}, within "
-                      f"{rels[key] / eps:.3f} eps of the f64-served results "
-                      f"(relative Frobenius, <= {SERVE_EPS:g} eps)")
+        rels = served_errors(sreqs, got, ref)
+        ok_dtype = all(x.dtype == dtype for a in got for x in a)
+        for key, rel in rels.items():
+            check(ok_dtype and rel <= SERVE_EPS * eps,
+                  f"(f) {dname} {key} ({len(sreqs)} requests) served at ({dname}, float64): "
+                  f"at {dname}, within {rel / eps:.3f} eps of the f64-served results "
+                  f"(relative Frobenius, <= {SERVE_EPS:g} eps)")
         out["serve_rel"][dname] = rels
         check(launches["batched_update"] > 0,
               f"(f) ({dname}, float64) flush of {len(sreqs)} appends / kalman steps: "
               f"{req_s:.1f} req/s ({card}), launches {launches}")
     out["wall_s"]["f"] = time.perf_counter() - t0
 
-    # (g) the pairs no kernel takes: bf16 / f16 tiles summed at their own width
+    # (g) the pairs B3 and B4 do not take: bf16 / f16 tiles summed at their own
+    # width (B1 and B2 take them: phase 14 (h))
     t0 = time.perf_counter()
     for dname in MIXED:
         prec = Precision(dname, dname, dname)
@@ -3689,6 +3746,268 @@ def wide_phase(kernels, card: str, reqs, M, dense_ms: dict, gen) -> dict:
         f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
     return out
 
+
+# ------------------------------------------------------------ phase 14 (h)
+# B1 and B2 at bf16 / f16 tiles summed at their own width: the tree QR's
+# Gram residual at least NARROW_GRAM x the mixed policy's on the same matrix
+# (the reference's tests/test_precision.py::test_mixed_accumulation_beats_all_bf16,
+# on its own 96 x 80 matrix at both dtypes and on phase 5's 4096^2 matrix
+# where the all-tile sums lose to the f32 ones there: f16), and each
+# reading on the card within NARROW_BAND x the same call's on a CPU copy
+# (the plain versions): the QR at NARROW_QR_N^2, the served results on the
+# append and kalman requests among the mix's first NARROW_SERVED
+NARROW_GRAM = 1.5
+NARROW_BAND = (0.5, 2.0)
+NARROW_QR_N, NARROW_SERVED = 1024, 512
+NARROW_DIR = ROOT / "build" / "smoke_narrow"
+# the CPU copies run beside phases 3-4 on NARROW_THREADS cores at the
+# lowest priority, so they hold back no phase
+NARROW_THREADS, NARROW_NICE = 4, 19
+# the dtypes whose 4096^2 tree QR discriminates the sums' width: at bf16 the
+# all-bf16 sums do not lose to f32 ones at that size (the JAX package on a
+# CPU, tools/ref_gram.py on a Gaussian matrix: 1.274x the mixed policy's
+# Gram residual at 1024^2, 0.887x at 2048^2; the port on the card,
+# tools/mixed_gram.py --accum tile; PERF.md §6)
+NARROW_GRAM_4096 = ("float16",)
+
+
+def gram_torch(A64, R) -> float:
+    """``testing.gram_residual`` in torch, on A64's device (the card's f64
+    GEMMs): ||AᵀA - RᵀR||_F / ||AᵀA||_F in f64, R's upper triangle."""
+    import torch
+
+    R = torch.triu(R.double())
+    AtA = A64.T @ A64
+    return float(torch.linalg.norm(AtA - R.T @ R) / torch.linalg.norm(AtA))
+
+
+def narrow_cpu(out_path: str) -> None:
+    """Phase 14 (h)'s CPU copies, in a subprocess beside phases 3-4: the tree
+    QR of NARROW_DIR/m.pt (phase 5's matrix, its leading NARROW_QR_N^2
+    block) at Precision(t, t, t), and the append and kalman requests among
+    the first NARROW_SERVED of the mix stored at t, served at the pair and
+    in f64; writes each reading as JSON to ``out_path``."""
+    import torch
+
+    from repro_torch.core import ggr_qr_blocked
+    from repro_torch.kernels import Precision
+    from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all, make_workload
+
+    os.nice(NARROW_NICE)
+    torch.set_num_threads(NARROW_THREADS)
+    M = torch.load(NARROW_DIR / "m.pt")
+    reqs = [r for r in make_workload(num=NARROW_SERVED, n=32, rows=8, k=1, device="cpu")
+            if r[0] in ("append", "kalman")]
+
+    def serve(sreqs, precision=None):
+        srv = QRServer(device="cpu", max_batch=SERVE_MAX_BATCH, precision=precision)
+        tickets = _submit_all(srv, sreqs)
+        srv.flush()
+        srv.drain()
+        return [_as_tuple(srv.result(t)) for t in tickets]
+
+    memo = {}  # a fleet-shared model stays one tensor, so the executor broadcasts it
+
+    def cast(r, dtype):
+        def one(x):
+            if (id(x), dtype) not in memo:
+                memo[(id(x), dtype)] = torch.as_tensor(x).to(dtype)
+            return memo[(id(x), dtype)]
+        return (r[0], *map(one, r[1:]))
+
+    out = {}
+    for dname in MIXED:
+        dtype, prec = getattr(torch, dname), Precision(dname, dname, dname)
+        R = ggr_qr_blocked(M, schedule="tree", precision=prec)
+        out[f"{dname} gram"] = gram_torch(M.double(), R)
+        sreqs = [cast(r, dtype) for r in reqs]
+        out[f"{dname} served"] = served_errors(
+            sreqs, serve(sreqs, prec), serve([cast(r, torch.float64) for r in sreqs]))
+    Path(out_path).write_text(json.dumps(out))
+
+
+def narrow_cpu_start(M) -> tuple:
+    """Start ``narrow_cpu`` on the leading NARROW_QR_N^2 block of the card
+    matrix ``M``; returns the handle ``narrow_phase`` waits on."""
+    import torch
+
+    NARROW_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(M[:NARROW_QR_N, :NARROW_QR_N].cpu().clone(), NARROW_DIR / "m.pt")
+    out = NARROW_DIR / "cpu.json"
+    out.unlink(missing_ok=True)
+    code = (f"import sys; sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]; "
+            f"import chip_smoke; chip_smoke.narrow_cpu({str(out)!r})")
+    return start_cli("narrow_cpu", ["-c", code], module=False), out
+
+
+def narrow_phase(kernels, card: str, reqs, M, mixed: dict, served64: dict, cpu: tuple,
+                 gen) -> dict:
+    """Phase 14 (h), B1 and B2 at bf16 / f16 tiles summed at their own width
+    (``Precision(t, t, t)``), t = bf16 then f16: (i) ``ggr_qr_blocked`` of
+    phase 5's 4096^2 matrix under the tree schedule, R finite at t, its
+    Gram residual at least NARROW_GRAM x the mixed policy's (phase 14 (c))
+    for the dtypes of NARROW_GRAM_4096, and the same discrimination on the
+    reference test's own 96 x 80 matrix at both; the QR of the leading
+    NARROW_QR_N^2 block within NARROW_BAND x the CPU copy's Gram residual;
+    (ii) the mix, its append and kalman operands stored at t, served by
+    ``QRServer(precision=Precision(t, t, t))`` (a warm-up flush, then a
+    timed one): each kind's relative distance from the same requests served
+    in f64 (``served64``, phase 14 (f)), on the append and kalman requests
+    among the first NARROW_SERVED, within NARROW_BAND x the CPU copy's;
+    (iii) every (shape, pair) (i)-(ii) launched, held by the wide rule at
+    ``kernel_check.NARROW_EQUAL`` over WIDE_DRAWS draws with the (t,
+    float32) instance as the control that must fail it.  The counts are set
+    to 0 just before each run of (i)-(ii) and read just after it; every
+    launch must be at (t, t), and only B1 and B2 launch.  Only the 4096^2
+    QR's and the timed flush's launches are the main path's (``launches``);
+    the 96 x 80 and NARROW_QR_N^2 runs add their shapes to (iii) alone."""
+    import torch
+
+    from repro_torch.core import ggr_qr_blocked
+    from repro_torch.kernels import Precision
+    from repro_torch.launch.serve_qr import QRServer, _as_tuple, _submit_all
+    from repro_torch.testing import graded_matrix
+
+    t_phase = time.perf_counter()
+    out = {"wall_s": {}, "req_s": {}, "gram": {}, "served": {}, "qr_ms": {},
+           "launches": {d: {k: 0 for k in kernels} for d in MIXED},
+           "shapes": {d: {k: set() for k in kernels} for d in MIXED}}
+    tree = ("batched_geqrt", "batched_update")
+
+    def counted(dname: str, what: str, fn, tally: bool = True):
+        # tally=False: a run off the main path (the reference test's matrix,
+        # the leading block); (iii) rechecks its shapes, but its launches
+        # are not the main path's
+        _zero_counts(kernels)
+        res = fn()
+        torch.cuda.synchronize()
+        launches, shapes = _counts(kernels)
+        for k in kernels:
+            out["launches"][dname][k] += launches[k] if tally else 0
+            out["shapes"][dname][k] |= shapes[k]
+        pairs = {(str(sh[2]).removeprefix("torch."), sh[3])
+                 for recs in shapes.values() for sh in recs}
+        check(pairs <= {(dname, dname)} and all(launches[k] == 0 for k in FUSED),
+              f"{what}: every launch at ({dname}, {dname}), none of B3 / B4: "
+              f"{sorted(pairs)}, {launches}", quiet=True)
+        return res, launches
+
+    t0 = time.perf_counter()
+    rc, cpu_out, cpu_err, cpu_s = wait_cli(cpu[0], WATCHDOG_S)
+    check(rc == 0, f"(h) the CPU copies ran (exit {rc}, {cpu_s:.1f} s): {cpu_err[-300:]!r}")
+    ref_cpu = json.loads(cpu[1].read_text()) if rc == 0 else {}
+    out["wall_s"]["cpu wait"] = time.perf_counter() - t0
+
+    m, n = M.shape
+    M64 = M.double()
+    G = torch.from_numpy(graded_matrix(96, 80, 1.0, seed=7)).float().cuda()
+    for dname in MIXED:
+        prec = Precision(dname, dname, dname)
+        dtype = getattr(torch, dname)
+        # (i) the tree QR at 4096^2, its Gram residual beside the mixed policy's
+        t0 = time.perf_counter()
+        R, launches = counted(dname, f"(h)(i) tree qr at ({dname}, {dname})",
+                              lambda: ggr_qr_blocked(M, schedule="tree", precision=prec))
+        gram = gram_torch(M64, R)
+        gram_mixed = mixed["qr"][f"{dname} tree"]["gram_residual"]
+        out["gram"][f"{dname} {m}"] = gram
+        held = dname in NARROW_GRAM_4096
+        check(R.dtype == dtype and bool(R.isfinite().all())
+              and all(launches[k] > 0 for k in tree)
+              and (not held or gram >= NARROW_GRAM * gram_mixed),
+              f"(h)(i) tree qr {m}x{n} at ({dname}, {dname}): R finite at {R.dtype}, "
+              f"launches {launches}; Gram residual {gram:.4e}, {gram / gram_mixed:.3f}x the "
+              f"mixed policy's {gram_mixed:.4e} ("
+              + (f">= {NARROW_GRAM:g}x" if held else "a reading: at bf16 the all-bf16 "
+                 "sums do not lose to f32 ones at this size") + ")")
+        ms = cuda_ms(lambda: ggr_qr_blocked(M, schedule="tree", precision=prec), reps=2)
+        out["qr_ms"][f"{dname} tree"] = ms
+        print(f"  (h)(i) tree qr {m}x{n} at ({dname}, {dname}): {ms:.2f} ms (phase 14 (c) "
+              f"mixed {mixed['qr_ms'][f'{dname} tree']:.2f} ms; {card})")
+        # the reference test's own matrix, on the card
+        g_n, _ = counted(dname, "(h)(i) the reference test's 96 x 80 QR",
+                         lambda: gram_torch(G.double(), ggr_qr_blocked(
+                             G, schedule="tree", precision=prec)), tally=False)
+        g_m = gram_torch(G.double(), ggr_qr_blocked(
+            G, schedule="tree", precision=Precision(dname, "float32", dname)))
+        out["gram"][f"{dname} 96x80"] = [g_n, g_m]
+        check(g_n >= NARROW_GRAM * g_m,
+              f"(h)(i) the reference test's graded 96 x 80 matrix (seed 7) at ({dname}, "
+              f"{dname}): Gram residual {g_n:.4e}, {g_n / g_m:.3f}x the ({dname}, float32) "
+              f"policy's {g_m:.4e} (>= {NARROW_GRAM:g}x)")
+        # the leading block, beside the CPU copy's plain versions
+        R, _ = counted(dname, f"(h)(i) tree qr {NARROW_QR_N}^2",
+                       lambda: ggr_qr_blocked(M[:NARROW_QR_N, :NARROW_QR_N], schedule="tree",
+                                              precision=prec), tally=False)
+        g_card = gram_torch(M64[:NARROW_QR_N, :NARROW_QR_N], R)
+        g_cpu = ref_cpu.get(f"{dname} gram", float("nan"))
+        out["gram"][f"{dname} {NARROW_QR_N}"] = [g_card, g_cpu]
+        check(NARROW_BAND[0] <= g_card / g_cpu <= NARROW_BAND[1],
+              f"(h)(i) tree qr {NARROW_QR_N}^2 at ({dname}, {dname}): Gram residual "
+              f"{g_card:.4e} on the card, {g_cpu:.4e} on a CPU copy (the plain versions), "
+              f"{g_card / g_cpu:.3f}x (within {NARROW_BAND[0]:g}-{NARROW_BAND[1]:g})")
+        del R
+        out["wall_s"][f"{dname} i"] = time.perf_counter() - t0
+
+        # (ii) the mix stored at t, served at (t, t)
+        t0 = time.perf_counter()
+        sreqs = stored_mix(reqs, dtype)
+        srv = QRServer(device="cuda", max_batch=SERVE_MAX_BATCH, precision=prec)
+        _submit_all(srv, sreqs)  # warm-up flush
+        srv.flush()
+        srv.drain()
+        tickets = _submit_all(srv, sreqs)
+
+        def timed_flush():
+            t1 = time.perf_counter()
+            served = srv.flush()
+            srv.drain()
+            return served, time.perf_counter() - t1
+
+        (served, dt), launches = counted(dname, f"(h)(ii) ({dname}, {dname}) flush",
+                                         timed_flush)
+        out["req_s"][dname] = served / dt
+        check(served == len(reqs) and launches["batched_update"] > 0,
+              f"(h)(ii) ({dname}, {dname}): served {served} requests (appends and kalman "
+              f"steps stored in {dname}) in {dt * 1e3:.2f} ms: {served / dt:.1f} req/s "
+              f"({card}); launches {launches}")
+        first = [i for i, r in enumerate(reqs[:NARROW_SERVED]) if r[0] in ("append", "kalman")]
+        _, ref64 = served64[dname]
+        got = [_as_tuple(srv.result(tickets[i])) for i in first]
+        errs = served_errors([sreqs[i] for i in first], got, ref64[:len(first)])
+        cpu_errs = ref_cpu.get(f"{dname} served", {})
+        out["served"][dname] = {k: [v, cpu_errs.get(k)] for k, v in errs.items()}
+        for key, e in errs.items():
+            c = cpu_errs.get(key, float("nan"))
+            check(NARROW_BAND[0] <= e / c <= NARROW_BAND[1],
+                  f"(h)(ii) {dname} {key} ({len(first)} requests, the append and kalman "
+                  f"among the first {NARROW_SERVED}): {e:.4e} from the f64-served results "
+                  f"on the card, {c:.4e} on a CPU copy, {e / c:.3f}x (within "
+                  f"{NARROW_BAND[0]:g}-{NARROW_BAND[1]:g})")
+        del srv, tickets, got, sreqs
+        out["wall_s"][f"{dname} ii"] = time.perf_counter() - t0
+
+    # (iii) every (shape, pair) (i)-(ii) launched, by the wide rule
+    t0 = time.perf_counter()
+    out["worst"] = {d: {} for d in MIXED}
+    for dname in MIXED:
+        for name, shapes in out["shapes"][dname].items():
+            for shape, param, dtype, accum in sorted(shapes, key=str):
+                case = KernelCase(name, shape, param, dtype, gen, accum=accum)
+                out["worst"][dname][name] = max(out["worst"][dname].get(name, 0.0),
+                                                case.compare())
+    n_shapes = sum(len(v) for d in MIXED for v in out["shapes"][d].values())
+    print(f"  (h)(iii) {n_shapes} (shape, pair) launches held by the wide rule at "
+          f"NARROW_EQUAL ({time.perf_counter() - t0:.1f} s); worst errors {out['worst']}")
+    out["wall_s"]["iii"] = time.perf_counter() - t0
+    for dname in MIXED:
+        check(all(out["launches"][dname][k] > 0 for k in tree),
+              f"phase 14 (h) launched B1 and B2 at ({dname}, {dname}): "
+              f"{out['launches'][dname]}")
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 14 (h) wall {out['wall_s']['phase']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["wall_s"].items() if k != "phase") + ")")
+    return out
 
 # ------------------------------------------------------------ phase 15
 # the dry run's cells on a fake 16x16 mesh of 256 ranks, on the card's host:
@@ -3894,12 +4213,22 @@ def _descendants(pid: int) -> list:
     return out
 
 
+def stop_children() -> None:
+    """Kill every process the run started that still runs."""
+    import signal
+
+    for pid in _descendants(os.getpid()):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+
 def watchdog() -> None:
     """Stop the run ``WATCHDOG_S`` seconds after its start: the phase it is
     in and every thread's stack go to stderr, every process it started is
     killed, and it exits 3 without printing the last line."""
     import faulthandler
-    import signal
     import threading
 
     def stop():
@@ -3907,11 +4236,7 @@ def watchdog() -> None:
               f"start, in phase {_PHASE[0]!r}: stopping (every thread's stack follows)",
               file=sys.stderr, flush=True)
         faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
-        for pid in _descendants(os.getpid()):
-            try:
-                os.kill(pid, signal.SIGKILL)
-            except OSError:
-                pass
+        stop_children()
         sys.stderr.flush()
         os._exit(3)
 
@@ -3973,6 +4298,13 @@ def main() -> int:
         for line in log.strip().splitlines():
             print(f"    {line}")
 
+    # phase 5's inputs, drawn now: phase 14 (h)'s CPU copies of M's leading
+    # block run beside phases 3-4, whose host work is one thread
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dense_in = [torch.randn(s, generator=g, device="cuda", dtype=torch.float32)
+                for s in ((8192, 1024), (8192, 4), (4096, 4096))]
+    narrow_cpu = narrow_cpu_start(dense_in[2])
+
     # ------------------------------------------------------------ phase 3
     phase("3. kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3991,7 +4323,8 @@ def main() -> int:
         if was is not None:
             print(f"    PERF.md §6 table: {was:.4f} ms; this run {t['ms']:.4f} ms "
                   f"({t['ms'] / was:.2f}x)")
-        kind = ("wide" if case.wide else "mixed" if case.mixed else "uniform",
+        kind = ("wide" if case.wide else "narrow" if case.narrow else
+                "mixed" if case.mixed else "uniform",
                 "B3/B4" if case.name in FUSED else "B1/B2")
         walls[kind] = walls.get(kind, 0.0) + time.perf_counter() - t0
     print("  phase 3 walls (checks and timings): " + ", ".join(
@@ -4070,11 +4403,8 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 5
     phase("5. dense")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    f32 = torch.float32
-    A = torch.randn((8192, 1024), generator=g, device="cuda", dtype=f32)
-    b = torch.randn((8192, 4), generator=g, device="cuda", dtype=f32)
-    M = torch.randn((4096, 4096), generator=g, device="cuda", dtype=f32)
+    A, b, M = dense_in
+    del dense_in
 
     def tree_lstsq():
         with degraded_mode(schedule="tree"):
@@ -4223,6 +4553,8 @@ def main() -> int:
     phase("14. mixed precision on the main path")
     mixed = mixed_phase(kernels, card, reqs, req_s, M, dense_ms, gen)
     wide = wide_phase(kernels, card, reqs, M, dense_ms, gen)
+    narrow = narrow_phase(kernels, card, reqs, M, mixed, wide.pop("served64"), narrow_cpu,
+                          gen)
 
     # ------------------------------------------------------------ phase 15
     phase("15. the dry run on the card's host")
@@ -4290,6 +4622,21 @@ def main() -> int:
                 "shape": list(shape), "dtype": dname, "accum_dtype": "float64",
                 "library_dtype": "float64",
             })
+    for dname in MIXED:  # B1's and B2's narrow instances at the same shapes
+        for name in ("batched_update", "batched_geqrt"):
+            shape = headline[name][1]
+            t = timed[(name, shape, dname, dname, "random")]
+            rows_out.append({
+                "name": f"{name}_{_cuda.suffix(getattr(torch, dname))}",
+                "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+                "launches": narrow["launches"][dname][name],
+                "max_abs_err": max(worst[(name, f"{dname}/{dname}")],
+                                   narrow["worst"][dname].get(name, 0.0)),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": list(shape), "dtype": dname, "accum_dtype": dname,
+                "library_dtype": "float32",
+            })
     for (name, shape, dname, accum, data), t in timed.items():
         print(f"  {name} {shape} {dname}/{accum} {data}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -4307,6 +4654,8 @@ def main() -> int:
     print(f"  phase 14: {json.dumps({k: v for k, v in mixed.items() if k != 'shapes'})}")
     print(f"  phase 14 (e)-(g): "
           f"{json.dumps({k: v for k, v in wide.items() if k != 'shapes'})}")
+    print(f"  phase 14 (h): "
+          f"{json.dumps({k: v for k, v in narrow.items() if k != 'shapes'})}")
     print(f"  phase 15: {json.dumps(dry)}")
     if FAILURES:
         print(f"\nchip_smoke.py: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -4322,4 +4671,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        stop_children()  # the subprocesses that run beside the phases
+        raise
+    sys.exit(rc)

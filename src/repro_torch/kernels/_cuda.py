@@ -39,16 +39,23 @@ MAX_THREADS = 1024
 
 PTXAS_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas report of its build
 BUILD_S: dict[str, float] = {}  # source name -> seconds its nvcc ran (all start together)
-# (tile dtype, accumulation dtype) -> the C functions' suffix, the same in
-# every source: the uniform instances, the two named mixed policies (bf16 /
-# f16 tiles, f32 sums) and the wide pairs (f32 / bf16 / f16 tiles, f64 sums)
+# (tile dtype, accumulation dtype) -> the C functions' suffix: the uniform
+# instances, the two named mixed policies (bf16 / f16 tiles, f32 sums), the
+# wide pairs (f32 / bf16 / f16 tiles, f64 sums) and the narrow pairs (bf16 /
+# f16 tiles summed at their own width)
 _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.float64, torch.float64): "f64",
            (torch.bfloat16, torch.float32): "bf16_f32",
            (torch.float16, torch.float32): "f16_f32",
            (torch.float32, torch.float64): "f32_f64",
            (torch.bfloat16, torch.float64): "bf16_f64",
-           (torch.float16, torch.float64): "f16_f64"}
+           (torch.float16, torch.float64): "f16_f64",
+           (torch.bfloat16, torch.bfloat16): "bf16",
+           (torch.float16, torch.float16): "f16"}
+# the pairs only some sources take -> those sources; every other pair is in
+# every source
+_ONLY = {(torch.bfloat16, torch.bfloat16): ("ggr_update", "ggr_panel"),
+         (torch.float16, torch.float16): ("ggr_update", "ggr_panel")}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _INT_MAX = 2**31 - 1
 
@@ -128,24 +135,29 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def suffix(tile, accum=None) -> str:
+def suffix(tile, accum=None, source: str | None = None) -> str:
     """The suffix of the C functions for ``tile`` dtype tiles accumulating
-    at ``accum`` (a torch dtype or its name; None: the tile dtype itself):
-    ``"f32"``, ``"f64"``, ``"bf16_f32"``, ``"f16_f32"``, ``"f32_f64"``,
-    ``"bf16_f64"``, ``"f16_f64"``.  Raises ``NotImplementedError`` naming
-    both dtypes for any other pair."""
+    at ``accum`` (a torch dtype or its name; None: the tile dtype itself)
+    in ``source`` (None: the pair in any source): ``"f32"``, ``"f64"``,
+    ``"bf16_f32"``, ``"f16_f32"``, ``"f32_f64"``, ``"bf16_f64"``,
+    ``"f16_f64"``, and ``"bf16"`` / ``"f16"`` in ggr_update and ggr_panel
+    only.  Raises ``NotImplementedError`` naming both dtypes for any other
+    pair."""
     acc = tile if accum is None else (
         getattr(torch, accum) if isinstance(accum, str) else accum)
-    try:
-        return _SUFFIX[(tile, acc)]
-    except KeyError:
+    sfx = _SUFFIX.get((tile, acc))
+    only = _ONLY.get((tile, acc))
+    if sfx is None or (source is not None and only is not None and source not in only):
         t, a = (str(d).removeprefix("torch.") for d in (tile, acc))
         raise NotImplementedError(
             f"no CUDA kernel for {t} tiles with {a} accumulation "
-            "(the kernels take float32 / float64 tiles at their own width, "
+            "(every kernel takes float32 / float64 tiles at their own width, "
             "bfloat16 / float16 tiles with float32 accumulation and float32 / "
-            "bfloat16 / float16 tiles with float64 accumulation; the plain "
-            "versions run every pair on CPU tensors)") from None
+            "bfloat16 / float16 tiles with float64 accumulation; batched_update "
+            "and batched_geqrt also take bfloat16 / float16 tiles summed at "
+            "their own width, panel_factor and apply_factors do not; the plain "
+            "versions run every pair on CPU tensors)")
+    return sfx
 
 
 def launch(source: str, fn_prefix: str, tensors, *dims: int, accum=None) -> None:
@@ -161,7 +173,7 @@ def launch(source: str, fn_prefix: str, tensors, *dims: int, accum=None) -> None
     if any(not -_INT_MAX <= d <= _INT_MAX for d in dims):
         raise ValueError(f"{fn_prefix}: an argument of {dims} exceeds a C int")
     x = tensors[0]
-    sfx = suffix(x.dtype, accum)
+    sfx = suffix(x.dtype, accum, source)
     lib = _lib(source)
     fn = getattr(lib, f"{fn_prefix}_{sfx}")
     fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(dims)
@@ -187,7 +199,7 @@ def query(source: str, fn_prefix: str, x: torch.Tensor, *dims: int,
     dtype of ``x`` at ``accum`` (see ``suffix``) and x's device: a host-side
     query that returns a count >= 0, or -(CUDA error), which raises
     ``RuntimeError``."""
-    sfx = suffix(x.dtype, accum)
+    sfx = suffix(x.dtype, accum, source)
     lib = _lib(source)
     fn = getattr(lib, f"{fn_prefix}_{sfx}")
     fn.argtypes = [ctypes.c_int] * (len(dims) + 1)

@@ -19,7 +19,10 @@
 // dtype).  Every kernel has the same seven instances: (float, float),
 // (double, double), the mixed (__nv_bfloat16, float), (__half, float) and
 // the wide (float, double), (__nv_bfloat16, double), (__half, double)
-// (kernels/_cuda.py::suffix names their C entry points).  A mixed
+// (kernels/_cuda.py::suffix names their C entry points).  B1 and B2 also
+// have narrow instances, bf16 / f16 tiles summed at their own width: they
+// hold values in float registers and round every operation to the tile
+// dtype (the n* helpers below).  A mixed
 // kernel keeps its state in T but rounds every value it writes back to the
 // state through S at the step that writes it (round_to), as the JAX kernels'
 // .astype(cd) does, so the state always holds values S can represent; where
@@ -83,6 +86,34 @@ __device__ __forceinline__ T round_to(T x) {
     return x;
   else
     return widen<T>(narrow<S>(x));
+}
+
+// The arithmetic of a narrow instance (a bf16 / f16 tile S summed at its
+// own width): float operands that S represents, each operation done in
+// float and rounded to S before its result is used, as torch rounds each
+// operation of the plain version at that dtype.  float carries 24 >= 2p + 2
+// bits for S's p (8 or 11), so each result is S's correctly rounded
+// operation.  The intrinsics are never contracted into an FMA, which would
+// skip the rounding of a product.
+template <typename S>
+__device__ __forceinline__ float nmul(float a, float b) {
+  return round_to<S>(__fmul_rn(a, b));
+}
+template <typename S>
+__device__ __forceinline__ float nadd(float a, float b) {
+  return round_to<S>(__fadd_rn(a, b));
+}
+template <typename S>
+__device__ __forceinline__ float nsub(float a, float b) {
+  return round_to<S>(__fsub_rn(a, b));
+}
+template <typename S>
+__device__ __forceinline__ float ndiv(float a, float b) {
+  return round_to<S>(__fdiv_rn(a, b));
+}
+template <typename S>
+__device__ __forceinline__ float nsqrt(float a) {
+  return round_to<S>(__fsqrt_rn(a));
 }
 
 // 1e-30 at every dtype: the constant of the TPU kernels (ggr_panel.py _EPS).

@@ -59,6 +59,14 @@
 // bf16 / f16 tiles, double sums: ggr_common.cuh) are the same code at T =
 // double, shared memory at 8 bytes a value.
 //
+// Narrow instances (bf16 / f16 tiles summed at their own width, the
+// plain version at (tile, tile)): T = float with every operation rounded to
+// S (ggr_warp.cuh, coeff_chain_narrow and column_walk_narrow), each suffix
+// sum in the ladder's order over the tile's t rows, as the plain version and
+// the TPU kernel sum a column with zeros above its pivot.  Each thread keeps
+// t floats of scratch for its column's suffix dots after the tile, row r of
+// thread tid at [r * G + tid] (ggr_panel.py::_geqrt_layout(narrow=True)).
+//
 // Per column step the block passes two barriers (column c in place; the
 // coefficients in place).  Dynamic shared memory (elements, tile_elems): a
 // record for each of the t rows, the tile at row stride ws (w rounded up to
@@ -72,24 +80,27 @@
 namespace {
 
 // Elements of shared memory one tile takes, mirrored by
-// ggr_panel.py::_geqrt_smem.  The records come first, so they are 16-byte
-// aligned.
-__host__ __device__ __forceinline__ size_t tile_elems(int t, int ws) {
-  return 4 * (size_t)t + (size_t)t * ws + 2;
+// ggr_panel.py::_geqrt_smem, a narrow instance's scratch last.  The records
+// come first, so they are 16-byte aligned.
+__host__ __device__ __forceinline__ size_t tile_elems(int t, int ws, size_t scratch) {
+  return 4 * (size_t)t + (size_t)t * ws + 2 + scratch;
 }
 
 // Rows of the tile a thread loads together before storing them.
 constexpr int kLoadGroup = 16;
 
-template <typename S, typename T>
+// N: a narrow instance (T = float).
+template <typename S, typename T, bool N>
 __global__ void __launch_bounds__(512)
 batched_geqrt_kernel(const S* __restrict__ in, S* __restrict__ out, int t, int w,
                      int n_piv, int ws) {
+  static_assert(!N || std::is_same_v<T, float>, "a narrow instance holds floats");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ggr::Rec<T>* rec = reinterpret_cast<ggr::Rec<T>*>(smem_raw);
   T* X = reinterpret_cast<T*>(smem_raw) + 4 * (size_t)t;  // row i at X[i * ws]
   T* slot = X + (size_t)t * ws;                            // sigma, t_0
   const int G = (int)blockDim.x, tid = (int)threadIdx.x;
+  [[maybe_unused]] T* scr = slot + 2 + tid;  // a narrow instance's suffix dots
   const S* src = in + (size_t)blockIdx.x * t * w;
   S* Y = out + (size_t)blockIdx.x * t * w;
 
@@ -116,8 +127,13 @@ batched_geqrt_kernel(const S* __restrict__ in, S* __restrict__ out, int t, int w
     const int n = t - c;  // active rows c..t-1; the rows above are final
     T* top = X + (size_t)c * ws;
     __syncthreads();  // column c and the last step's rows in place
-    if (tid < 32)
-      ggr::coeff_chain(tid, n, [&](int i) { return top[(size_t)i * ws + c]; }, rec, slot);
+    if (tid < 32) {
+      auto col = [&](int i) { return top[(size_t)i * ws + c]; };
+      if constexpr (N)
+        ggr::coeff_chain_narrow<S>(tid, n, col, rec, slot);
+      else
+        ggr::coeff_chain(tid, n, col, rec, slot);
+    }
     __syncthreads();  // coefficients, sigma and t_0 in place
     const T sigma = slot[0], t0 = slot[1];
     S* Yc = Y + (size_t)c * w;
@@ -125,8 +141,12 @@ batched_geqrt_kernel(const S* __restrict__ in, S* __restrict__ out, int t, int w
       for (int j = tid; j < w; j += G) Yc[j] = ggr::narrow<S>(top[j]);
       continue;
     }
-    for (int j = c + 1 + tid; j < w; j += G)
-      ggr::column_walk<S, T, 4>(n, top + ws + j, ws, top[j], rec, t0, Yc + j);
+    for (int j = c + 1 + tid; j < w; j += G) {
+      if constexpr (N)
+        ggr::column_walk_narrow<S>(n, t, top + ws + j, ws, top[j], rec, t0, Yc + j, scr, G);
+      else
+        ggr::column_walk<S, T, 4>(n, top + ws + j, ws, top[j], rec, t0, Yc + j);
+    }
     // the annihilated column: sigma*t_0 at the pivot, zeros below; the pivot
     // row keeps its values left of c
     for (int r = c + 1 + tid; r < t; r += G) X[(size_t)r * ws + c] = T(0);
@@ -140,19 +160,19 @@ batched_geqrt_kernel(const S* __restrict__ in, S* __restrict__ out, int t, int w
   }
 }
 
-template <typename S, typename T>
+template <typename S, typename T, bool N = false>
 int launch(const S* in, S* out, int B, int t, int w, int n_piv, int G, int ws,
            int device, void* stream) {
   if (G < 32 || G % 32 || G > 512 || ws < w || t < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = tile_elems(t, ws) * sizeof(T);
-  err = cudaFuncSetAttribute(batched_geqrt_kernel<S, T>,
+  const size_t smem = tile_elems(t, ws, N ? (size_t)t * G : 0) * sizeof(T);
+  err = cudaFuncSetAttribute(batched_geqrt_kernel<S, T, N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  batched_geqrt_kernel<S, T><<<B, G, smem, (cudaStream_t)stream>>>(in, out, t, w, n_piv,
-                                                                  ws);
+  batched_geqrt_kernel<S, T, N><<<B, G, smem, (cudaStream_t)stream>>>(in, out, t, w,
+                                                                     n_piv, ws);
   return (int)cudaGetLastError();
 }
 
@@ -193,6 +213,16 @@ int ggr_batched_geqrt_bf16_f64(const __nv_bfloat16* in, __nv_bfloat16* out, int 
 int ggr_batched_geqrt_f16_f64(const __half* in, __half* out, int B, int t, int w,
                               int n_piv, int G, int ws, int device, void* stream) {
   return launch<__half, double>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_bf16(const __nv_bfloat16* in, __nv_bfloat16* out, int B, int t,
+                           int w, int n_piv, int G, int ws, int device, void* stream) {
+  return launch<__nv_bfloat16, float, true>(in, out, B, t, w, n_piv, G, ws, device, stream);
+}
+
+int ggr_batched_geqrt_f16(const __half* in, __half* out, int B, int t, int w, int n_piv,
+                          int G, int ws, int device, void* stream) {
+  return launch<__half, float, true>(in, out, B, t, w, n_piv, G, ws, device, stream);
 }
 
 const char* ggr_panel_error_string(int code) {

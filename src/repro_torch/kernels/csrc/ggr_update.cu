@@ -88,6 +88,16 @@
 // a mixed instance, and every write to the state rounds through S once
 // (bf16 through float, as XLA rounds).
 //
+// Narrow instances (bf16 / f16 tiles summed at their own width, the
+// plain version at (tile, tile)): T = float with every operation rounded to
+// S (ggr_warp.cuh, coeff_chain_narrow and column_walk_narrow), each suffix
+// sum in the ladder's order.  A thread's column needs its n suffix dots at
+// once (the ladder runs over all of them before the DET2 rows), so each
+// thread keeps n floats of scratch after the problem's region, row r of
+// thread tid at [r * G + tid]: G * n more elements a problem
+// (ggr_update.py::_update_layout(narrow=True)).  The ladder costs up to
+// log2(n) rounded adds a row where the serial walk costs one.
+//
 // Every shared access stays inside its problem's region: records 0..n-1 only
 // (coefficients of row i+1 are written only where i+1 < n), pivot-row and
 // appended-row columns below w <= ws, appended rows 1..n-1 only (a walk's
@@ -105,9 +115,11 @@ namespace {
 // Elements of shared memory one problem takes, a multiple of 4 so that every
 // problem's records stay 16-byte aligned (mirrored by
 // ggr_update.py::_smem_elems): the n active rows' records, nbuf pivot rows
-// and n - 1 appended rows of stride ws, sigma and t_0.
-__host__ __device__ __forceinline__ size_t group_elems(int n, int ws, int nbuf) {
-  const size_t e = 4 * (size_t)n + (size_t)(nbuf + n - 1) * ws + 2;
+// and n - 1 appended rows of stride ws, sigma and t_0, then a narrow
+// instance's scratch.
+__host__ __device__ __forceinline__ size_t group_elems(int n, int ws, int nbuf,
+                                                      size_t scratch) {
+  const size_t e = 4 * (size_t)n + (size_t)(nbuf + n - 1) * ws + 2 + scratch;
   return (e + 3) / 4 * 4;
 }
 
@@ -136,12 +148,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 constexpr int kNextRegs = 2;
 
 // Every thread walks whole columns (column_walk), w - c - 1 of them over the
-// G threads of a problem.
-template <typename S, typename T>
+// G threads of a problem.  N: a narrow instance (T = float).
+template <typename S, typename T, bool N>
 __global__ void __launch_bounds__(512)
 batched_update_kernel(const S* __restrict__ in, S* __restrict__ out, int B,
                       int m, int w, int n_piv, int G, int ws, int nbuf) {
   constexpr bool kSame = std::is_same_v<S, T>;
+  static_assert(!N || std::is_same_v<T, float>, "a narrow instance holds floats");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = m - n_piv;
   const int n = p + 1;  // active rows: the pivot row, then the appended rows
@@ -150,11 +163,13 @@ batched_update_kernel(const S* __restrict__ in, S* __restrict__ out, int B,
   const size_t prob = (size_t)blockIdx.x * (blockDim.x / G) + g;
   if (prob >= (size_t)B) return;  // the whole group leaves together
 
-  T* base = reinterpret_cast<T*>(smem_raw) + g * group_elems(n, ws, nbuf);
+  T* base = reinterpret_cast<T*>(smem_raw) +
+            g * group_elems(n, ws, nbuf, N ? (size_t)n * G : 0);
   ggr::Rec<T>* rec = reinterpret_cast<ggr::Rec<T>*>(base);
   T* piv = base + 4 * n;
   T* A = piv + nbuf * ws;  // active rows 1..p at A[(r-1)*ws]
   T* slot = A + p * ws;    // sigma, t_0
+  [[maybe_unused]] T* scr = slot + 2 + tid;  // a narrow instance's suffix dots
   const S* X = in + prob * m * w;
   S* Y = out + prob * m * w;
 
@@ -182,9 +197,13 @@ batched_update_kernel(const S* __restrict__ in, S* __restrict__ out, int B,
           if (tid + q * G < w) nx[q] = X[(size_t)(c + 1) * w + tid + q * G];
       }
     }
-    if (tid < 32)
-      ggr::coeff_chain(tid, n, [&](int r) { return r == 0 ? row0[c] : A[(r - 1) * ws + c]; },
-                  rec, slot);
+    if (tid < 32) {
+      auto col = [&](int r) { return r == 0 ? row0[c] : A[(r - 1) * ws + c]; };
+      if constexpr (N)
+        ggr::coeff_chain_narrow<S>(tid, n, col, rec, slot);
+      else
+        ggr::coeff_chain(tid, n, col, rec, slot);
+    }
     group_sync(g, G);  // coefficients, sigma and t_0 in place
     const T sigma = slot[0], t0 = slot[1];
     S* Yc = Y + (size_t)c * w;
@@ -192,8 +211,12 @@ batched_update_kernel(const S* __restrict__ in, S* __restrict__ out, int B,
       // Columns left of c are zero in every active row (R is upper
       // triangular, and each earlier column was annihilated), so only the
       // w - c - 1 columns right of c are swept.
-      for (int j = c + 1 + tid; j < w; j += G)
-        ggr::column_walk<S, T, 4>(n, A + j, ws, row0[j], rec, t0, Yc + j);
+      for (int j = c + 1 + tid; j < w; j += G) {
+        if constexpr (N)
+          ggr::column_walk_narrow<S>(n, n, A + j, ws, row0[j], rec, t0, Yc + j, scr, G);
+        else
+          ggr::column_walk<S, T, 4>(n, A + j, ws, row0[j], rec, t0, Yc + j);
+      }
       // the annihilated column: sigma*t_0 at the pivot, zeros below
       for (int r = 1 + tid; r < n; r += G) A[(r - 1) * ws + c] = T(0);
       for (int j = tid; j <= c; j += G)
@@ -220,7 +243,7 @@ batched_update_kernel(const S* __restrict__ in, S* __restrict__ out, int B,
   }
 }
 
-template <typename S, typename T>
+template <typename S, typename T, bool N = false>
 int launch(const S* in, S* out, int B, int m, int w, int n_piv, int G, int PB,
            int ws, int nbuf, int device, void* stream) {
   if (G < 32 || G % 32 || PB < 1 || G * PB > 512 || (G > 32 && PB > 15) ||
@@ -229,12 +252,13 @@ int launch(const S* in, S* out, int B, int m, int w, int n_piv, int G, int PB,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = PB * group_elems(m - n_piv + 1, ws, nbuf) * sizeof(T);
-  err = cudaFuncSetAttribute(batched_update_kernel<S, T>,
+  const int n = m - n_piv + 1;
+  const size_t smem = PB * group_elems(n, ws, nbuf, N ? (size_t)n * G : 0) * sizeof(T);
+  err = cudaFuncSetAttribute(batched_update_kernel<S, T, N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((B + PB - 1) / PB);
-  batched_update_kernel<S, T><<<grid, G * PB, smem, (cudaStream_t)stream>>>(
+  batched_update_kernel<S, T, N><<<grid, G * PB, smem, (cudaStream_t)stream>>>(
       in, out, B, m, w, n_piv, G, ws, nbuf);
   return (int)cudaGetLastError();
 }
@@ -286,6 +310,19 @@ int ggr_batched_update_f16_f64(const __half* in, __half* out, int B, int m, int 
                                int n_piv, int G, int PB, int ws, int nbuf, int device,
                                void* stream) {
   return launch<__half, double>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device, stream);
+}
+
+int ggr_batched_update_bf16(const __nv_bfloat16* in, __nv_bfloat16* out, int B, int m,
+                            int w, int n_piv, int G, int PB, int ws, int nbuf, int device,
+                            void* stream) {
+  return launch<__nv_bfloat16, float, true>(in, out, B, m, w, n_piv, G, PB, ws, nbuf,
+                                            device, stream);
+}
+
+int ggr_batched_update_f16(const __half* in, __half* out, int B, int m, int w, int n_piv,
+                           int G, int PB, int ws, int nbuf, int device, void* stream) {
+  return launch<__half, float, true>(in, out, B, m, w, n_piv, G, PB, ws, nbuf, device,
+                                     stream);
 }
 
 const char* ggr_update_error_string(int code) {

@@ -176,4 +176,99 @@ __device__ __forceinline__ void column_walk(int n, T* colA, int ws, T top,
   *y = narrow<S>(P / t0);
 }
 
+// ---------------------------------------------------------------- narrow
+// A narrow instance (bf16 / f16 tile S summed at its own width) computes
+// what the plain version computes at that pair, operation by operation:
+// each product, sum, ladder step, square root and division rounded to S
+// (ggr_common.cuh, nmul ...), and each suffix sum in the order of the TPU
+// kernel's doubling ladder, x_i += x_{i+d} for d = 1, 2, 4, ... (zero past
+// the last row), which is also the plain version's
+// (ggr_panel.py::_revcumsum).  The values are floats that S represents.
+
+// k_i, l_i of a narrow instance, as det2_coeffs.
+template <typename S>
+__device__ __forceinline__ void det2_coeffs_narrow(float v, float t, float tn, float& k,
+                                                   float& l) {
+  const bool valid = tn > eps<float>();
+  const float st = t > eps<float>() ? t : 1.f;
+  const float stn = valid ? tn : 1.f;
+  k = ndiv<S>(v, nmul<S>(st, stn));
+  l = valid ? ndiv<S>(stn, st) : -1.f;
+}
+
+// coeff_chain of a narrow instance: the same records and slots.  Lane L
+// takes rows L, L + 32, ...; the ladder over the squares runs between
+// rec[].pad and rec[].k, a step a __syncwarp, and t_i ends in rec[i].pad.
+template <typename S, typename Col>
+__device__ void coeff_chain_narrow(int lane, int n, Col col, Rec<float>* rec, float* slot) {
+  float mx = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    const float a = fabsf(col(i));
+    mx = a > mx ? a : mx;
+  }
+  for (int off = 16; off > 0; off >>= 1) {  // the max is exact in any order
+    const float o = __shfl_xor_sync(kFull, mx, off);
+    mx = o > mx ? o : mx;
+  }
+  if (mx == 0.f) {  // a zero column: its step is skipped
+    if (lane == 0) slot[0] = slot[1] = 0.f;
+    return;
+  }
+  for (int i = lane; i < n; i += 32) {
+    const float v = ndiv<S>(col(i), mx);
+    rec[i].v = v;
+    rec[i].pad = nmul<S>(v, v);
+  }
+  __syncwarp();
+  bool in_pad = true;  // where the ladder's current values are
+  for (int d = 1; d < n; d <<= 1) {
+    for (int i = lane; i < n; i += 32) {
+      const float x = in_pad ? rec[i].pad : rec[i].k;
+      const float y = i + d < n ? (in_pad ? rec[i + d].pad : rec[i + d].k) : 0.f;
+      if (in_pad)
+        rec[i].k = nadd<S>(x, y);
+      else
+        rec[i].pad = nadd<S>(x, y);
+    }
+    in_pad = !in_pad;
+    __syncwarp();
+  }
+  for (int i = lane; i < n; i += 32) rec[i].pad = nsqrt<S>(in_pad ? rec[i].pad : rec[i].k);
+  __syncwarp();
+  for (int i = lane; i + 1 < n; i += 32)
+    det2_coeffs_narrow<S>(rec[i].v, rec[i].pad, rec[i + 1].pad, rec[i + 1].k, rec[i + 1].l);
+  if (lane == 0) {
+    slot[0] = mx;
+    slot[1] = rec[0].pad;
+  }
+}
+
+// column_walk of a narrow instance, one thread's column j: the products
+// v_r a_r into the thread's scratch (row r at scr[r * ss]), the ladder over
+// them in place (rows ascending: x_{i+d} is read before its own step), then
+// the DET2 rows bottom-up and the pivot row P_0 / t_0 to *y.  L is the
+// length of the plain version's ladder: n for B1; the tile height for B2,
+// whose steps past the active rows add zeros (turning a -0 sum into +0).
+template <typename S>
+__device__ void column_walk_narrow(int n, int L, float* colA, int ws, float top,
+                                   const Rec<float>* rec, float t0, S* y, float* scr,
+                                   int ss) {
+  for (int r = 0; r < n; ++r) scr[r * ss] = nmul<S>(rec[r].v, r == 0 ? top : colA[(r - 1) * ws]);
+  int d = 1;
+  for (; d < n; d <<= 1)
+    for (int i = 0; i < n; ++i)
+      scr[i * ss] = nadd<S>(scr[i * ss], i + d < n ? scr[(i + d) * ss] : 0.f);
+  if (d < L)  // the ladder's steps past the last row, each adding zero
+    for (int i = 0; i < n; ++i) scr[i * ss] = __fadd_rn(scr[i * ss], 0.f);
+  float a = n > 1 ? colA[(n - 2) * ws] : top;  // row i, before its write
+  for (int i = n - 1; i >= 1; --i) {
+    const float up = i >= 2 ? colA[(i - 2) * ws] : top;
+    const Rec<float> rc = rec[i];
+    colA[(i - 1) * ws] =
+        rc.l > 0.f ? nsub<S>(nmul<S>(rc.k, scr[i * ss]), nmul<S>(rc.l, up)) : a;
+    a = up;
+  }
+  *y = narrow<S>(__fdiv_rn(scr[0], t0));
+}
+
 }  // namespace ggr

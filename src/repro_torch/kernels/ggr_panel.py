@@ -47,8 +47,25 @@ def _accum_dt(X: torch.Tensor, accum_dtype: str | None) -> torch.dtype:
 
 
 def _revcumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Reverse inclusive cumulative sum along ``dim`` (flip-cumsum-flip)."""
-    return x.flip(dim).cumsum(dim).flip(dim)
+    """Reverse inclusive cumulative sum along ``dim``.
+
+    A bfloat16 / float16 input is summed as the TPU kernels sum it (the
+    reference's ``_revcumsum(native=False)``): the doubling ladder
+    ``x[i] += x[i + d]`` for d = 1, 2, 4, ... below the length, zero past
+    the end, every step rounded at the input's dtype (torch's elementwise
+    add rounds each result).  ``cumsum`` would carry an f32 sum and round
+    only its outputs.  Every other dtype is flip-cumsum-flip.
+    """
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x.flip(dim).cumsum(dim).flip(dim)
+    dim %= x.ndim
+    m = x.shape[dim]
+    d = 1
+    while d < m:
+        zeros = x.new_zeros(x.shape[:dim] + (d,) + x.shape[dim + 1:])
+        x = x + torch.cat([x.narrow(dim, d, m - d), zeros], dim)
+        d *= 2
+    return x
 
 
 def _check_stack(x: torch.Tensor, n_pivots: int, block_b: int, what: str):
@@ -62,17 +79,32 @@ def _check_stack(x: torch.Tensor, n_pivots: int, block_b: int, what: str):
         raise ValueError(f"{what} needs a contiguous batch")
 
 
+# each wrapper's CUDA source
+_SOURCE = {"batched_update": "ggr_update", "batched_geqrt": "ggr_panel",
+           "panel_factor": "ggr_panel_factor", "apply_factors": "ggr_apply"}
+
+
 def _kernel_dtype_check(x: torch.Tensor, accum_dtype: str | None, what: str):
-    """The (tile, accumulation) pairs of ``what``'s CUDA kernel, the same in
-    every kernel: float32 / float64 tiles at their own width, bfloat16 /
-    float16 tiles with float32 accumulation (the two named mixed policies)
-    and float32 / bfloat16 / float16 tiles with float64 accumulation.  Any
-    other pair (bfloat16 / float16 tiles summed at their own width) raises
-    ``NotImplementedError`` naming both dtypes."""
+    """The (tile, accumulation) pairs of ``what``'s CUDA kernel: in every
+    kernel float32 / float64 tiles at their own width, bfloat16 / float16
+    tiles with float32 accumulation (the two named mixed policies) and
+    float32 / bfloat16 / float16 tiles with float64 accumulation; in
+    batched_update and batched_geqrt also bfloat16 / float16 tiles summed at
+    their own width.  Any other pair raises ``NotImplementedError`` naming
+    both dtypes (``_cuda.suffix``)."""
     try:
-        _cuda.suffix(x.dtype, accum_dtype)
+        _cuda.suffix(x.dtype, accum_dtype, _SOURCE[what])
     except NotImplementedError as e:
         raise NotImplementedError(f"{what}: {e}") from None
+
+
+def _compute_size(x: torch.Tensor, accum_dtype: str | None) -> tuple[int, bool]:
+    """(bytes a value of shared memory holds, narrow) for B1's and B2's
+    kernels at x's tile dtype summed at ``accum_dtype``: the sums' dtype,
+    except that a bf16 / f16 tile summed at its own width (narrow) keeps its
+    rounded values in float, 4 bytes."""
+    size = _accum_dt(x, accum_dtype).itemsize
+    return (4, True) if size == 2 else (size, False)
 
 
 def _launched(x: torch.Tensor, accum_dtype: str | None) -> tuple:
@@ -182,14 +214,21 @@ def batched_geqrt_plain(tiles: torch.Tensor, n_pivots: int,
 _GEQRT_THREADS = 512  # the kernel's launch bound
 
 
-def _geqrt_smem(t: int, ws: int, itemsize: int) -> int:
+def _geqrt_smem(t: int, ws: int, itemsize: int, scratch: int = 0) -> int:
     """Shared memory of one tile (mirrors tile_elems in ggr_panel.cu): t
     coefficient records (4 elements each), the tile at row stride ws, sigma
-    and t_0."""
-    return (4 * t + t * ws + 2) * itemsize
+    and t_0, then ``scratch`` elements (a narrow instance's suffix dots, t
+    a thread)."""
+    return (4 * t + t * ws + 2 + scratch) * itemsize
 
 
-def _geqrt_layout(t: int, w: int, itemsize: int):
+def _geqrt_threads(w: int) -> int:
+    """G, the threads of a (t, w) tile's block: one a swept column (at most
+    w - 1), whole warps, up to _GEQRT_THREADS."""
+    return min(_GEQRT_THREADS, -(-max(1, w - 1) // 32) * 32)
+
+
+def _geqrt_layout(t: int, w: int, itemsize: int, narrow: bool = False):
     """(G, ws) for a (t, w) tile: G threads a tile (one block), each walking
     whole columns, and the row stride ws in shared memory — from the shape,
     the dtype and the card's limits only, never the batch, so a tile's bits
@@ -198,10 +237,13 @@ def _geqrt_layout(t: int, w: int, itemsize: int):
 
     A thread a swept column (at most w - 1, whole warps, up to
     _GEQRT_THREADS; wider tiles give a thread several columns), and an odd
-    row stride (a column read free of bank conflicts) where it fits."""
-    G = min(_GEQRT_THREADS, -(-max(1, w - 1) // 32) * 32)
+    row stride (a column read free of bank conflicts) where it fits.  A
+    ``narrow`` instance (bf16 / f16 tiles summed at their own width) also
+    keeps t suffix dots a thread."""
+    G = _geqrt_threads(w)
+    scratch = t * G if narrow else 0
     for ws in (w | 1, w):
-        if _geqrt_smem(t, ws, itemsize) <= _cuda.MAX_SMEM_BYTES:
+        if _geqrt_smem(t, ws, itemsize, scratch) <= _cuda.MAX_SMEM_BYTES:
             return G, ws
     return None
 
@@ -212,13 +254,14 @@ def _batched_geqrt_cuda(tiles: torch.Tensor, n_pivots: int,
         raise ValueError(f"batched_geqrt: unsupported device {tiles.device}")
     _kernel_dtype_check(tiles, accum_dtype, "batched_geqrt")
     B, t, w = tiles.shape
-    size = _accum_dt(tiles, accum_dtype).itemsize  # shared memory holds the sums' dtype
-    layout = _geqrt_layout(t, w, size)
+    size, narrow = _compute_size(tiles, accum_dtype)  # shared memory holds the sums
+    layout = _geqrt_layout(t, w, size, narrow)
     if layout is None:
+        scratch = t * _geqrt_threads(w) if narrow else 0
         raise ValueError(
             f"batched_geqrt: a ({t}, {w}) {dtype_name(tiles.dtype)} tile needs "
-            f"{_geqrt_smem(t, w, size)} bytes of shared memory; the kernel "
-            f"takes at most {_cuda.MAX_SMEM_BYTES}")
+            f"{_geqrt_smem(t, w, size, scratch)} bytes of shared "
+            f"memory; the kernel takes at most {_cuda.MAX_SMEM_BYTES}")
     out = torch.empty_like(tiles)
     if tiles.numel() == 0:
         return out
@@ -246,9 +289,9 @@ def batched_geqrt(tiles: torch.Tensor, n_pivots: int, block_b: int = 8,
     for parity with the JAX signature) sets no tiling; it must be positive.  ``precision`` selects tile compute dtype + in-kernel
     accumulation dtype (``None`` = tiles at their own dtype, same-width
     accumulation); on CUDA tensors the kernel takes the uniform f32 / f64
-    policies, bf16 / f16 tiles with f32 accumulation and f32 / bf16 / f16
-    tiles with f64 accumulation.  The launch count is
-    ``batched_geqrt.launches``.
+    policies, bf16 / f16 tiles with f32 accumulation, f32 / bf16 / f16
+    tiles with f64 accumulation and bf16 / f16 tiles summed at their own
+    width.  The launch count is ``batched_geqrt.launches``.
     """
     _check_stack(tiles, n_pivots, block_b, "batched_geqrt")
     accum = None

@@ -34,8 +34,8 @@ import torch.nn.functional as F
 
 from . import _cuda
 from .backend import count_resolution, dtype_name, resolve_precision, to_tile
-from .ggr_panel import (_EPS, _accum_dt, _check_stack, _kernel_dtype_check, _launched,
-                        _revcumsum)
+from .ggr_panel import (_EPS, _accum_dt, _check_stack, _compute_size, _kernel_dtype_check,
+                        _launched, _revcumsum)
 
 __all__ = ["batched_update", "batched_update_plain", "pad_batch", "pad_to_tile"]
 
@@ -131,16 +131,17 @@ _KERNEL_THREADS = 512  # the kernel's launch bound (128 registers a thread)
 _NAMED_BARRIERS = 15  # bar.sync ids 1..15: groups of more than one warp a block
 
 
-def _smem_elems(n: int, ws: int, nbuf: int) -> int:
+def _smem_elems(n: int, ws: int, nbuf: int, scratch: int = 0) -> int:
     """Shared-memory elements of one problem (mirrors group_elems in
     ggr_update.cu): the n active rows' coefficient records (4 each), nbuf
-    pivot rows and n - 1 appended rows of stride ws, sigma and t_0 — rounded
-    up to a multiple of 4."""
-    e = 4 * n + (nbuf + n - 1) * ws + 2
+    pivot rows and n - 1 appended rows of stride ws, sigma and t_0, then
+    ``scratch`` elements (a narrow instance's suffix dots, n a thread) —
+    rounded up to a multiple of 4."""
+    e = 4 * n + (nbuf + n - 1) * ws + 2 + scratch
     return -(-e // 4) * 4
 
 
-def _update_layout(m: int, w: int, n_pivots: int, itemsize: int):
+def _update_layout(m: int, w: int, n_pivots: int, itemsize: int, narrow: bool = False):
     """(G, PB, ws, nbuf) for a (m, w) problem with ``n_pivots`` pivots: G
     threads per problem, PB problems per block, row stride ws and nbuf pivot
     buffers — from the shape, the dtype and the card's limits only, never
@@ -152,11 +153,12 @@ def _update_layout(m: int, w: int, n_pivots: int, itemsize: int):
     as fill _BLOCK_THREADS.  Two pivot buffers (the next row fetched a step
     ahead) and an odd row stride (a column read free of bank conflicts)
     where they fit, else one buffer, stride w and one warp: the parent
-    kernel's footprint."""
+    kernel's footprint.  A ``narrow`` instance (bf16 / f16 tiles summed at
+    their own width) also keeps n = m - n_pivots + 1 suffix dots a thread."""
     n = m - n_pivots + 1
     G = min(_KERNEL_THREADS, -(-max(1, w - 1) // 32) * 32)
     for G_, ws, nbuf in ((G, w | 1, 2), (G, w, 1), (32, w, 1)):
-        elems = _smem_elems(n, ws, nbuf)
+        elems = _smem_elems(n, ws, nbuf, n * G_ if narrow else 0)
         if elems * itemsize <= _cuda.MAX_SMEM_BYTES:
             PB = min(max(1, _BLOCK_THREADS // G_),
                      _cuda.MAX_SMEM_BYTES // (elems * itemsize),
@@ -171,11 +173,12 @@ def _batched_update_cuda(stacked: torch.Tensor, n_pivots: int,
         raise ValueError(f"batched_update: unsupported device {stacked.device}")
     _kernel_dtype_check(stacked, accum_dtype, "batched_update")
     B, m, w = stacked.shape
-    size = _accum_dt(stacked, accum_dtype).itemsize  # shared memory holds the sums' dtype
-    layout = (_update_layout(m, w, n_pivots, size)
+    size, narrow = _compute_size(stacked, accum_dtype)  # shared memory holds the sums
+    layout = (_update_layout(m, w, n_pivots, size, narrow)
               if w <= _cuda.MAX_THREADS else None)
     if layout is None:
-        smem = _smem_elems(m - n_pivots + 1, w, 1) * size
+        n = m - n_pivots + 1
+        smem = _smem_elems(n, w, 1, n * 32 if narrow else 0) * size
         raise ValueError(
             f"batched_update: a ({m}, {w}) {dtype_name(stacked.dtype)} problem "
             f"with {n_pivots} pivots needs {smem} bytes of shared memory and "
@@ -211,9 +214,9 @@ def batched_update(stacked: torch.Tensor, n_pivots: int, block_b: int = 8,
     ``precision`` selects tile compute + in-kernel accumulation dtypes
     (``None`` = the batch at its own dtype with same-width accumulation); on
     CUDA tensors the kernel takes the uniform f32 / f64 policies, bf16 / f16
-    tiles with f32 accumulation and f32 / bf16 / f16 tiles with f64
-    accumulation.  The launch count is
-    ``batched_update.launches``.
+    tiles with f32 accumulation, f32 / bf16 / f16 tiles with f64
+    accumulation and bf16 / f16 tiles summed at their own width.  The launch
+    count is ``batched_update.launches``.
     """
     _check_stack(stacked, n_pivots, block_b, "batched_update")
     m = stacked.shape[1]

@@ -37,6 +37,12 @@ bulk: a fault confined to fewer than TRIM of a part's entries escapes it.  The b
 path's states are: an upper-triangular state of Gaussian entries has a
 condition number near 2^n, and then R itself is roundoff.
 
+B1's and B2's narrow pairs (bf16 / f16 tiles summed at their own width)
+compute what the plain version computes at the pair, operation by
+operation, and are held by the same rule with every entry equal
+(``NARROW_EQUAL``, ``equal_limit``; -0 equals +0 there, as in every
+share), with the same control.
+
 The wide pairs (f32 / bf16 / f16 tiles with f64 sums, in all four kernels)
 sum in f64 in another order than the plain version (B4 also by another
 formula, the rotation form of ``csrc/ggr_apply.cu``), and rounding each
@@ -256,6 +262,19 @@ WIDE_DRAWS = 16
 # control's most (0.70357, 0.99889, 0.99116) at chip_smoke.py phase 3's
 # shapes (PERF.md §6, PR 29)
 WIDE_EQUAL = {"float32": 0.998, "bfloat16": 0.9995, "float16": 0.997}
+# the same least share for B1's and B2's narrow instances (bf16 / f16 tiles
+# summed at their own width): every entry. They do the plain version's
+# operations in its order, each correctly rounded, and read 1.0 in every
+# draw of every shape (the controls at most 0.7362; PERF.md §6)
+NARROW_EQUAL = {"bfloat16": 1.0, "float16": 1.0}
+
+
+def equal_limit(tile, accum="float64") -> float:
+    """The least share ``wide_held`` takes at the (tile, accum) pair: a
+    wide pair's WIDE_EQUAL, a narrow pair's (accum the tile dtype)
+    NARROW_EQUAL."""
+    tile = dtype_name(tile)
+    return NARROW_EQUAL[tile] if dtype_name(accum) == tile else WIDE_EQUAL[tile]
 
 
 def equal_share(outs, refs) -> float:
@@ -291,12 +310,13 @@ def wide_accurate(name: str, m: int, w: int, tile, readings) -> bool:
     return max(r for _, r in readings) <= wide_bound(name, m, w, tile)
 
 
-def wide_held(name: str, m: int, w: int, tile, readings) -> bool:
-    """Whether the draws of a shape pass the wide rule: ``readings`` one
-    ``wide_reading`` a draw (draws of one shape, so of as many entries
-    each); their mean share at least WIDE_EQUAL[tile] and ``wide_accurate``."""
+def wide_held(name: str, m: int, w: int, tile, readings, accum="float64") -> bool:
+    """Whether the draws of a shape pass the wide rule at (tile, accum):
+    ``readings`` one ``wide_reading`` a draw (draws of one shape, so of as
+    many entries each); their mean share at least ``equal_limit`` and
+    ``wide_accurate``."""
     shares = [sh for sh, _ in readings]
-    return (sum(shares) / len(shares) >= WIDE_EQUAL[dtype_name(tile)]
+    return (sum(shares) / len(shares) >= equal_limit(tile, accum)
             and wide_accurate(name, m, w, tile, readings))
 
 

@@ -521,6 +521,74 @@ def test_wide_kernel_passes_the_wide_rule(card, name, shape, param, data, tile):
     assert not kc.wide_held(name, m, w, tile, ctrls), ctrls
 
 
+# B1's and B2's narrow pairs (bf16 / f16 tiles summed at their own width) at
+# the main path's shapes: chip_smoke.py's phase 3 and phase 14 (h)
+NARROW_CASES = [c for c in WIDE_CASES if c[0] in ("batched_update", "batched_geqrt")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", list(MIXED))
+@pytest.mark.parametrize("name,shape,param,data", NARROW_CASES)
+def test_narrow_kernel_passes_the_wide_rule_at_its_share(card, name, shape, param, data,
+                                                        tile):
+    """bf16 / f16 tiles summed at their own width (B1, B2): over
+    kc.WIDE_DRAWS draws, the share of entries bitwise equal to the plain
+    version at (tile, tile) at least kc.NARROW_EQUAL and max|err| / rms
+    within kc.wide_bound; the (tile, float32) instance on the same inputs
+    fails the rule."""
+    fn = {"batched_update": batched_update, "batched_geqrt": batched_geqrt}[name]
+    plain = {"batched_update": ggr_update.batched_update_plain,
+             "batched_geqrt": ggr_panel.batched_geqrt_plain}[name]
+    dn = str(tile).removeprefix("torch.")
+    narrow, ctrl = Precision(dn, dn, dn), Precision(dn, "float32", dn)
+    _, m, w = shape
+    reads, ctrls = [], []
+    for seed in range(kc.WIDE_DRAWS):
+        x, _ = _wide_inputs(card, name, shape, param, data, tile, seed)
+        n0 = fn.launches
+        out, ref = fn(x, param, precision=narrow), plain(x, param, dn)
+        assert fn.launches == n0 + 1 and (shape, param, tile, dn) in fn.shapes
+        assert out.dtype == tile
+        reads.append(kc.wide_reading(name, param, tile, (out,), (ref,)))
+        ctrls.append(kc.wide_reading(name, param, tile, (fn(x, param, precision=ctrl),),
+                                     (ref,)))
+    assert kc.wide_held(name, m, w, tile, reads, dn), reads
+    assert not kc.wide_held(name, m, w, tile, ctrls, dn), ctrls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", list(MIXED))
+def test_tree_qr_at_a_narrow_pair_on_the_card(card, tile):
+    """The tree QR at Precision(t, t, t) launches B1 and B2 only, at (t, t),
+    R at t and finite, its Gram residual within 0.5-2x of the same call on
+    a CPU copy (the plain versions); the fused schedule and "auto" raise
+    NotImplementedError naming both dtypes, with no launch."""
+    from repro_torch.testing import gram_residual
+
+    dn = str(tile).removeprefix("torch.")
+    prec = Precision(dn, dn, dn)
+    g = torch.Generator(device=card).manual_seed(3)
+    M = torch.randn((256, 256), generator=g, device=card)
+    kernels = (batched_update, batched_geqrt, ggr_panel.panel_factor, ggr_apply.apply_factors)
+    for fn in kernels:
+        fn.launches = 0
+        fn.shapes.clear()
+    R = blocked.ggr_qr_blocked(M, schedule="tree", precision=prec)
+    assert R.dtype == tile and bool(R.isfinite().all())
+    assert batched_update.launches > 0 and batched_geqrt.launches > 0
+    assert all(fn.launches == 0 for fn in kernels[2:])
+    assert {sh[2:] for fn in kernels[:2] for sh in fn.shapes} == {(tile, dn)}
+    A = M.double().cpu().numpy()
+    cpu = blocked.ggr_qr_blocked(M.cpu(), schedule="tree", precision=prec)
+    ratio = (gram_residual(A, R.double().cpu().numpy())
+             / gram_residual(A, cpu.double().numpy()))
+    assert 0.5 <= ratio <= 2.0, ratio
+    for schedule in ("fused", "auto"):
+        with pytest.raises(NotImplementedError, match=f"{dn} tiles with {dn} accumulation"):
+            blocked.ggr_qr_blocked(M, schedule=schedule, precision=prec)
+    assert all(fn.launches == 0 for fn in kernels[2:])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile", [torch.float32, *MIXED])
 def test_wide_panel_with_its_slabs_in_device_memory(card, tile):
@@ -622,7 +690,8 @@ def test_kernels_refuse_what_they_do_not_take(card):
     """bf16 / f16 tiles run with f32 accumulation (the named policies), and
     f32 / bf16 / f16 tiles with f64 accumulation, in every kernel (zeros
     in, zeros out at the tile dtype); tiles summed at their own bf16 / f16
-    width raise NotImplementedError naming both dtypes."""
+    width run in B1 and B2 and raise NotImplementedError naming both dtypes
+    in B3 and B4."""
     X = torch.zeros((2, 12, 9), device=card)
     wide = [Precision(t, "float64", t) for t in ("float32", "bfloat16", "float16")]
     for fn in (batched_update, batched_geqrt):
@@ -632,8 +701,9 @@ def test_kernels_refuse_what_they_do_not_take(card):
         for prec in wide:
             out = fn(X, 8, precision=prec)
             assert out.dtype == prec.compute and _bits_zero(out)
-        with pytest.raises(NotImplementedError, match="float16 tiles with float16"):
-            fn(X.half(), 8)
+        for tile in MIXED:  # summed at the tile's own width
+            out = fn(X.to(tile), 8)
+            assert out.dtype == tile and _bits_zero(out)
     big = torch.zeros((1, 240, 256), device=card, dtype=torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
         batched_geqrt(big, 64)
@@ -652,6 +722,12 @@ def test_kernels_refuse_what_they_do_not_take(card):
         assert out.dtype == prec.compute and _bits_zero(out)
     with pytest.raises(NotImplementedError, match="bfloat16 tiles with bfloat16"):
         ggr_panel.panel_factor(pan.to(torch.bfloat16))
+    for tile in MIXED:
+        name = str(tile).removeprefix("torch.")
+        with pytest.raises(NotImplementedError, match=f"{name} tiles with {name}"):
+            ggr_panel.panel_factor(pan.to(tile))
+        with pytest.raises(NotImplementedError, match=f"{name} tiles with {name}"):
+            ggr_apply.apply_factors(pan.to(tile), pan.to(tile), pan.to(tile))
     with pytest.raises(ValueError, match="must share a dtype"):
         ggr_apply.apply_factors(pan.bfloat16(), pan.bfloat16(), pan)
     with pytest.raises(ValueError, match="shared memory"):  # no width limit but this

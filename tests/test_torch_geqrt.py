@@ -222,16 +222,22 @@ def test_geqrt_layout_choice(t, w, itemsize, layout):
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_geqrt_layout_fits_the_card(t, w, itemsize):
     """Whole warps, the kernel's thread bound and one block's shared memory,
-    from the shape and the dtype alone: the batch takes no part."""
-    layout = ggr_panel._geqrt_layout(t, w, itemsize)
-    if layout is None:  # only a tile too large for shared memory has none
-        assert ggr_panel._geqrt_smem(t, w, itemsize) > _cuda.MAX_SMEM_BYTES
-        return
-    G, ws = layout
-    assert G % 32 == 0 and 32 <= G <= ggr_panel._GEQRT_THREADS and ws >= w
-    assert ggr_panel._geqrt_smem(t, ws, itemsize) <= _cuda.MAX_SMEM_BYTES
+    from the shape and the dtype alone: the batch takes no part.  At 4
+    bytes also a narrow instance's layout (bf16 / f16 tiles summed at their
+    own width), its suffix-dot scratch (t a thread) in the shared memory."""
     assert list(inspect.signature(ggr_panel._geqrt_layout).parameters) == [
-        "t", "w", "itemsize"]
+        "t", "w", "itemsize", "narrow"]
+    for narrow in (False, True) if itemsize == 4 else (False,):
+        layout = ggr_panel._geqrt_layout(t, w, itemsize, narrow)
+        threads = min(ggr_panel._GEQRT_THREADS, -(-max(1, w - 1) // 32) * 32)
+        scratch = t * threads if narrow else 0
+        if layout is None:  # only a tile too large for shared memory has none
+            assert ggr_panel._geqrt_smem(t, w, itemsize, scratch) > _cuda.MAX_SMEM_BYTES
+            continue
+        G, ws = layout
+        assert G == threads
+        assert G % 32 == 0 and 32 <= G <= ggr_panel._GEQRT_THREADS and ws >= w
+        assert ggr_panel._geqrt_smem(t, ws, itemsize, scratch) <= _cuda.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])

@@ -69,3 +69,21 @@ def test_the_tables_cover_every_kernel_and_tile_dtype():
     for tile, policy in kc.POLICY.items():
         prec = resolve_precision(policy)
         assert (kc.dtype_name(prec.compute), prec.accum_dtype) == (tile, kc.ACCUM[tile])
+
+
+@pytest.mark.parametrize("tile", ["bfloat16", "float16"])
+def test_a_narrow_pair_is_held_at_its_own_share(tile):
+    """``wide_held`` takes its least share by the pair: a narrow pair (the
+    tile summed at its own width) NARROW_EQUAL, a wide pair (f64 sums)
+    WIDE_EQUAL; the mean share over the draws is what is held, and a draw
+    past the bound fails either way."""
+    assert kc.equal_limit(tile, tile) == kc.NARROW_EQUAL[tile]
+    assert kc.equal_limit(tile) == kc.equal_limit(tile, "float64") == kc.WIDE_EQUAL[tile]
+    bound = kc.wide_bound("batched_update", 40, 33, tile)
+    for accum in (tile, "float64"):
+        limit = kc.equal_limit(tile, accum)
+        at = [(limit, 0.0), (limit, bound)]
+        assert kc.wide_held("batched_update", 40, 33, tile, at, accum)
+        below = [(limit, 0.0), (limit - 2e-4, 0.0)]
+        assert not kc.wide_held("batched_update", 40, 33, tile, below, accum)
+        assert not kc.wide_held("batched_update", 40, 33, tile, [(1.0, 2 * bound)], accum)

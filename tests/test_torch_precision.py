@@ -26,6 +26,8 @@ from repro_torch.kernels import (Precision, _cuda, batched_geqrt, batched_update
                                  panel_qr)
 from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
 from repro_torch.launch.serve_qr import QRServer
+from repro_torch.launch.serve_qr import _submit_all as serve_qr_submit_all
+from repro_torch.launch.serve_qr import make_workload as serve_qr_make_workload
 from repro_torch.serve import Dispatcher
 from repro_torch.solvers import qr_append_rows_batched
 from repro_torch.testing import (budget_is_meaningful, dtype_eps, error_budget,
@@ -234,11 +236,17 @@ def test_kalman_fleet_bf16_nis_consistent():
     (torch.float16, "float64", "f16_f64", "ggr_panel_factor"),
     (torch.float32, torch.float64, "f32_f64", "ggr_apply"),
     (torch.bfloat16, "float64", "bf16_f64", "ggr_apply"),
-    (torch.float16, torch.float64, "f16_f64", "ggr_apply")])
+    (torch.float16, torch.float64, "f16_f64", "ggr_apply"),
+    (torch.bfloat16, torch.bfloat16, "bf16", "ggr_update"),
+    (torch.bfloat16, "bfloat16", "bf16", "ggr_panel"),
+    (torch.float16, None, "f16", "ggr_update"),
+    (torch.float16, "float16", "f16", "ggr_panel")])
 def test_cuda_suffix_of_each_pair(tile, accum, suffix, source):
     """Every source has the same seven pairs, the wide ones (f64 sums)
-    included: the C functions' suffix, and the check of the wrapper of
-    ``source`` (None: every wrapper) admits the pair."""
+    included, and B1's and B2's sources also the narrow ones (bf16 / f16
+    tiles summed at their own width): the C functions' suffix, and the
+    check of the wrapper of ``source`` (None: every wrapper) admits the
+    pair."""
     assert _cuda.suffix(tile, accum) == suffix
     wrappers = {"ggr_update": ["batched_update"], "ggr_panel": ["batched_geqrt"],
                 "ggr_panel_factor": ["panel_factor"], "ggr_apply": ["apply_factors"],
@@ -252,16 +260,31 @@ def test_cuda_suffix_of_each_pair(tile, accum, suffix, source):
     pytest.param(torch.float16, "float16", id="tile4-float16"),
     pytest.param(torch.float64, "float32", id="tile5-float32")])
 def test_pairs_without_a_kernel_raise_naming_both_dtypes(tile, accum):
-    """Low-precision tiles summed at their own width, and f64 tiles with f32
-    sums, have no CUDA kernel: the binding and every wrapper's check raise
-    NotImplementedError naming both dtypes."""
+    """f64 tiles with f32 sums have no CUDA kernel: the binding and every
+    wrapper's check raise NotImplementedError naming both dtypes.  bf16 /
+    f16 tiles summed at their own width have one in B1 and B2 only: their
+    wrappers' checks pass and resolve the C entry point (suffix "bf16" /
+    "f16"), and B3's and B4's raise, naming both dtypes and the kernels
+    that take the pair."""
     acc = str(accum or tile).removeprefix("torch.")
     what = f"{str(tile).removeprefix('torch.')} tiles with {acc} accumulation"
-    with pytest.raises(NotImplementedError, match=what):
-        _cuda.suffix(tile, accum)
-    for fn in ("batched_update", "batched_geqrt", "panel_factor", "apply_factors"):
-        with pytest.raises(NotImplementedError, match=f"{fn}: no CUDA kernel for {what}"):
+    narrow = tile in (torch.bfloat16, torch.float16)
+    if narrow:
+        for fn in ("batched_update", "batched_geqrt"):
             ggr_panel._kernel_dtype_check(torch.zeros(2, dtype=tile), accum, fn)
+            assert _cuda.suffix(tile, accum, ggr_panel._SOURCE[fn]) == {
+                "bfloat16": "bf16", "float16": "f16"}[acc]
+        raising = ("panel_factor", "apply_factors")
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            _cuda.suffix(tile, accum)
+        raising = ("batched_update", "batched_geqrt", "panel_factor", "apply_factors")
+    for fn in raising:
+        with pytest.raises(NotImplementedError,
+                           match=f"{fn}: no CUDA kernel for {what}") as err:
+            ggr_panel._kernel_dtype_check(torch.zeros(2, dtype=tile), accum, fn)
+        if narrow:
+            assert "batched_update and batched_geqrt also take" in str(err.value)
 
 
 class _OnTheCard(torch.Tensor):
@@ -283,7 +306,7 @@ def launches(monkeypatch):
     empty = torch.empty
 
     def launch(source, prefix, tensors, *dims, accum=None):
-        _cuda.suffix(tensors[0].dtype, accum)  # the pair has a C entry point
+        _cuda.suffix(tensors[0].dtype, accum, source)  # the pair has a C entry point
         calls.append((prefix, [t.dtype for t in tensors], dims, accum))
 
     def query(source, prefix, x, smem, accum=None):
@@ -405,6 +428,78 @@ def test_a_wide_pair_is_launched_with_the_layout_of_an_f64_tile(tile, launches):
     (prefix, dtypes, dims, accum), = launches
     assert (prefix, dtypes, accum) == ("ggr_apply_factors", [tile] * 4 + [torch.float64],
                                        "float64")
+
+
+@pytest.fixture
+def routed(launches, monkeypatch):
+    """``launches``, with each kernel's plain version, when a wrapper runs
+    it on a CPU tensor, first taking the same tensor reported on the card
+    through the wrapper's CUDA host side (its checks, layout and the stubbed
+    launch): a CPU run of a path records the launches the card would make,
+    and goes on with the plain version's results.  The launch counts and
+    shape records are restored after the test."""
+    def via_card(mod, plain_name, cuda_fn):
+        plain = getattr(mod, plain_name)
+
+        def routed_plain(*args):
+            card = [torch.Tensor._make_subclass(_OnTheCard, a)
+                    if isinstance(a, torch.Tensor) else a for a in args]
+            if mod is ggr_apply:
+                cuda_fn(*card, None)  # out=None
+            else:
+                cuda_fn(*card)
+            return plain(*args)
+
+        monkeypatch.setattr(mod, plain_name, routed_plain)
+
+    for fn in (batched_update, batched_geqrt, ggr_panel.panel_factor,
+               ggr_apply.apply_factors):
+        monkeypatch.setattr(fn, "launches", fn.launches)
+        monkeypatch.setattr(fn, "shapes", set())
+    via_card(ggr_update, "batched_update_plain", ggr_update._batched_update_cuda)
+    via_card(ggr_panel, "batched_geqrt_plain", ggr_panel._batched_geqrt_cuda)
+    via_card(ggr_panel, "panel_factor_plain", ggr_panel._panel_factor_cuda)
+    via_card(ggr_apply, "apply_factors_plain", ggr_apply._apply_factors_cuda)
+    return launches
+
+
+@pytest.mark.parametrize("tile", [torch.bfloat16, torch.float16])
+def test_a_narrow_pair_launches_only_b1_and_b2(tile, routed):
+    """At Precision(t, t, t) the tree QR launches B2 and B1 only, and a
+    QRServer flush of appends and kalman steps stored at t launches B1
+    only, every launch the C function of the (t, t) pair (suffix "bf16" /
+    "f16"), laid out as a narrow instance: 4-byte values and the suffix-dot
+    scratch."""
+    dn = str(tile).removeprefix("torch.")
+    sfx = {"bfloat16": "bf16", "float16": "f16"}[dn]
+    prec = Precision(dn, dn, dn)
+
+    def held(records, prefixes):
+        assert {r[0] for r in records} == set(prefixes), records
+        for prefix, dtypes, dims, accum in records:
+            source = "ggr_update" if prefix == "ggr_batched_update" else "ggr_panel"
+            assert dtypes == [tile, tile] and accum == dn
+            assert _cuda.suffix(tile, accum, source) == sfx
+            B, m, w, n_piv, *layout = dims
+            want = (ggr_update._update_layout(m, w, n_piv, 4, True) if source == "ggr_update"
+                    else ggr_panel._geqrt_layout(m, w, 4, True))
+            assert tuple(layout) == want
+
+    A = torch.from_numpy(graded_matrix(96, 80, 1.0, seed=7)).float()
+    R = ggr_triangularize_blocked(A, schedule="tree", precision=prec)
+    assert R.dtype == tile
+    held(routed, ("ggr_batched_geqrt", "ggr_batched_update"))
+    routed.clear()
+
+    reqs = [(r[0], *(torch.as_tensor(x).to(tile) for x in r[1:]))
+            for r in serve_qr_make_workload(num=24, n=8, rows=4, k=1, device="cpu")
+            if r[0] in ("append", "kalman")]
+    srv = QRServer(device="cpu", precision=prec)
+    tickets = serve_qr_submit_all(srv, reqs)
+    srv.flush()
+    srv.drain()
+    assert all(srv.result(t)[0].dtype == tile for t in tickets)
+    held(routed, ("ggr_batched_update",))
 
 
 def test_a_mixed_panel_in_device_memory_keeps_its_slabs_in_the_scratch():

@@ -169,16 +169,20 @@ def test_update_layout_choice(m, w, n_piv, itemsize, layout):
 def test_update_layout_fits_the_card(m, w, n_piv, itemsize):
     """Whole warps, the kernel's thread bound and one block's shared memory
     a block, a named barrier for each group of more than one warp, and the
-    batch takes no part in the choice."""
-    G, PB, ws, nbuf = ggr_update._update_layout(m, w, n_piv, itemsize)
-    assert G % 32 == 0 and 32 <= G
-    assert G * PB <= ggr_update._KERNEL_THREADS
-    assert PB <= (32 if G == 32 else ggr_update._NAMED_BARRIERS)
-    assert ws >= w and nbuf in (1, 2)
-    smem = PB * ggr_update._smem_elems(m - n_piv + 1, ws, nbuf) * itemsize
-    assert smem <= _cuda.MAX_SMEM_BYTES
+    batch takes no part in the choice.  At 4 bytes also a narrow instance's
+    layout (bf16 / f16 tiles summed at their own width), its suffix-dot
+    scratch (n a thread) in the shared memory."""
+    for narrow in (False, True) if itemsize == 4 else (False,):
+        G, PB, ws, nbuf = ggr_update._update_layout(m, w, n_piv, itemsize, narrow)
+        assert G % 32 == 0 and 32 <= G
+        assert G * PB <= ggr_update._KERNEL_THREADS
+        assert PB <= (32 if G == 32 else ggr_update._NAMED_BARRIERS)
+        assert ws >= w and nbuf in (1, 2)
+        n = m - n_piv + 1
+        smem = PB * ggr_update._smem_elems(n, ws, nbuf, n * G if narrow else 0) * itemsize
+        assert smem <= _cuda.MAX_SMEM_BYTES
     assert list(inspect.signature(ggr_update._update_layout).parameters) == [
-        "m", "w", "n_pivots", "itemsize"]
+        "m", "w", "n_pivots", "itemsize", "narrow"]
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])

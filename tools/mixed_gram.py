@@ -3,7 +3,7 @@
 the fused and the tree schedule, through the CUDA kernels and through their
 plain versions, on the card.
 
-    python3 tools/mixed_gram.py [--sizes 1024,2048,4096] [--plain-max 4096]
+    python3 tools/mixed_gram.py [--sizes 1024,2048,4096] [--plain-max 4096] [--accum tile]
 
 For each size n it factors the leading n x n block of phase 5's matrix of
 ``chip_smoke.py`` (f32 Gaussian, drawn as phase 5 draws it) with
@@ -13,8 +13,12 @@ prints ``||A^T A - R^T R||_F / ||A^T A||_F`` (in f64).  Then, up to
 their plain PyTorch versions at the same (tile, f32) pair, on the same card
 tensors: the plain versions round where the JAX kernels round, so a gap
 between the schedules that they show too is the algorithm's, not the
-kernels'.  The card's name and power limit are printed first.  Imports
-nothing of the JAX package.
+kernels'.  ``--accum tile`` reads the tree schedule alone (the fused one
+does not take the pair on the card) at ``Precision(t, t, t)``, the tile
+summed at its own width, beside ``Precision(t, "float32", t)``, and prints
+their ratio: the reference's ``test_mixed_accumulation_beats_all_bf16``
+asks 1.5x of it.  The card's name and power limit are printed first.
+Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -29,13 +33,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(acc: str = "float32"):
     """The blocked schedules' four kernel calls routed to the plain versions
-    at f32 accumulation."""
+    at accumulation ``acc``."""
     from repro_torch.core import blocked
     from repro_torch.kernels import ggr_apply, ggr_panel, ggr_update
-
-    acc = "float32"
 
     def geqrt(tiles, n_pivots, **_):
         return ggr_panel.batched_geqrt_plain(tiles, n_pivots, acc)
@@ -76,6 +78,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="1024,2048,4096")
     ap.add_argument("--plain-max", type=int, default=4096)
+    ap.add_argument("--accum", choices=("float32", "tile"), default="float32",
+                    help="tile: the tree QR summed at the tile's width beside f32 sums")
     args = ap.parse_args()
     import torch
 
@@ -95,6 +99,9 @@ def main() -> int:
     for n in (int(v) for v in args.sizes.split(",")):
         A = M[:n, :n].contiguous()
         A64 = A.double()
+        if args.accum == "tile":
+            narrow(A, A64, n <= args.plain_max)
+            continue
         for pol in ("bf16", "mixed_f16"):
             for route in ("kernels", "plain"):
                 if route == "plain" and n > args.plain_max:
@@ -107,6 +114,27 @@ def main() -> int:
                       f"{res['fused']:.3e}, tree {res['tree']:.3e} (tree / fused "
                       f"{res['tree'] / res['fused']:.2f})", flush=True)
     return 0
+
+
+def narrow(A, A64, plain: bool) -> None:
+    """``--accum tile`` at one size: the tree QR's gram residual at (t, t)
+    over (t, float32), t = bf16 and f16, through the kernels and, if
+    ``plain``, through the plain versions."""
+    from repro_torch.core import ggr_qr_blocked
+    from repro_torch.kernels import Precision
+
+    n = A.shape[0]
+    for t in ("bfloat16", "float16"):
+        for route in ("kernels", "plain") if plain else ("kernels",):
+            res = {}
+            for acc in (t, "float32"):
+                ctx = plain_kernels(acc) if route == "plain" else contextlib.nullcontext()
+                with ctx:
+                    res[acc] = gram(A64, ggr_qr_blocked(A, schedule="tree",
+                                                        precision=Precision(t, acc, t)))
+            print(f"  {n}x{n} tree ({t}, {t}) {route}: gram residual {res[t]:.4e}, ({t}, "
+                  f"float32) {res['float32']:.4e}, ratio {res[t] / res['float32']:.3f}",
+                  flush=True)
 
 
 if __name__ == "__main__":

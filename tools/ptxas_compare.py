@@ -10,8 +10,10 @@ under ``build/``).  Each source of both trees is compiled with
 into a temporary directory; every kernel instance is named by its demangled
 signature (``cu++filt``), with a storage type that equals the compute type
 dropped (``kernel<float, float>`` is the uniform instance that an older tree
-names ``kernel<float>``).  Prints each instance's registers, spill stores
-and loads and stack frame in both trees, and exits non-zero when an
+names ``kernel<float>``) and a narrow flag that is off dropped
+(``kernel<float, float, (bool)0>`` is an older tree's ``kernel<float,
+float>``).  Prints each instance's registers, spill stores and loads and
+stack frame in both trees, and exits non-zero when an
 instance present in both differs.  Needs nvcc; runs on the machine with the
 card.  Imports nothing of the JAX package.
 
@@ -63,7 +65,8 @@ def reports(tree: Path, flags, tmp: Path) -> dict[str, str]:
 
 
 def _key(demangled: str) -> str:
-    """``kernel<S, T, ...>`` with S dropped where S == T, without its
+    """``kernel<S, T, ...>`` with S dropped where S == T and a last ``(bool)0``
+    (the narrow flag of B1's and B2's kernels, off) dropped, without its
     namespace, return type and parameters (template arguments such as
     ``(int)8`` hold parentheses, so the arguments end at the matching '>')."""
     s = demangled.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
@@ -77,6 +80,8 @@ def _key(demangled: str) -> str:
         if depth == 0:
             break
     args = [a.strip() for a in s[lt + 1:end].split(",")]
+    if len(args) > 1 and args[-1] in ("false", "(bool)0"):  # B1's / B2's narrow flag, off
+        args = args[:-1]
     if len(args) > 1 and args[0] == args[1]:
         args = args[1:]
     return f"{s[:lt]}<{', '.join(args)}>"

@@ -30,7 +30,13 @@ part by part, and over the draws the most of its least over the parts,
 which ``ROUNDING``'s lower end must stay above; then the control's
 max|err| / rms from the plain version, least over the draws, and the
 draws in which the control passes ``KernelCase.compare`` (it must pass in
-none).  ``--phase14`` records every (shape, pair) that phase 14 (a) and
+none).  A case held by its share (``kernel_check.wide_held``: a wide
+one, f64 sums, or a narrow one, B1 / B2 at a bf16 / f16 tile summed at its
+own width) is read as ``KernelCase.compare_wide`` reads it over N draws
+(the case's own inputs, then generator seeds 1, 2, ...): the share of
+entries equal to the plain version (mean and least draw), the (tile,
+float32) control's (mean and most draw) and the worst max|err| / rms, the
+readings behind ``WIDE_EQUAL`` and ``NARROW_EQUAL``.  ``--phase14`` records every (shape, pair) that phase 14 (a) and
 (c) of ``chip_smoke.py`` launch (the serving mix stored in bf16 / f16,
 the 4096^2 QR at both policies and schedules) and reads each as
 ``--dtype`` does over N draws: per kernel and tile dtype, the worst
@@ -108,6 +114,11 @@ def main() -> int:
         if args.dtype and dname != DTYPES[args.dtype]:
             continue
         dtype = getattr(torch, dname)
+        if len(data) == 2:  # (data, accum): a wide or a narrow case
+            read_shares(chip_smoke.KernelCase(
+                name, shape, param, dtype, torch.Generator(device="cuda").manual_seed(0),
+                *data), args.draws)
+            continue
         rels, own, own_plain, worst, mixed = [], [], [], None, []
         for seed in range(1, args.draws + 1):
             gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -141,6 +152,22 @@ def main() -> int:
                   f"{tile_note(tile, param, plain[name], rms64)}", flush=True)
     chip_smoke.FAILURES.clear()  # a reading over its bound is printed, not failed
     return 0
+
+
+def read_shares(case, draws: int) -> None:
+    """A case held by its share, over ``draws`` draws."""
+    import chip_smoke
+    from repro_torch.testing import kernel_check as kc
+
+    kc.WIDE_DRAWS = draws
+    case.compare_wide()
+    r = case.readings
+    print(f"  {case.label()}: {draws} draws, share mean {statistics.fmean(r['share']):.7f} "
+          f"least {min(r['share']):.7f} (limit {kc.equal_limit(case.dname, case.accum):g}); "
+          f"control share mean {statistics.fmean(r['control_share']):.7f} most "
+          f"{max(r['control_share']):.7f}; max|err| / rms worst {max(r['rel']):.2e} "
+          f"(<= {case.rel_tol:.1e})", flush=True)
+    chip_smoke.FAILURES.clear()
 
 
 def mixed_reading(case) -> dict:
